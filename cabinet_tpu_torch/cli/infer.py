@@ -1,0 +1,328 @@
+"""Inference CLI for CABiNet checkpoints on the GPU (counterpart of
+`cabinet_tpu.cli.infer`).
+
+Routes by path type/extension:
+  - image (.png/.jpg/...): writes <stem>_mask.png + <stem>_overlay.png
+  - folder: every image inside
+  - video (.mp4/.avi/...): writes <stem>_mask.mp4 + <stem>_overlay.mp4,
+    batch-1 at the fixed resolution, or chunks of frames with --batch N
+  - --showcase: a 2x2 mosaic video of up to 4 clips
+
+Usage:
+    python -m cabinet_tpu_torch.cli.infer --checkpoint ck.pth --dataset uavid \
+        --source img.png [--out-dir out] [--alpha 0.5] [--imgsz 1024]
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cabinet_tpu_torch.core.device import resolve_device
+from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
+from cabinet_tpu_torch.models.cabinet import CABiNet
+
+IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
+VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv"}
+
+
+def load_state_dict(checkpoint: Union[str, Path], model: CABiNet
+                    ) -> Dict[str, torch.Tensor]:
+    """Weights for `model` from a reference `.pth` (a state dict, or a
+    training checkpoint with `model_state`/`ema_state`) or a JAX variables
+    `.npz` (nested or flat keys, through `utils.convert`)."""
+    path = Path(checkpoint)
+    if path.suffix == ".npz":
+        from cabinet_tpu_torch.utils.convert import state_dict_from_jax
+
+        with np.load(path) as data:
+            return state_dict_from_jax({k: data[k] for k in data.files},
+                                       model.cfgs)
+    if path.suffix in (".pth", ".pt"):
+        blob = torch.load(str(path), map_location="cpu", weights_only=True)
+        if isinstance(blob, dict) and "model_state" in blob:
+            blob = blob.get("ema_state") or blob["model_state"]
+        if not isinstance(blob, dict):
+            raise ValueError(f"Unrecognized checkpoint format: {path}")
+        sd = {k: v for k, v in blob.items()
+              if not k.startswith("mobile.classifier")}
+        # BN step counters are bookkeeping, not weights; a state dict written
+        # from JAX variables has none.
+        for k, v in model.state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                sd.setdefault(k, v)
+        return sd
+    raise ValueError(f"Unrecognized checkpoint: {path}")
+
+
+class Segmenter:
+    """Fixed-resolution CABiNet inference engine on one device.
+
+    Runs on CUDA unless `device="cpu"`; raises when CUDA is asked for and
+    there is none. Routing follows `cabinet_tpu.cli.infer.Segmenter` with
+    "the backend is a TPU" read as "the device is CUDA": Large in bf16 with a
+    supported /8 grid runs the fused tail (kernels K2, K3) and, with
+    `kernel_attn`, the CAB attention kernel K1. The JAX engine also runs
+    the stem+block_0 kernel at batch >= 8; that kernel is not ported yet,
+    so here stem and block_0 run as plain modules at every batch. Other
+    configurations run the model's forward, where the attention wrapper
+    takes its plain version for CPU tensors. The attention kernel takes
+    bf16 only, so float32 on CUDA raises unless `kernel_attn=False` (the
+    einsum path); the JAX kernel also runs in float32.
+
+    Inputs of another size than `imgsz` are resized on the device with
+    torch's bilinear interpolation, which never anti-aliases: it is not
+    PIL's BILINEAR, which the JAX engine uses and which anti-aliases on a
+    downscale. At size == imgsz both are the identity. Masks go back to the
+    input size with "nearest-exact", PIL NEAREST's pixel-centre rule (the
+    two can pick neighbouring pixels only where a centre falls exactly on a
+    pixel boundary, which float rounding decides in each).
+    """
+
+    def __init__(self, checkpoint: str, dataset: str, mode: str = "large",
+                 imgsz: int = 1024, dtype_name: str = "bfloat16",
+                 batch: int = 1, kernel_attn: bool = True,
+                 device: Union[str, torch.device] = "cuda"):
+        from cabinet_tpu_torch.ops.decoder_tail import fused_tail_supported
+
+        self.device = resolve_device(device)
+        self.dtype = {"bfloat16": torch.bfloat16,
+                      "float32": torch.float32}[dtype_name]
+        if (kernel_attn and self.device.type == "cuda"
+                and self.dtype != torch.bfloat16):
+            raise ValueError(
+                f"the attention kernel takes bfloat16; for {dtype_name} on "
+                f"CUDA pass kernel_attn=False (--no-kernel-attn) to run the "
+                f"einsum path")
+        stats = DATASET_REGISTRY[dataset]
+        self.n_classes = stats.NUM_CLASSES
+        self.mean = torch.tensor(stats.MEAN, device=self.device)
+        self.std = torch.tensor(stats.STD, device=self.device)
+        self.imgsz = imgsz
+        self.batch = max(1, int(batch))
+        self.model = CABiNet(self.n_classes, mode=mode,
+                             attention="kernel" if kernel_attn else "einsum")
+        self.model.load_state_dict(load_state_dict(checkpoint, self.model),
+                                   strict=True)
+
+        s8 = imgsz // 8
+        if (mode == "large" and self.device.type == "cuda"
+                and self.dtype == torch.bfloat16
+                and fused_tail_supported(s8, s8, self.n_classes)):
+            from cabinet_tpu_torch.models.fused import make_fused_tail_apply
+
+            fused = make_fused_tail_apply(self.model, self.device, self.dtype)
+            self._logits = lambda x: fused(x)[0]
+        else:
+            self.model.to(device=self.device, dtype=self.dtype).eval()
+            self._logits = lambda x: self.model(
+                x.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B,imgsz,imgsz,3) normalised f32 -> (B,imgsz,imgsz) class IDs."""
+        return torch.argmax(self._logits(x.to(self.dtype)), dim=-1)
+
+    def _preprocess(self, rgb: np.ndarray) -> torch.Tensor:
+        x = torch.tensor(rgb, device=self.device).permute(2, 0, 1)[None]
+        x = x.float() / 255.0
+        if tuple(x.shape[2:]) != (self.imgsz, self.imgsz):
+            x = F.interpolate(x, size=(self.imgsz, self.imgsz), mode="bilinear",
+                              align_corners=False, antialias=False)
+        return ((x[0].permute(1, 2, 0) - self.mean) / self.std)
+
+    @staticmethod
+    def _postprocess(pred: torch.Tensor, hw: Tuple[int, int]) -> np.ndarray:
+        if tuple(hw) != tuple(pred.shape):
+            pred = F.interpolate(pred[None, None].float(), size=tuple(hw),
+                                 mode="nearest-exact")[0, 0]
+        return pred.to(torch.int32).cpu().numpy()
+
+    def predict(self, rgb: np.ndarray) -> np.ndarray:
+        """RGB uint8 (H,W,3) -> class-ID mask (H,W) int32, through the fixed
+        resolution and back."""
+        pred = self._forward(self._preprocess(rgb)[None])[0]
+        return self._postprocess(pred, rgb.shape[:2])
+
+    def predict_batch(self, rgbs) -> list:
+        """List of RGB uint8 frames -> list of class-ID masks. Frames are
+        padded with zeros up to the engine batch."""
+        xs = torch.stack([self._preprocess(r) for r in rgbs])
+        n = len(rgbs)
+        if n < self.batch:
+            xs = F.pad(xs, (0, 0, 0, 0, 0, 0, 0, self.batch - n))
+        preds = self._forward(xs)
+        return [self._postprocess(preds[i], rgbs[i].shape[:2]) for i in range(n)]
+
+
+def _overlay(rgb: np.ndarray, mask_rgb: np.ndarray, alpha: float) -> np.ndarray:
+    return ((1 - alpha) * rgb + alpha * mask_rgb).astype(np.uint8)
+
+
+def infer_image(seg: Segmenter, classes, path: Path, out_dir: Path,
+                alpha: float) -> None:
+    from PIL import Image
+
+    from cabinet_tpu_torch.data.palettes import colorize_mask
+
+    rgb = np.asarray(Image.open(path).convert("RGB"))
+    mask_rgb = colorize_mask(seg.predict(rgb), classes)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(mask_rgb).save(out_dir / f"{path.stem}_mask.png")
+    Image.fromarray(_overlay(rgb, mask_rgb, alpha)).save(
+        out_dir / f"{path.stem}_overlay.png")
+
+
+def infer_video(seg: Segmenter, classes, path: Path, out_dir: Path,
+                alpha: float) -> None:
+    import cv2
+
+    from cabinet_tpu_torch.data.palettes import colorize_mask
+
+    cap = cv2.VideoCapture(str(path))
+    if not cap.isOpened():
+        raise FileNotFoundError(f"Cannot open video: {path}")
+    fps = cap.get(cv2.CAP_PROP_FPS) or 25
+    w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fourcc = cv2.VideoWriter_fourcc(*"mp4v")
+    mask_w = cv2.VideoWriter(str(out_dir / f"{path.stem}_mask.mp4"), fourcc,
+                             fps, (w, h))
+    over_w = cv2.VideoWriter(str(out_dir / f"{path.stem}_overlay.mp4"), fourcc,
+                             fps, (w, h))
+    n = 0
+
+    def flush(chunk):
+        nonlocal n
+        if not chunk:
+            return
+        preds = (seg.predict_batch(chunk) if seg.batch > 1
+                 else [seg.predict(chunk[0])])
+        for rgb, pred in zip(chunk, preds):
+            mask_rgb = colorize_mask(pred, classes)
+            mask_w.write(cv2.cvtColor(mask_rgb, cv2.COLOR_RGB2BGR))
+            over_w.write(cv2.cvtColor(_overlay(rgb, mask_rgb, alpha),
+                                      cv2.COLOR_RGB2BGR))
+            n += 1
+
+    try:
+        chunk = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            chunk.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            if len(chunk) == seg.batch:
+                flush(chunk)
+                chunk = []
+        flush(chunk)
+    finally:
+        cap.release()
+        mask_w.release()
+        over_w.release()
+    print(f"[INFO] {path.name}: {n} frames")
+
+
+def infer_showcase(seg: Segmenter, classes, paths, out_dir: Path,
+                   alpha: float, tile_size: Tuple[int, int] = (640, 360)
+                   ) -> None:
+    """2x2 showcase mosaic of up to 4 clips with a per-clip temporal
+    raw -> mask reveal ramp (reference infer_yolo.py:288-374): each tile
+    starts as raw footage and blends toward the segmentation overlay over
+    the clip, with staggered ramp offsets so tiles reveal one by one."""
+    import cv2
+
+    from cabinet_tpu_torch.data.palettes import colorize_mask
+
+    paths = list(paths)[:4]
+    caps = [cv2.VideoCapture(str(p)) for p in paths]
+    try:
+        if not caps or not all(c.isOpened() for c in caps):
+            raise FileNotFoundError(f"Cannot open showcase clips: {paths}")
+        fps = caps[0].get(cv2.CAP_PROP_FPS) or 25
+        n_frames = min(int(c.get(cv2.CAP_PROP_FRAME_COUNT)) or 1 for c in caps)
+        tw, th = tile_size
+        out_dir.mkdir(parents=True, exist_ok=True)
+        writer = cv2.VideoWriter(str(out_dir / "showcase.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                                 (2 * tw, 2 * th))
+        try:
+            for f in range(n_frames):
+                mosaic = np.zeros((2 * th, 2 * tw, 3), np.uint8)
+                for i, cap in enumerate(caps):
+                    ok, frame = cap.read()
+                    if not ok:
+                        continue
+                    rgb = cv2.cvtColor(cv2.resize(frame, (tw, th)),
+                                       cv2.COLOR_BGR2RGB)
+                    mask_rgb = colorize_mask(seg.predict(rgb), classes)
+                    t = f / max(n_frames - 1, 1)
+                    ramp = np.clip((t - i * 0.2) / 0.4, 0.0, 1.0)
+                    blended = ((1 - ramp * alpha) * rgb
+                               + ramp * alpha * mask_rgb).astype(np.uint8)
+                    r, c = divmod(i, 2)
+                    mosaic[r * th:(r + 1) * th, c * tw:(c + 1) * tw] = blended
+                writer.write(cv2.cvtColor(mosaic, cv2.COLOR_RGB2BGR))
+        finally:
+            writer.release()
+    finally:
+        for c in caps:
+            c.release()
+    print(f"[INFO] showcase: {n_frames} frames, {len(caps)} clips")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    from cabinet_tpu_torch.data.palettes import PALETTES
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--checkpoint", required=True,
+                   help="reference .pth state dict or JAX variables .npz")
+    p.add_argument("--dataset", required=True, choices=sorted(PALETTES))
+    p.add_argument("--source", required=True, type=Path)
+    p.add_argument("--mode", default="large", choices=["large", "small"])
+    p.add_argument("--imgsz", type=int, default=1024)
+    p.add_argument("--out-dir", type=Path, default=Path("inference_out"))
+    p.add_argument("--alpha", type=float, default=0.5)
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--batch", type=int, default=1,
+                   help="frames per forward for video throughput")
+    p.add_argument("--showcase", action="store_true",
+                   help="build a 2x2 mosaic showcase video from the first 4 "
+                        "clips in --source (a directory of videos)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain versions")
+    p.add_argument("--no-kernel-attn", action="store_true",
+                   help="run the CAB attention on the einsum path instead of "
+                        "the attention kernel (needed for float32 on CUDA)")
+    args = p.parse_args(argv)
+
+    classes = PALETTES[args.dataset]
+    seg = Segmenter(args.checkpoint, args.dataset, args.mode, args.imgsz,
+                    args.dtype, batch=args.batch,
+                    kernel_attn=not args.no_kernel_attn, device=args.device)
+    src = args.source
+    if args.showcase:
+        clips = ([f for f in sorted(src.iterdir())
+                  if f.suffix.lower() in VIDEO_EXTS] if src.is_dir() else [src])
+        infer_showcase(seg, classes, clips, args.out_dir, args.alpha)
+    elif src.is_dir():
+        for f in sorted(src.iterdir()):
+            if f.suffix.lower() in IMAGE_EXTS:
+                infer_image(seg, classes, f, args.out_dir, args.alpha)
+    elif src.suffix.lower() in IMAGE_EXTS:
+        infer_image(seg, classes, src, args.out_dir, args.alpha)
+    elif src.suffix.lower() in VIDEO_EXTS:
+        infer_video(seg, classes, src, args.out_dir, args.alpha)
+    else:
+        raise ValueError(f"Unsupported source: {src}")
+    print(f"[DONE] Output: {args.out_dir}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,113 @@
+"""Shared NN building blocks (PyTorch / NCHW).
+
+Counterpart of `cabinet_tpu.models.layers`. Module and attribute names follow
+the reference torch state-dict keys, so a reference `.pth` loads with
+`load_state_dict(strict=True)`. BatchNorm uses eps 1e-5 and torch momentum 0.1
+(flax momentum 0.9), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def make_divisible(v: float, divisor: int, min_value: Optional[int] = None) -> int:
+    """Channel rounding used by every MobileNet width computation
+    (reference mobilenetv3.py:18-35)."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """relu6(x + 3) / 6 (reference mobilenetv3.py:38-50)."""
+    return torch.clamp(x + 3.0, 0.0, 6.0) * (1.0 / 6.0)
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    """x * hard_sigmoid(x) (reference mobilenetv3.py:53-65)."""
+    return x * hard_sigmoid(x)
+
+
+class HardSigmoid(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return hard_sigmoid(x)
+
+
+class HardSwish(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return hard_swish(x)
+
+
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    """BatchNorm with the JAX package's numerics (eps 1e-5)."""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class DepthwiseConv2D(nn.Conv2d):
+    """Bias-free depthwise conv; weight (C, 1, k, k), padding (k-1)//2 unless
+    given."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, stride: int = 1,
+                 padding: Optional[int] = None):
+        pad = padding if padding is not None else (kernel_size - 1) // 2
+        super().__init__(channels, channels, kernel_size, stride, pad,
+                         groups=channels, bias=False)
+
+
+class ConvBNReLU(nn.Module):
+    """Conv(no bias) + BN + ReLU (reference cabinet.py:19-51); children
+    `conv` and `bn`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dilation: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
+                              padding, dilation=dilation, bias=False)
+        self.bn = batch_norm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x)))
+
+
+class DWConv(nn.Module):
+    """3x3 depthwise conv + BN + ReLU (reference cab.py:18-38); child
+    `block` = (conv, bn, relu)."""
+
+    def __init__(self, channels: int, stride: int = 1):
+        super().__init__()
+        self.block = nn.Sequential(DepthwiseConv2D(channels, 3, stride),
+                                   batch_norm(channels), nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excite: GAP -> FC(c/4) -> ReLU -> FC(c) -> hard_sigmoid ->
+    scale (reference mobilenetv3.py:68-83); child `fc` = (fc1, relu, fc2,
+    hard_sigmoid)."""
+
+    def __init__(self, channels: int, reduction: int = 4):
+        super().__init__()
+        hidden = make_divisible(channels // reduction, 8)
+        self.fc = nn.Sequential(nn.Linear(channels, hidden), nn.ReLU(),
+                                nn.Linear(hidden, channels), HardSigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.fc(x.mean(dim=(2, 3)))
+        return x * y[:, :, None, None]
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_size: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """torch AdaptiveAvgPool2d on NCHW: bin i covers
+    [floor(i*H/s), ceil((i+1)*H/s)), the bins of the JAX matmul form."""
+    return F.adaptive_avg_pool2d(x, output_size)

@@ -1,0 +1,82 @@
+"""Helpers shared by the tests/test_torch_*.py files, which hold the
+PyTorch port (cabinet_tpu_torch) against the JAX package on the CPU."""
+
+from pathlib import Path
+
+import jax
+import numpy as np
+import torch
+
+FIXTURE_DIR = Path(__file__).resolve().parent / "fixtures"
+LARGE_FIXTURE = FIXTURE_DIR / "miou_large_cabinet_v1.npz"
+
+# The suite's f32 bound for activations (docs/ARCHITECTURE.md): 2e-4 of the
+# largest reference magnitude.
+F32_REL = 2e-4
+
+
+def assert_close_f32(got, ref, rel=F32_REL):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    err = float(np.max(np.abs(got - ref)))
+    bound = rel * (float(np.max(np.abs(ref))) + 1e-6)
+    assert err <= bound, f"max abs err {err} > bound {bound}"
+
+
+def to_numpy_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def perturb(variables, seed=0, scale=0.05):
+    """Numpy copy of JAX variables with seeded noise on every array, BN
+    variances kept positive, and the CAB's zero-initialised gamma and
+    project_out made non-zero so the global attention reaches the output."""
+    rng = np.random.default_rng(seed)
+    v = to_numpy_tree(variables)
+
+    def noisy(path, a):
+        names = [getattr(p, "key", "") for p in path]
+        a = a + scale * rng.standard_normal(a.shape).astype(a.dtype)
+        if names[-1] == "var":
+            a = np.abs(a) + 0.5
+        if names[-1] == "gamma":
+            a = a + 0.7
+        return a
+
+    v = jax.tree_util.tree_map_with_path(noisy, v)
+    po = v["params"]["ab"]["a2block"]["global_attn"]["project_out"]
+    po["kernel"] = (0.1 * rng.standard_normal(po["kernel"].shape)
+                    ).astype(np.float32)
+    return v
+
+
+def port_model(variables, n_classes, mode, cfgs, attention="einsum"):
+    """The port's CABiNet holding `variables` (through the weight bridge)."""
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.utils.convert import state_dict_from_jax
+
+    model = CABiNet(n_classes, mode=mode, cfgs=cfgs, attention=attention)
+    model.load_state_dict(state_dict_from_jax(variables, cfgs), strict=True)
+    return model.eval()
+
+
+def nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def nhwc(t):
+    return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def load_large_fixture():
+    """(flat numpy arrays, nested JAX variables in f32) of the trained
+    CABiNet-Large fixture (5 classes, full published cfg table)."""
+    from flax.traverse_util import unflatten_dict
+
+    with np.load(LARGE_FIXTURE) as data:
+        flat = {k: data[k] for k in data.files}
+    nested = unflatten_dict({
+        tuple(k.split("/")): v.astype(np.float32) if v.dtype == np.float16 else v
+        for k, v in flat.items()})
+    return flat, nested
