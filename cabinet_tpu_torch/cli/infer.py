@@ -6,6 +6,7 @@ Routes by path type/extension:
   - folder: every image inside
   - video (.mp4/.avi/...): writes <stem>_mask.mp4 + <stem>_overlay.mp4,
     batch-1 at the fixed resolution, or chunks of frames with --batch N
+    (N >= 8 adds the stem+block_0 kernel, as the JAX engine does)
   - --showcase: a 2x2 mosaic video of up to 4 clips
 
 Usage:
@@ -60,45 +61,81 @@ def load_state_dict(checkpoint: Union[str, Path], model: CABiNet
     raise ValueError(f"Unrecognized checkpoint: {path}")
 
 
+def choose_route(mode: str, device_type: str, dtype: torch.dtype, batch: int,
+                 imgsz: int, n_classes: int) -> str:
+    """The forward `Segmenter` runs, by the rule of
+    `cabinet_tpu.cli.infer.Segmenter` with "the backend is a TPU" read as
+    "the device is CUDA":
+
+      - "fused_tail_early": Large, bf16, a supported /8 grid, batch >= 8 and
+        a supported early stage: K4, then the fused tail (K2, K3);
+      - "fused_tail": the same below batch 8 or without K4's support;
+      - "fused_early": otherwise, at batch >= 8 with K4's support: K4 in
+        front of the model's own forward (`make_fused_apply`);
+      - "model": the model's forward.
+
+    The CAB attention is the model's choice on every route."""
+    from cabinet_tpu_torch.models.fused import fused_early_supported
+    from cabinet_tpu_torch.ops.decoder_tail import fused_tail_supported
+
+    if mode != "large" or device_type != "cuda":
+        return "model"
+    s8 = imgsz // 8
+    early = batch >= 8 and fused_early_supported((1, imgsz, imgsz, 3))
+    if fused_tail_supported(s8, s8, n_classes) and dtype == torch.bfloat16:
+        return "fused_tail_early" if early else "fused_tail"
+    return "fused_early" if early else "model"
+
+
+def _resize_like_pil(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Resize (1,3,H,W) float 0..255 values as PIL's BILINEAR resizes a
+    uint8 image: a triangle filter widened by the scale on a downscale
+    (anti-aliased), the width first and then the height, each pass rounded
+    half up to a uint8 value. Within one level of PIL on every pixel."""
+    def one_pass(t, hw):
+        t = F.interpolate(t, size=hw, mode="bilinear", align_corners=False,
+                          antialias=True)
+        return torch.floor(t + 0.5).clamp_(0.0, 255.0)
+
+    H, W = x.shape[2:]
+    if W != size[1]:
+        x = one_pass(x, (H, size[1]))
+    if H != size[0]:
+        x = one_pass(x, tuple(size))
+    return x
+
+
 class Segmenter:
     """Fixed-resolution CABiNet inference engine on one device.
 
     Runs on CUDA unless `device="cpu"`; raises when CUDA is asked for and
-    there is none. Routing follows `cabinet_tpu.cli.infer.Segmenter` with
-    "the backend is a TPU" read as "the device is CUDA": Large in bf16 with a
-    supported /8 grid runs the fused tail (kernels K2, K3) and, with
-    `kernel_attn`, the CAB attention kernel K1. The JAX engine also runs
-    the stem+block_0 kernel at batch >= 8; that kernel is not ported yet,
-    so here stem and block_0 run as plain modules at every batch. Other
-    configurations run the model's forward, where the attention wrapper
-    takes its plain version for CPU tensors. The attention kernel takes
-    bf16 only, so float32 on CUDA raises unless `kernel_attn=False` (the
-    einsum path); the JAX kernel also runs in float32.
+    there is none. `choose_route` picks the forward by the JAX engine's
+    rule: Large in bf16 with a supported /8 grid runs the fused tail
+    (kernels K2, K3), and at batch >= 8 also the stem+block_0 kernel K4; in
+    another dtype (float32) batch >= 8 runs K4 in front of the model's
+    forward; everything else, and every CPU run, runs the model's forward.
+    With `kernel_attn` the CAB attention is kernel K1 in bf16 or float32
+    (its plain version for CPU tensors); without it, the einsum path. The
+    chosen route is `self.route`.
 
-    Inputs of another size than `imgsz` are resized on the device with
-    torch's bilinear interpolation, which never anti-aliases: it is not
-    PIL's BILINEAR, which the JAX engine uses and which anti-aliases on a
-    downscale. At size == imgsz both are the identity. Masks go back to the
-    input size with "nearest-exact", PIL NEAREST's pixel-centre rule (the
-    two can pick neighbouring pixels only where a centre falls exactly on a
-    pixel boundary, which float rounding decides in each).
+    Inputs of another size than `imgsz` are resized as PIL's BILINEAR
+    resizes the uint8 frame in the JAX engine (anti-aliased on a downscale,
+    within one level of PIL per pixel; `_resize_like_pil`), then
+    normalised. Masks go back to the input size with "nearest-exact", PIL
+    NEAREST's pixel-centre rule (the two can pick neighbouring pixels only
+    where a centre falls exactly on a pixel boundary, which float rounding
+    decides in each).
     """
 
     def __init__(self, checkpoint: str, dataset: str, mode: str = "large",
                  imgsz: int = 1024, dtype_name: str = "bfloat16",
                  batch: int = 1, kernel_attn: bool = True,
                  device: Union[str, torch.device] = "cuda"):
-        from cabinet_tpu_torch.ops.decoder_tail import fused_tail_supported
+        from cabinet_tpu_torch.models import fused
 
         self.device = resolve_device(device)
         self.dtype = {"bfloat16": torch.bfloat16,
                       "float32": torch.float32}[dtype_name]
-        if (kernel_attn and self.device.type == "cuda"
-                and self.dtype != torch.bfloat16):
-            raise ValueError(
-                f"the attention kernel takes bfloat16; for {dtype_name} on "
-                f"CUDA pass kernel_attn=False (--no-kernel-attn) to run the "
-                f"einsum path")
         stats = DATASET_REGISTRY[dataset]
         self.n_classes = stats.NUM_CLASSES
         self.mean = torch.tensor(stats.MEAN, device=self.device)
@@ -110,18 +147,20 @@ class Segmenter:
         self.model.load_state_dict(load_state_dict(checkpoint, self.model),
                                    strict=True)
 
-        s8 = imgsz // 8
-        if (mode == "large" and self.device.type == "cuda"
-                and self.dtype == torch.bfloat16
-                and fused_tail_supported(s8, s8, self.n_classes)):
-            from cabinet_tpu_torch.models.fused import make_fused_tail_apply
-
-            fused = make_fused_tail_apply(self.model, self.device, self.dtype)
-            self._logits = lambda x: fused(x)[0]
-        else:
+        self.route = choose_route(mode, self.device.type, self.dtype,
+                                  self.batch, imgsz, self.n_classes)
+        if self.route == "model":
             self.model.to(device=self.device, dtype=self.dtype).eval()
             self._logits = lambda x: self.model(
                 x.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+            return
+        if self.route == "fused_early":
+            forward = fused.make_fused_apply(self.model, self.device, self.dtype)
+        else:
+            forward = fused.make_fused_tail_apply(
+                self.model, self.device, self.dtype,
+                use_early=self.route == "fused_tail_early")
+        self._logits = lambda x: forward(x)[0]
 
     @torch.no_grad()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -129,12 +168,10 @@ class Segmenter:
         return torch.argmax(self._logits(x.to(self.dtype)), dim=-1)
 
     def _preprocess(self, rgb: np.ndarray) -> torch.Tensor:
-        x = torch.tensor(rgb, device=self.device).permute(2, 0, 1)[None]
-        x = x.float() / 255.0
+        x = torch.tensor(rgb, device=self.device).permute(2, 0, 1)[None].float()
         if tuple(x.shape[2:]) != (self.imgsz, self.imgsz):
-            x = F.interpolate(x, size=(self.imgsz, self.imgsz), mode="bilinear",
-                              align_corners=False, antialias=False)
-        return ((x[0].permute(1, 2, 0) - self.mean) / self.std)
+            x = _resize_like_pil(x, (self.imgsz, self.imgsz))
+        return (x[0].permute(1, 2, 0) / 255.0 - self.mean) / self.std
 
     @staticmethod
     def _postprocess(pred: torch.Tensor, hw: Tuple[int, int]) -> np.ndarray:
@@ -299,7 +336,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                    help="torch device; 'cpu' runs the kernels' plain versions")
     p.add_argument("--no-kernel-attn", action="store_true",
                    help="run the CAB attention on the einsum path instead of "
-                        "the attention kernel (needed for float32 on CUDA)")
+                        "the attention kernel")
     args = p.parse_args(argv)
 
     classes = PALETTES[args.dataset]

@@ -1,7 +1,11 @@
-"""Model constants read by the CABiNet modules (copy of the part of
-`cabinet_tpu.core.constants` that the models use)."""
+"""Constants read by the CABiNet modules and the evaluator (copy of the part
+of `cabinet_tpu.core.constants` that the port uses)."""
 
 from typing import Any, Dict
+
+# Evaluation constants (sliding-window protocol, reference evaluate.py:124-126).
+EVAL_STRIDE_RATE = 5 / 6.0
+DEFAULT_IGNORE_LABEL = 255
 
 # MobileNetV3 backbone final feature widths (pre-pool 1x1 conv output).
 MOBILENET_LARGE_FEATURES = 960

@@ -26,6 +26,16 @@
 // Softmax and rescaling read and write the tiles in shared memory, one warp
 // per row group, in f32 with expf. The output is O / l rounded to bf16.
 // Simple first: one stage, no cp.async/TMA, no wgmma.
+//
+// The float32 variant (attention_f32_kernel) computes the same function on
+// f32 q, k, v with plain f32 FMAs on the CUDA cores: no tensor cores, so no
+// TF32 and no bf16 splitting, as the Pallas body's f32 math and the f32
+// eval parity need. At N=1024, K=V=128 its 0.54 GFLOP per image bound it on
+// the f32 SIMT rate (67 TFLOP/s, ~8 us). One block of 256 threads owns 32
+// query rows and walks key tiles of 32 with the same online softmax; each
+// thread keeps 4 scores and up to 32 output columns of one row in
+// registers, and the 8 threads of a row reduce its max and sum by shuffles.
+// Shared rows are padded by one word against bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,7 +185,133 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 variant
+// ---------------------------------------------------------------------------
+
+constexpr int F_BQ = 32;      // query rows per block
+constexpr int F_BKV = 32;     // key rows per tile
+constexpr int F_THREADS = 256;
+constexpr int F_LANES = 8;    // threads per query row
+constexpr int F_MAX_DV = 256;
+
+size_t smem_bytes_f32(int D, int DV) {
+  return (size_t)(F_BQ * (D + 1) + F_BKV * (D + 1) + F_BKV * DV
+                  + F_BQ * (F_BKV + 1)) * sizeof(float);
+}
+
+// Copies `rows` rows of `width` f32 from a (N, width) matrix starting at row
+// r0 into shared rows of stride `ld`; rows past N are zero.
+__device__ void load_rows_f32(float* dst, const float* src, int r0, int rows,
+                              int N, int width, int ld) {
+  for (int i = threadIdx.x; i < rows * width; i += F_THREADS) {
+    const int r = i / width, c = i % width;
+    dst[r * ld + c] = (r0 + r < N) ? src[(size_t)(r0 + r) * width + c] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int N, int D, int DV, float scale) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int ldq = D + 1, ldp = F_BKV + 1;
+  float* q_s = fsmem;                    // (F_BQ, D + 1)
+  float* k_s = q_s + F_BQ * ldq;         // (F_BKV, D + 1)
+  float* v_s = k_s + F_BKV * ldq;        // (F_BKV, DV)
+  float* p_s = v_s + F_BKV * DV;         // (F_BQ, F_BKV + 1)
+
+  const int b = blockIdx.y, q0 = blockIdx.x * F_BQ;
+  const int r = threadIdx.x / F_LANES;   // this thread's query row
+  const int g = threadIdx.x % F_LANES;   // its column group
+  const int n_out = DV / F_LANES;        // output columns g, g+8, ...
+  const float* qb = q + (size_t)b * N * D;
+  const float* kb = k + (size_t)b * N * D;
+  const float* vb = v + (size_t)b * N * DV;
+
+  load_rows_f32(q_s, qb, q0, F_BQ, N, D, ldq);
+  float o[F_MAX_DV / F_LANES];
+#pragma unroll
+  for (int j = 0; j < F_MAX_DV / F_LANES; ++j) o[j] = 0.f;
+  float m = -INFINITY, l = 0.f;  // the row's running max and sum
+
+  for (int kv0 = 0; kv0 < N; kv0 += F_BKV) {
+    __syncthreads();  // the previous tile's k_s, v_s, p_s are no longer read
+    load_rows_f32(k_s, kb, kv0, F_BKV, N, D, ldq);
+    load_rows_f32(v_s, vb, kv0, F_BKV, N, DV, DV);
+    __syncthreads();
+
+    // Scores of row r against keys g, g+8, g+16, g+24 of the tile.
+    float s[F_BKV / F_LANES];
+#pragma unroll
+    for (int j = 0; j < F_BKV / F_LANES; ++j) s[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qd = q_s[r * ldq + d];
+#pragma unroll
+      for (int j = 0; j < F_BKV / F_LANES; ++j)
+        s[j] = fmaf(qd, k_s[(g + F_LANES * j) * ldq + d], s[j]);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < F_BKV / F_LANES; ++j) {
+      s[j] = (kv0 + g + F_LANES * j < N) ? s[j] * scale : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    for (int off = F_LANES / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m, mx);  // finite: the tile has a key
+    const float alpha = expf(m - m_new);
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < F_BKV / F_LANES; ++j) {
+      const float p = expf(s[j] - m_new);
+      p_s[r * ldp + g + F_LANES * j] = p;
+      ps += p;
+    }
+    for (int off = F_LANES / 2; off > 0; off >>= 1)
+      ps += __shfl_xor_sync(0xffffffffu, ps, off);
+    m = m_new;
+    l = l * alpha + ps;
+    __syncwarp();  // the row's 8 threads share a warp; p_s row r is written
+
+    // O[r, g + 8j] = alpha * O + sum_c P[r, c] V[c, g + 8j].
+#pragma unroll
+    for (int j = 0; j < F_MAX_DV / F_LANES; ++j) {
+      if (j < n_out) {
+        const int col = g + F_LANES * j;
+        float acc = o[j] * alpha;
+        for (int c = 0; c < F_BKV; ++c)
+          acc = fmaf(p_s[r * ldp + c], v_s[c * DV + col], acc);
+        o[j] = acc;
+      }
+    }
+  }
+
+  if (q0 + r < N) {
+    float* orow = out + ((size_t)b * N + q0 + r) * DV;
+#pragma unroll
+    for (int j = 0; j < F_MAX_DV / F_LANES; ++j)
+      if (j < n_out) orow[g + F_LANES * j] = o[j] / l;
+  }
+}
+
 }  // namespace
+
+// q,k (B,N,D), v and out (B,N,DV): f32, contiguous; D, DV multiples of 16
+// up to 256. Launches on `stream` and returns cudaGetLastError().
+extern "C" int cabinet_attention_f32(const void* q, const void* k,
+                                     const void* v, void* out, int B, int N,
+                                     int D, int DV, float scale,
+                                     void* stream) {
+  const size_t smem = smem_bytes_f32(D, DV);
+  cudaFuncSetAttribute(attention_f32_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  dim3 grid((N + F_BQ - 1) / F_BQ, B);
+  attention_f32_kernel<<<grid, F_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, N, D,
+      DV, scale);
+  return (int)cudaGetLastError();
+}
 
 // q,k (B,N,D), v and out (B,N,DV): bf16, contiguous, 16-byte aligned;
 // D, DV multiples of 16 up to 256. Launches on `stream` and returns

@@ -1,0 +1,233 @@
+"""Multi-scale sliding-window evaluator on one device (counterpart of
+`cabinet_tpu.eval.evaluator.MscEval` without its tile mesh).
+
+Protocol, as the reference engine (src/scripts/evaluate.py:32-251) and the
+JAX package run it:
+  - per scale: bilinear resize to (int(H*s), int(W*s)) (`resize_bilinear`,
+    2-tap, never anti-aliased), centred zero pad up to the crop, tiles of
+    the crop with stride int(crop * 5/6), edge tiles snapped back so every
+    tile is a whole crop;
+  - the tiles of all scales folded into forwards of `tile_batch` images
+    (doubled under flip TTA: the flipped tiles ride in the same batch);
+  - softmax in `acc_dtype`, overlap-add and normalisation by the count of
+    covering tiles, unpad, resize back to native, sum of the scales in f32,
+    argmax, confusion matrix.
+The overlap-add accumulates in place and divides once; the JAX package's
+write-once assembly (`_assemble_scale`) adds the same tiles in the same
+order and divides by the same counts, so the two agree to the bit.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Iterable, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cabinet_tpu_torch.core.constants import DEFAULT_IGNORE_LABEL, EVAL_STRIDE_RATE
+from cabinet_tpu_torch.core.device import resolve_device
+from cabinet_tpu_torch.eval.metrics import confusion_matrix, metrics_from_hist
+from cabinet_tpu_torch.models.cab import resize_bilinear
+
+# (variables, images (B,H,W,3)) -> (logits (B,H,W,C), aux); `variables` is
+# passed through untouched (a model, weights, or None).
+ApplyFn = Callable[[Any, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+TILE_BATCH = 16  # tiles folded into one model forward
+
+
+def _tile_starts(full: int, crop: int, stride: int) -> np.ndarray:
+    n = math.ceil(max(full - crop, 0) / stride) + 1
+    return np.array([min(stride * i, full - crop) for i in range(n)], np.int32)
+
+
+def tile_grid(full_h: int, full_w: int, crop: int,
+              stride_rate: float = EVAL_STRIDE_RATE) -> np.ndarray:
+    """(T, 2) array of (y, x) tile origins (reference crop_eval:124-138)."""
+    stride = int(crop * stride_rate)
+    ys = _tile_starts(full_h, crop, stride)
+    xs = _tile_starts(full_w, crop, stride)
+    return np.array([(y, x) for y in ys for x in xs], np.int32).reshape(-1, 2)
+
+
+def _resize_nhwc(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    return resize_bilinear(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+
+
+def _chip_probs(apply_fn: ApplyFn, variables: Any, chip: torch.Tensor,
+                flip: bool, prob_dtype: torch.dtype) -> torch.Tensor:
+    """Softmax probabilities (in `prob_dtype`) of one fold of tiles; with
+    flip TTA the flipped tiles go through the same forward and the two
+    probabilities are averaged."""
+    if flip:
+        both = torch.cat([chip, chip.flip(2)], dim=0)
+        logits = apply_fn(variables, both)[0].to(prob_dtype)
+        n = chip.shape[0]
+        prob = torch.softmax(logits[:n], dim=-1)
+        prob_f = torch.softmax(logits[n:].flip(2), dim=-1)
+        return (prob + prob_f) * 0.5
+    return torch.softmax(apply_fn(variables, chip)[0].to(prob_dtype), dim=-1)
+
+
+def _summed_probs(apply_fn: ApplyFn, n_classes: int, crop: int, flip: bool,
+                  scales: Sequence[float], variables: Any, image: torch.Tensor,
+                  tile_batch: int, acc_dtype: torch.dtype) -> torch.Tensor:
+    """(B,H,W,C) f32 sum over the scales of the overlap-normalised
+    probability maps, resized back to native."""
+    B, H, W, _ = image.shape
+    group = max(tile_batch // B, 1)
+    stride = int(crop * EVAL_STRIDE_RATE)
+
+    per_scale = []  # (sh, sw, full_h, full_w, hst, wst, scaled, ys, xs)
+    for s in scales:
+        sh, sw = int(H * s), int(W * s)
+        scaled = _resize_nhwc(image, (sh, sw))
+        full_h, full_w = max(sh, crop), max(sw, crop)
+        hst, wst = (full_h - sh) // 2, (full_w - sw) // 2
+        if (full_h, full_w) != (sh, sw):
+            scaled = F.pad(scaled, (0, 0, wst, full_w - sw - wst,
+                                    hst, full_h - sh - hst))
+        ys = [int(v) for v in _tile_starts(full_h, crop, stride)]
+        xs = [int(v) for v in _tile_starts(full_w, crop, stride)]
+        per_scale.append((sh, sw, full_h, full_w, hst, wst, scaled, ys, xs))
+
+    # grid order (y-major, x-major) within each scale, scales in order
+    jobs = [(si, y, x) for si, ps in enumerate(per_scale)
+            for y in ps[7] for x in ps[8]]
+    last_job = {si: idx for idx, (si, _, _) in enumerate(jobs)}
+    maps: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+    total = torch.zeros((B, H, W, n_classes), dtype=torch.float32,
+                        device=image.device)
+
+    for g0 in range(0, len(jobs), group):
+        chunk = jobs[g0:g0 + group]
+        chips = torch.cat([per_scale[si][6][:, y:y + crop, x:x + crop, :]
+                           for si, y, x in chunk], dim=0)
+        cps = _chip_probs(apply_fn, variables, chips, flip, acc_dtype)
+        for i, (si, y, x) in enumerate(chunk):
+            sh, sw, full_h, full_w, hst, wst, _, _, _ = per_scale[si]
+            if si not in maps:
+                maps[si] = (torch.zeros((B, full_h, full_w, n_classes),
+                                        dtype=acc_dtype, device=image.device),
+                            torch.zeros((full_h, full_w), dtype=torch.float32,
+                                        device=image.device))
+            prob, count = maps[si]
+            prob[:, y:y + crop, x:x + crop] += cps[i * B:(i + 1) * B]
+            count[y:y + crop, x:x + crop] += 1.0
+            if g0 + i == last_job[si]:
+                prob, count = maps.pop(si)
+                p = prob / count.to(acc_dtype)[None, :, :, None]
+                p = p[:, hst:hst + sh, wst:wst + sw]
+                total = total + _resize_nhwc(p, (H, W))
+    return total
+
+
+class MscEval:
+    """Multi-scale sliding-window evaluation engine on one device.
+
+    Arguments mirror the JAX engine's (without `tile_mesh`); `apply_fn`
+    is `(variables, images) -> (logits, aux)` on NHWC tensors, e.g. from
+    `cli.evaluate.make_eval_forward`. `acc_dtype=None` follows
+    `compute_dtype` (bf16 compute accumulates the probability maps in
+    bf16, f32 in f32). `pad_to` right/bottom-pads near-bucket resolutions
+    to one canvas with ignore-filled labels, as in the JAX engine. Runs on
+    CUDA unless `device="cpu"`.
+    """
+
+    def __init__(
+        self,
+        apply_fn: ApplyFn,
+        n_classes: int,
+        ignore_label: int = DEFAULT_IGNORE_LABEL,
+        scales: Sequence[float] = (1.0,),
+        flip: bool = False,
+        cropsize: int = 1024,
+        compute_dtype: torch.dtype = torch.float32,
+        pad_to: Any = None,
+        tile_batch: int = TILE_BATCH,
+        acc_dtype: torch.dtype = None,
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        self.apply_fn = apply_fn
+        self.n_classes = n_classes
+        self.ignore_label = ignore_label
+        self.scales = tuple(scales)
+        self.flip = flip
+        self.cropsize = cropsize
+        self.compute_dtype = compute_dtype
+        self.tile_batch = int(tile_batch)
+        self.acc_dtype = (torch.bfloat16 if (acc_dtype is None
+                                             and compute_dtype == torch.bfloat16)
+                          else (acc_dtype or torch.float32))
+        self.pad_to = None if pad_to is None else (int(pad_to[0]), int(pad_to[1]))
+        self.device = resolve_device(device)
+
+    def _pad_to_bucket(self, images: np.ndarray, labels: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
+        H, W = images.shape[1], images.shape[2]
+        if self.pad_to is None or (H, W) == self.pad_to:
+            return images, labels, (H, W)
+        bh, bw = self.pad_to
+        if H > bh or W > bw:
+            raise ValueError(
+                f"image {(H, W)} exceeds eval pad_to bucket {self.pad_to}")
+        if H * 2 < bh or W * 2 < bw:
+            # far below the bucket: evaluate natively, as the JAX engine does
+            return images, labels, (H, W)
+        images = np.pad(np.asarray(images),
+                        ((0, 0), (0, bh - H), (0, bw - W), (0, 0)))
+        labels = np.pad(np.asarray(labels), ((0, 0), (0, bh - H), (0, bw - W)),
+                        constant_values=self.ignore_label)
+        return images, labels, (H, W)
+
+    def _to_device(self, images) -> torch.Tensor:
+        """The images on the device in the compute dtype (the bf16 cast
+        rounds to nearest even, as the JAX engine's host cast does)."""
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+        return images.to(self.device).to(self.compute_dtype)
+
+    @torch.no_grad()
+    def _probs(self, variables: Any, images: torch.Tensor) -> torch.Tensor:
+        return _summed_probs(self.apply_fn, self.n_classes, self.cropsize,
+                             self.flip, self.scales, variables, images,
+                             self.tile_batch, self.acc_dtype)
+
+    def _run(self, variables: Any, images, labels
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        preds = torch.argmax(self._probs(variables, self._to_device(images)),
+                             dim=-1)
+        labels = torch.as_tensor(np.asarray(labels), device=self.device)
+        return preds, confusion_matrix(preds, labels, self.n_classes,
+                                       self.ignore_label)
+
+    def prob_batch(self, variables: Any, images: np.ndarray) -> np.ndarray:
+        """Summed multi-scale probability map (B,H,W,C) f32: exactly the
+        tensor the protocol argmaxes."""
+        return self._probs(variables, self._to_device(images)).cpu().numpy()
+
+    def evaluate_batch(self, variables: Any, images: np.ndarray,
+                       labels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(predictions (B,H,W) int64, confusion matrix (C,C) int64)."""
+        images, labels, (H0, W0) = self._pad_to_bucket(images, labels)
+        preds, hist = self._run(variables, images, labels)
+        return preds.cpu().numpy()[:, :H0, :W0], hist.cpu().numpy()
+
+    def hist_batch(self, variables: Any, images: np.ndarray,
+                   labels: np.ndarray) -> np.ndarray:
+        """The confusion matrix only; the predictions stay on the device."""
+        images, labels, _ = self._pad_to_bucket(images, labels)
+        return self._run(variables, images, labels)[1].cpu().numpy()
+
+    def evaluate(self, variables_or_model: Any,
+                 dataloader: Iterable[Tuple[np.ndarray, np.ndarray]]
+                 ) -> Dict[str, Any]:
+        """Metrics over every (images, labels) batch of the loader."""
+        hist = np.zeros((self.n_classes, self.n_classes), np.float64)
+        for images, labels in dataloader:
+            hist += self.hist_batch(variables_or_model, images, labels)
+        return metrics_from_hist(hist)
+
+    __call__ = evaluate

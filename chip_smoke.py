@@ -5,25 +5,38 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's main path, CABiNet-Large bf16 inference at 1024^2,
-through the entry points a user calls, and holds every hand-written kernel
-against its plain PyTorch version. Phases, one line each:
+It drives the port's main paths through the entry points a user calls, and
+holds every hand-written kernel against its plain PyTorch version. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compile csrc/*.cu (one nvcc per source, in parallel)
-  3. kernels  K1 attention, K2 FFM 1x1, K3 3x3 head at the main path's
-              shapes in bf16 against their plain versions, with times of
-              the kernel, the plain version and one library call
-  4. main     the fused-tail forward on the trained Large fixture
-              (tests/fixtures/miou_large_cabinet_v1.npz) on single-class
-              palette images, then Segmenter.predict / predict_batch at
-              batch 1 and 8 on seeded uavid weights saved as a .pth; every
-              forward must launch K1, K2 and K3
+  3. kernels  K1 attention (bf16 and f32), K2 FFM 1x1, K3 3x3 head and K4
+              stem+block_0 at the main paths' shapes against their plain
+              versions, with times of the kernel, the plain version and
+              one library call
+  4. main     each path driven with the launch counts set to 0 just before
+              it and read just after:
+              - the fused-tail forward on the trained Large fixture
+                (tests/fixtures/miou_large_cabinet_v1.npz) on single-class
+                palette images (K1-K3);
+              - Segmenter.predict / predict_batch in bf16 at batch 1 (K1-K3,
+                not K4) and 8 (K1-K4), on seeded uavid weights saved as a
+                .pth, each mask held against the plain path;
+              - Segmenter in float32 at batch 8 (K4 and the f32 K1 through
+                make_fused_apply) against the plain path;
+              then forward ms/img with K4 and without it at batch 1 and 8,
+              timed in turns
   5. attn     the fixture with its zero gamma/project_out perturbed: the
               kernel path against the plain path, logits and argmax, and
               how far the attention moves the logits (the same forward
               with gamma 0), which must exceed the logit bound 4 times
-  6. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  6. eval     MscEval on the fixture: in f32 with the f32 K1 against the
+              reference's cached confusion matrices
+              (tests/fixtures/miou_ref_outputs_large_v1.npz) under the gates
+              of tests/parity/test_miou_at_scale_large.py; in bf16 through
+              make_eval_forward(fused_tail="true", use_pallas=True) (K1-K3)
+              on a 1024x2048 image at 3 scales against the plain path
+  7. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -42,15 +55,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 FIXTURE = ROOT / "tests" / "fixtures" / "miou_large_cabinet_v1.npz"
+REF_OUTPUTS = FIXTURE.with_name("miou_ref_outputs_large_v1.npz")
 
 # Palette task of the trained fixture (5 classes), copied from the fixture's
-# generator so this script needs nothing under tests/ but the weights.
+# generator so this script needs nothing under tests/ but the fixtures.
 PALETTE = [[220, 40, 40], [40, 220, 40], [40, 40, 220], [220, 220, 40],
            [140, 40, 220]]
 
 # Dense peak rates of the cards this script has run on (NVIDIA data sheet):
-# bf16 tensor FLOP/s and memory bytes/s, by a fragment of the card's name.
-PEAKS = [("H100 80GB HBM3", 989e12, 3.35e12)]  # H100 SXM
+# bf16 tensor FLOP/s, f32 FLOP/s outside the tensor cores (SIMT) and memory
+# bytes/s, by a fragment of the card's name.
+PEAKS = [("H100 80GB HBM3", 989e12, 67e12, 3.35e12)]  # H100 SXM
 
 # Stated bounds, max abs error against max|plain| (bf16 step: 2^-8 of a
 # value, at most 2^-7 of the largest one).
@@ -65,6 +80,15 @@ BOUND_K2 = 2 ** -7
 BOUND_K2_SUMS = 1e-4
 BOUND_K3 = 2 ** -6
 BOUND_FORWARD = 2 ** -5
+#  The f32 K1 and f32 K4 planes: f32 sums in another order (over N=1024
+#  keys; over 27, 9 and 16 terms): 1e-5. bf16 K4 planes: one rounding.
+BOUND_F32 = 1e-5
+BOUND_K4_BF16 = 2 ** -7
+#  An f32 forward carries f32 reorderings through ~60 layers: 1e-4.
+BOUND_FORWARD_F32 = 1e-4
+# The reference's protocol for the cached confusion matrices, and its gates
+# (tests/parity/test_miou_at_scale_large.py, tests/parity/miou_fixture.py).
+EVAL_SCALES, EVAL_CROP, TIE_EPS = (0.75, 1.25), 256, 1e-5
 # The perturbed attention must move the logits by this many logit bounds,
 # so that a K1 returning zeros cannot pass phase 5.
 ATTENTION_SHIFT_MIN = 4
@@ -109,16 +133,18 @@ def max_err(got, ref):
 
 class Peaks:
     def __init__(self, name: str):
-        for frag, flops, bw in PEAKS:
+        for frag, flops, flops_f32, bw in PEAKS:
             if frag in name:
-                self.flops, self.bw, self.source = flops, bw, frag
+                self.flops, self.flops_f32, self.bw = flops, flops_f32, bw
                 return
         raise SmokeFailure(f"no peak rates known for card {name!r}")
 
-    def bound(self, n_bytes: float, n_flops: float):
+    def bound(self, n_bytes: float, n_flops: float, f32: bool = False):
         """(bound ms, what bounds it): the larger of bytes over the memory
-        rate and bf16 operations over the tensor-core rate."""
-        t_mem, t_ops = n_bytes / self.bw, n_flops / self.flops
+        rate and operations over the rate of their type: bf16 on the tensor
+        cores, or with `f32` f32 FMAs on the CUDA cores."""
+        t_mem = n_bytes / self.bw
+        t_ops = n_flops / (self.flops_f32 if f32 else self.flops)
         return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -152,6 +178,81 @@ def check_attention(torch, peaks, B, N=1024, D=128, gen=None):
         B * N * 4 * D * 2, 2 * B * N * N * 2 * D)
     say("kernels", name="attention", **row)
     check(err <= bound, f"attention B={B}: max err {err} > bound {bound}")
+    return row
+
+
+def check_attention_f32(torch, peaks, B, N=1024, D=128, gen=None):
+    """The f32 K1 against its plain version (f32, TF32 off)."""
+    import torch.nn.functional as F
+
+    from cabinet_tpu_torch.ops.attention import (
+        fused_global_attention,
+        global_attention_plain,
+    )
+
+    q, k, v = (torch.randn(B, N, D, generator=gen, device=DEVICE) for _ in range(3))
+    got = fused_global_attention(q, k, v)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32, f"f32 attention returned {got.dtype}")
+    err, top = max_err(got, global_attention_plain(q, k, v))
+    bound = BOUND_F32 * top
+    row = {
+        "shape": f"B={B} N={N} K=V={D} f32", "max_abs_err": err, "bound": bound,
+        "ms": time_ms(lambda: fused_global_attention(q, k, v), iters=10),
+        "plain_ms": time_ms(lambda: global_attention_plain(q, k, v), iters=10),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                              iters=10),
+    }
+    row["bound_ms"], row["bound_by"] = peaks.bound(
+        B * N * 4 * D * 4, 2 * B * N * N * 2 * D, f32=True)
+    say("kernels", name="attention_f32", **row)
+    check(err <= bound, f"attention_f32 B={B}: max err {err} > bound {bound}")
+    return row
+
+
+def check_stem_block0(torch, peaks, shape, dtype, gen):
+    """K4 against its plain version on x of `dtype` with planes of `dtype`;
+    the library call is cuDNN's conv chain in the same dtype."""
+    import torch.nn.functional as F
+
+    from cabinet_tpu_torch.models.layers import hard_swish
+    from cabinet_tpu_torch.ops import early_stage as es
+
+    def rnd(*s, std):
+        return torch.randn(*s, generator=gen, device=DEVICE) * std
+
+    w = (rnd(16, 27, std=0.2), rnd(16, std=0.1), rnd(3, 3, 16, std=0.2),
+         rnd(16, std=0.1), rnd(16, 16, std=0.2), rnd(16, std=0.1))
+    x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    got = es.fused_stem_block0(x, *w, out_dtype=dtype)
+    torch.cuda.synchronize()
+    err, top = max_err(got, es.stem_block0_plain(x, *w, out_dtype=dtype))
+    bound = (BOUND_F32 if dtype == torch.float32 else BOUND_K4_BF16) * top
+
+    x_cl = x.permute(0, 3, 1, 2)  # channels_last view, no copy
+    ws = w[0].reshape(16, 3, 3, 3).to(dtype).contiguous(memory_format=torch.channels_last)
+    wd = w[2].permute(2, 0, 1)[:, None].to(dtype).contiguous()
+    wp = w[4][:, :, None, None].to(dtype).contiguous(memory_format=torch.channels_last)
+    bs, bd, bp = (t.to(dtype) for t in (w[1], w[3], w[5]))
+
+    def lib_k4():
+        stem = hard_swish(F.conv2d(x_cl, ws, bs, stride=2, padding=1))
+        dw = torch.relu(F.conv2d(stem, wd, bd, padding=1, groups=16))
+        return F.conv2d(dw, wp, bp) + stem
+
+    B, H, W, _ = shape
+    n_out = B * (H // 2) * (W // 2)
+    row = {"shape": f"{tuple(shape)} {str(dtype)[6:]}", "max_abs_err": err,
+           "bound": bound,
+           "ms": time_ms(lambda: es.fused_stem_block0(x, *w, out_dtype=dtype), iters=10),
+           "plain_ms": time_ms(lambda: es.stem_block0_plain(x, *w, out_dtype=dtype),
+                               iters=10),
+           "library_ms": time_ms(lib_k4, iters=10)}
+    row["bound_ms"], row["bound_by"] = peaks.bound(
+        x.numel() * x.element_size() + 16 * n_out * got.element_size() + 880 * 4,
+        2 * n_out * (16 * 27 + 16 * 9 + 16 * 16), f32=True)
+    say("kernels", name="stem_block0", **row)
+    check(err <= bound, f"stem_block0 {shape} {dtype}: max err {err} > bound {bound}")
     return row
 
 
@@ -239,31 +340,61 @@ def check_tail(torch, peaks, S, n_classes, B, gen):
 # ---------------------------------------------------------------------------
 
 
-def kernel_counts():
+def _counters():
+    """{kernel name: (wrapper, attribute of its launch count)}."""
     from cabinet_tpu_torch.ops.attention import fused_global_attention
     from cabinet_tpu_torch.ops.decoder_tail import ffm_pointwise, head_conv3x3
+    from cabinet_tpu_torch.ops.early_stage import fused_stem_block0
 
-    return {"attention": fused_global_attention.launches,
-            "ffm_pointwise": ffm_pointwise.launches,
-            "head_conv3x3": head_conv3x3.launches}
+    return {"attention": (fused_global_attention, "launches"),
+            "attention_f32": (fused_global_attention, "launches_f32"),
+            "ffm_pointwise": (ffm_pointwise, "launches"),
+            "head_conv3x3": (head_conv3x3, "launches"),
+            "stem_block0": (fused_stem_block0, "launches")}
+
+
+def kernel_counts():
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def reset_counts() -> None:
-    from cabinet_tpu_torch.ops.attention import fused_global_attention
-    from cabinet_tpu_torch.ops.decoder_tail import ffm_pointwise, head_conv3x3
-
-    for fn in (fused_global_attention, ffm_pointwise, head_conv3x3):
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
-def launched_each(fn):
-    """Run fn(); fail unless K1, K2 and K3 each launched during it."""
+TAIL = ("attention", "ffm_pointwise", "head_conv3x3")
+
+
+def launched_each(fn, expect=TAIL, absent=()):
+    """Run fn(); fail unless each kernel of `expect` launched during it and
+    none of `absent` did."""
     before = kernel_counts()
     out = fn()
     after = kernel_counts()
-    missing = [k for k in after if after[k] <= before[k]]
+    missing = [k for k in expect if after[k] <= before[k]]
     check(not missing, f"forward did not launch {missing}")
+    extra = [k for k in absent if after[k] > before[k]]
+    check(not extra, f"forward launched {extra}")
     return out
+
+
+class MainPaths:
+    """Drives each main path with the launch counts set to 0 just before it
+    and read just after; `totals` sums the launches over the paths."""
+
+    def __init__(self):
+        self.totals = dict.fromkeys(_counters(), 0)
+        self.per_path = {}
+
+    def drive(self, name, fn, *args):
+        reset_counts()
+        out = fn(*args)
+        counts = kernel_counts()
+        self.per_path[name] = counts
+        for k, n in counts.items():
+            self.totals[k] += n
+        say("main", path=name, launches=counts)
+        return out
 
 
 def fixture_model(torch, attention: str = "kernel", gamma=None, seed: int = 0):
@@ -327,59 +458,109 @@ def seeded_uavid_checkpoint(torch, path: Path, seed: int = 0):
     torch.save(model.state_dict(), path)
 
 
-def run_segmenter(torch, size: int, ckpt: Path, n_requests: int = 3):
-    """Segmenter at batch 1 (predict) and 8 (predict_batch), each mask held
-    against the plain path's argmax. Returns {batch: (engine, inputs)}."""
-    import numpy as np
+def plain_forward(torch, ckpt: Path, route: str, dtype):
+    """The plain path a Segmenter route is held against: the same forward
+    on a model built with attention="plain" and the plain versions of the
+    tail and of K4."""
+    from cabinet_tpu_torch.cli.infer import load_state_dict
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.models.fused import make_fused_apply, make_fused_tail_apply
 
-    from cabinet_tpu_torch.cli.infer import Segmenter, load_state_dict
+    model = CABiNet(8, "large", attention="plain")
+    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    if route == "fused_early":
+        return make_fused_apply(model, DEVICE, dtype, kernels=False)
+    return make_fused_tail_apply(model, DEVICE, dtype, kernels=False,
+                                 use_early=route == "fused_tail_early")
+
+
+def run_segmenter(torch, size: int, ckpt: Path, rgbs, dtype_name: str,
+                  batch: int, route: str, expect, absent, bound: float,
+                  min_agree: float, n_requests: int = 3):
+    """Segmenter at one batch (1: predict, else predict_batch) on `route`,
+    every request launching the kernels of `expect` and none of `absent`,
+    each mask held against the plain path's argmax: on at least
+    `min_agree` of the pixels, and on every pixel whose plain-path margin
+    exceeds twice the forward's logit bound (`bound` of max|logit|).
+    Returns (engine, its normalised inputs)."""
+    from cabinet_tpu_torch.cli.infer import Segmenter
+
+    seg = Segmenter(str(ckpt), "uavid", mode="large", imgsz=size,
+                    dtype_name=dtype_name, batch=batch, device=DEVICE)
+    check(seg.route == route, f"Segmenter {dtype_name} batch {batch} routes "
+          f"{seg.route}, expected {route}")
+    plain = plain_forward(torch, ckpt, route, seg.dtype)
+
+    def answer():
+        """The requests and the wall ms per image (host clock; the masks
+        come back to the host, which syncs)."""
+        t0 = time.perf_counter()
+        if batch == 1:
+            out = [launched_each(lambda: seg.predict(r), expect, absent)
+                   for r in rgbs[:n_requests]]
+        else:
+            out = launched_each(lambda: seg.predict_batch(rgbs[:batch]),
+                                expect, absent)
+        return out, (time.perf_counter() - t0) * 1e3 / len(out)
+
+    masks, wall_ms = answer()      # first calls: lazy loads, allocations
+    _, warm_ms = answer()          # the same requests again
+    agree, sure_agree = [], []
+    for rgb, mask in zip(rgbs, masks):
+        check(mask.shape == (size, size), f"mask shape {mask.shape}")
+        logits = plain(seg._preprocess(rgb)[None])[0][0].float()
+        top2 = logits.topk(2, dim=-1).values
+        # pixels whose plain-path margin exceeds twice the forward's
+        # logit bound cannot flip between the two paths
+        sure = ((top2[..., 0] - top2[..., 1])
+                > 2 * bound * float(logits.abs().max())).cpu().numpy()
+        same = mask == logits.argmax(-1).cpu().numpy()
+        agree.append(float(same.mean()))
+        sure_agree.append(float(same[sure].mean()))
+    say("main", part="segmenter", dtype=dtype_name, batch=batch, route=route,
+        requests=len(masks), wall_ms_per_img_first_calls=wall_ms,
+        wall_ms_per_img_warm=warm_ms, argmax_agreement=agree,
+        agreement_beyond_bound=sure_agree)
+    check(min(sure_agree) == 1.0 and min(agree) >= min_agree,
+          f"segmenter {dtype_name} batch {batch}: agreement {agree}, "
+          f"beyond the bound {sure_agree}")
+    return seg, torch.stack([seg._preprocess(r) for r in rgbs[:batch]])
+
+
+def time_early_stage(torch, ckpt: Path, size: int, rounds: int = 5):
+    """bf16 fused-tail forward ms/img with stem and block_0 through K4
+    (use_early) and through the plain modules, at batch 1 and 8, timed in
+    turns within this call: `rounds` of (without, with, with, without), so
+    10 pairs of one timing each. Per batch: each side's median, and in how
+    many pairs the forward with K4 was the faster."""
+    import statistics
+
+    from cabinet_tpu_torch.cli.infer import load_state_dict
     from cabinet_tpu_torch.models.cabinet import CABiNet
     from cabinet_tpu_torch.models.fused import make_fused_tail_apply
 
-    plain_model = CABiNet(8, "large", attention="plain")
-    plain_model.load_state_dict(load_state_dict(ckpt, plain_model), strict=True)
-    plain = make_fused_tail_apply(plain_model, DEVICE, torch.bfloat16, kernels=False)
-    rng = np.random.default_rng(5)
-    rgbs = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
-            for _ in range(8)]
-    engines = {}
-    for batch in (1, 8):
-        seg = Segmenter(str(ckpt), "uavid", mode="large", imgsz=size,
-                        batch=batch, device=DEVICE)
-
-        def answer():
-            """The requests, each launching K1-K3, and the wall ms per image
-            (host clock; the masks come back to the host, which syncs)."""
-            t0 = time.perf_counter()
-            if batch == 1:
-                out = [launched_each(lambda: seg.predict(r)) for r in rgbs[:n_requests]]
-            else:
-                out = launched_each(lambda: seg.predict_batch(rgbs))
-            return out, (time.perf_counter() - t0) * 1e3 / len(out)
-
-        masks, wall_ms = answer()      # first calls: lazy loads, allocations
-        _, warm_ms = answer()          # the same requests again
-        agree, sure_agree = [], []
-        for rgb, mask in zip(rgbs, masks):
-            check(mask.shape == (size, size), f"mask shape {mask.shape}")
-            logits = plain(seg._preprocess(rgb)[None])[0][0].float()
-            top2 = logits.topk(2, dim=-1).values
-            # pixels whose plain-path margin exceeds twice the forward's
-            # logit bound cannot flip between the two paths
-            sure = ((top2[..., 0] - top2[..., 1])
-                    > 2 * BOUND_FORWARD * float(logits.abs().max())).cpu().numpy()
-            same = mask == logits.argmax(-1).cpu().numpy()
-            agree.append(float(same.mean()))
-            sure_agree.append(float(same[sure].mean()))
-        say("main", part="segmenter", batch=batch, requests=len(masks),
-            wall_ms_per_img_first_calls=wall_ms, wall_ms_per_img_warm=warm_ms,
-            argmax_agreement=agree,
-            agreement_beyond_bound=sure_agree)
-        check(min(sure_agree) == 1.0 and min(agree) >= 0.99,
-              f"segmenter batch {batch}: agreement {agree}, "
-              f"beyond the bound {sure_agree}")
-        engines[batch] = (seg, torch.stack([seg._preprocess(r) for r in rgbs[:batch]]))
-    return engines
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn(8, size, size, 3, generator=gen, device=DEVICE).to(torch.bfloat16)
+    fwds = {}
+    for use_early in (False, True):
+        model = CABiNet(8, "large", attention="kernel")
+        model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+        fwds[use_early] = make_fused_tail_apply(model, DEVICE, torch.bfloat16,
+                                                use_early=use_early)
+    out = {}
+    for b in (1, 8):
+        ms = {False: [], True: []}
+        for _ in range(rounds):
+            for use_early in (False, True, True, False):
+                ms[use_early].append(time_ms(lambda: fwds[use_early](x[:b]),
+                                             iters=10) / b)
+        out[b] = {"without_k4": ms[False], "with_k4": ms[True],
+                  "median_without_k4": statistics.median(ms[False]),
+                  "median_with_k4": statistics.median(ms[True]),
+                  "pairs_k4_faster": sum(w < o for w, o in zip(ms[True], ms[False])),
+                  "pairs": len(ms[True])}
+        say("main", part="forward_ms_per_img_k4_on_off_in_turns", batch=b, **out[b])
+    return out
 
 
 def run_attention_forward(torch, size: int):
@@ -408,6 +589,130 @@ def run_attention_forward(torch, size: int):
     check(shift >= ATTENTION_SHIFT_MIN * bound,
           f"the attention moves the logits by {shift}, under "
           f"{ATTENTION_SHIFT_MIN} x the bound {bound}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the eval protocol
+# ---------------------------------------------------------------------------
+
+
+def synthetic_palette(np, rng, h: int, w: int, block: int):
+    """Blocky label map and its palette rendering with noise 0.02, as the
+    fixture tests' `synthetic` draws them (square when h == w)."""
+    pal = np.asarray(PALETTE, np.float32) / 255.0
+    labels = np.kron(rng.integers(0, len(PALETTE), (h // block, w // block)),
+                     np.ones((block, block), np.int64))
+    image = pal[labels] + rng.normal(0, 0.02, (*labels.shape, 3))
+    return image.astype(np.float32), labels
+
+
+def ties_hist(np, probs, labels):
+    """(near-tie pixels, confusion matrix rows=pred cols=label) of summed
+    probabilities, as tests/parity/miou_fixture.py:probs_ties_hist."""
+    top2 = np.partition(probs, -2, axis=-1)
+    ties = int(((top2[..., -1] - top2[..., -2]) < TIE_EPS).sum())
+    valid = labels != 255
+    n = len(PALETTE)
+    idx = probs.argmax(-1)[valid] * n + labels[valid]
+    return ties, np.bincount(idx, minlength=n * n).reshape(n, n).astype(np.float64)
+
+
+def run_eval_reference(torch):
+    """The trained fixture in f32 through MscEval with the f32 K1 (TF32
+    off), against the reference engine's confusion matrices cached for
+    these weights and this protocol, under its gates."""
+    import hashlib
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.evaluate import make_eval_forward
+    from cabinet_tpu_torch.eval.evaluator import MscEval
+    from cabinet_tpu_torch.eval.metrics import metrics_from_hist
+
+    pal = np.asarray(PALETTE, np.float32) / 255.0
+    protocol = json.dumps({
+        "scales": EVAL_SCALES, "cropsize": EVAL_CROP, "n_classes": len(PALETTE),
+        "palette": pal.tolist(), "rng": 13, "ignore_rows": 32,
+        "multi_block": 64, "mode": "large"}, sort_keys=True)
+    with np.load(REF_OUTPUTS) as data:
+        ref = {k: data[k] for k in data.files}
+    sha = hashlib.sha256(FIXTURE.read_bytes() + protocol.encode()).hexdigest()
+    check(str(ref["weights_sha"]) == sha,
+          "the cached reference outputs are not for these weights and protocol")
+
+    fwd = make_eval_forward(fixture_model(torch), EVAL_CROP, DEVICE,
+                            torch.float32, use_pallas=True)
+    check(fwd.route == "model", f"f32 eval forward route {fwd.route}")
+    ev = MscEval(fwd, len(PALETTE), ignore_label=255, scales=EVAL_SCALES,
+                 flip=True, cropsize=EVAL_CROP, compute_dtype=torch.float32,
+                 device=DEVICE)
+    f32_only = dict(expect=("attention_f32",),
+                    absent=("attention", "ffm_pointwise", "head_conv3x3", "stem_block0"))
+
+    rng = np.random.default_rng(13)
+    lbl = np.zeros((512, 512), np.int64)
+    img = (pal[lbl] + rng.normal(0, 0.02, (512, 512, 3))).astype(np.float32)
+    lbl[:32] = 255
+    probs = launched_each(lambda: ev.prob_batch(None, img[None]), **f32_only)
+    ties, hist = ties_hist(np, probs, lbl[None])
+    c0_diff = float(np.abs(hist - ref["c0_hist"]).sum() / 2)
+
+    image, mlbl = synthetic_palette(np, rng, 512, 512, 64)
+    mlbl[:32] = 255
+    probs = launched_each(lambda: ev.prob_batch(None, image[None]), **f32_only)
+    _, mhist = ties_hist(np, probs, mlbl[None])
+    miou = metrics_from_hist(mhist)["mIoU"]
+    m_diff = float(np.abs(mhist - ref["multi_hist"]).sum() / 2)
+    say("eval", part="f32_reference", c0_disagree=c0_diff, c0_near_ties=ties,
+        multi_disagree=m_diff, multi_pixels=float(mhist.sum()), mIoU=miou,
+        ref_mIoU=float(ref["multi_miou"]))
+    check(ties < 1e-3 * img.shape[0] * img.shape[1],
+          f"{ties} near-tie pixels on the single-class image")
+    check(c0_diff <= ties, f"single-class image: {c0_diff} pixels disagree, "
+          f"{ties} near ties")
+    check(hist[0, 0] > 0.95 * (512 - 32) * 512, f"single-class hist {hist[0, 0]}")
+    check(m_diff <= 1e-3 * mhist.sum(), f"multi-class: {m_diff} pixels disagree")
+    check(abs(miou - float(ref["multi_miou"])) < 5e-3 and miou > 0.9,
+          f"multi-class mIoU {miou} against {float(ref['multi_miou'])}")
+
+
+def run_eval_kernels(torch, h: int = 1024, w: int = 2048, crop: int = 1024):
+    """bf16 MscEval through make_eval_forward(fused_tail="true",
+    use_pallas=True) on an h x w palette image, scales (0.75, 1.0, 1.25),
+    flip, crop `crop`, against the same protocol on the plain path.
+    Returns seconds per image (warm, host clock around a synced call)."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.evaluate import make_eval_forward
+    from cabinet_tpu_torch.eval.evaluator import MscEval
+    from cabinet_tpu_torch.eval.metrics import metrics_from_hist
+    from cabinet_tpu_torch.models.fused import make_fused_tail_apply
+
+    image, labels = synthetic_palette(np, np.random.default_rng(21), h, w, crop // 8)
+    image, labels = image[None], labels[None]
+    protocol = dict(n_classes=len(PALETTE), ignore_label=255,
+                    scales=(0.75, 1.0, 1.25), flip=True, cropsize=crop,
+                    compute_dtype=torch.bfloat16, device=DEVICE)
+    fwd = make_eval_forward(fixture_model(torch, "plain"), crop, DEVICE,
+                            torch.bfloat16, use_pallas=True, fused_tail="true")
+    ev = MscEval(fwd, **protocol)
+    launched_each(lambda: ev.evaluate_batch(None, image, labels), absent=(
+        "attention_f32", "stem_block0"))
+    t0 = time.perf_counter()
+    preds, hist = ev.evaluate_batch(None, image, labels)
+    seconds = time.perf_counter() - t0
+
+    plain = make_fused_tail_apply(fixture_model(torch, "plain"), DEVICE,
+                                  torch.bfloat16, kernels=False)
+    ref_preds, ref_hist = MscEval(lambda v, x: plain(x), **protocol
+                                  ).evaluate_batch(None, image, labels)
+    agree = float((preds == ref_preds).mean())
+    miou, ref_miou = (metrics_from_hist(h)["mIoU"] for h in (hist, ref_hist))
+    say("eval", part="bf16_kernels", image=f"{h}x{w}", seconds_per_img=seconds,
+        argmax_agreement=agree, mIoU=miou, plain_mIoU=ref_miou)
+    check(agree >= 0.999, f"bf16 eval argmax agreement {agree}")
+    check(abs(miou - ref_miou) < 5e-3, f"bf16 eval mIoU {miou} against {ref_miou}")
+    return seconds
 
 
 # ---------------------------------------------------------------------------
@@ -457,33 +762,61 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1 = [check_attention(torch, peaks, B, gen=gen) for B in (1, 8)]
+    k1_f32 = [check_attention_f32(torch, peaks, B, gen=gen) for B in (8, 1)]
     tails = [check_tail(torch, peaks, S, n, B, gen)
              for S, n, B in ((128, 5, 1), (128, 8, 1), (90, 12, 1), (128, 8, 8))]
+    k4 = [check_stem_block0(torch, peaks, shape, dtype, gen)
+          for shape in ((8, 1024, 1024, 3), (2, 720, 1280, 3))
+          for dtype in (torch.bfloat16, torch.float32)]
 
-    reset_counts()
-    run_fixture(torch, 1024)
+    import numpy as np
+
+    paths = MainPaths()
+    paths.drive("fixture_bf16", run_fixture, torch, 1024)
+    rgbs = [np.random.default_rng(5).integers(0, 256, (1024, 1024, 3), dtype=np.uint8)
+            for _ in range(8)]
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp) / "uavid_large_seeded.pth"
         seeded_uavid_checkpoint(torch, ckpt)
-        engines = run_segmenter(torch, 1024, ckpt)
-    launches = kernel_counts()
-    check(all(n > 0 for n in launches.values()), f"launches {launches}")
-    ms = {b: time_ms(lambda: seg._forward(x), iters=10) / b
-          for b, (seg, x) in engines.items()}
-    say("main", launches=launches, forward_ms_per_img_batch1=ms[1],
-        forward_ms_per_img_batch8=ms[8])
-    del engines
+        engines = {
+            1: paths.drive("segmenter_bf16_batch1", run_segmenter, torch, 1024,
+                           ckpt, rgbs, "bfloat16", 1, "fused_tail", TAIL,
+                           ("stem_block0",), BOUND_FORWARD, 0.99),
+            8: paths.drive("segmenter_bf16_batch8", run_segmenter, torch, 1024,
+                           ckpt, rgbs, "bfloat16", 8, "fused_tail_early",
+                           TAIL + ("stem_block0",), (), BOUND_FORWARD, 0.99)}
+        paths.drive("segmenter_f32_batch8", run_segmenter, torch, 1024, ckpt,
+                    rgbs, "float32", 8, "fused_early",
+                    ("attention_f32", "stem_block0"),
+                    ("attention", "ffm_pointwise", "head_conv3x3"),
+                    BOUND_FORWARD_F32, 0.999)
+        ms = {b: time_ms(lambda: seg._forward(x), iters=10) / b
+              for b, (seg, x) in engines.items()}
+        say("main", forward_ms_per_img_batch1=ms[1], forward_ms_per_img_batch8=ms[8])
+        del engines
+        time_early_stage(torch, ckpt, 1024)
 
     run_attention_forward(torch, 1024)
+
+    paths.drive("eval_f32_reference", run_eval_reference, torch)
+    paths.drive("eval_bf16_kernels", run_eval_kernels, torch)
+    launches = paths.totals
+    say("main", launches=launches)
+    check(all(n > 0 for n in launches.values()), f"launches {launches}")
 
     main_k2, main_k3 = tails[1]  # B=1, S=128, 8 classes: Segmenter on uavid
     rows = [
         ("attention", "csrc/attention.cu",
          "cabinet_tpu/ops/attention.py:26", k1[0], k1),
+        ("attention_f32", "csrc/attention.cu",
+         "cabinet_tpu/ops/attention.py:26", k1_f32[0], k1_f32),
         ("ffm_pointwise", "csrc/decoder_tail.cu",
          "cabinet_tpu/ops/decoder_tail.py:94", main_k2, [t[0] for t in tails]),
         ("head_conv3x3", "csrc/decoder_tail.cu",
          "cabinet_tpu/ops/decoder_tail.py:110", main_k3, [t[1] for t in tails]),
+        # (8,1024,1024,3) bf16: Segmenter --batch 8 in bf16
+        ("stem_block0", "csrc/early_stage.cu",
+         "cabinet_tpu/ops/early_stage.py:94", k4[0], k4),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": f"cabinet_tpu_torch/{src}",

@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cabinet_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 13, names
+assert len(names) >= 18, names
 """
 
 
@@ -50,25 +50,35 @@ def test_no_kernel_build_at_import():
 
     import cabinet_tpu_torch.ops.attention  # noqa: F401
     import cabinet_tpu_torch.ops.decoder_tail  # noqa: F401
+    import cabinet_tpu_torch.ops.early_stage  # noqa: F401
 
     assert _build._LOADED == {}
 
 
-@pytest.mark.parametrize("entry", ["segmenter", "fused_tail", "resolve_device"])
+@pytest.mark.parametrize("entry", ["segmenter", "fused_tail", "fused_apply",
+                                   "msc_eval", "eval_forward", "resolve_device"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without device="cpu" the entry points ask for CUDA, and raise where
     there is none instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default runs there")
+    from cabinet_tpu_torch.cli.evaluate import make_eval_forward
     from cabinet_tpu_torch.cli.infer import Segmenter
     from cabinet_tpu_torch.core.device import resolve_device
+    from cabinet_tpu_torch.eval.evaluator import MscEval
     from cabinet_tpu_torch.models.cabinet import CABiNet
-    from cabinet_tpu_torch.models.fused import make_fused_tail_apply
+    from cabinet_tpu_torch.models.fused import make_fused_apply, make_fused_tail_apply
 
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "segmenter":
             Segmenter(str(tmp_path / "unused.pth"), "uavid", imgsz=64)
         elif entry == "fused_tail":
             make_fused_tail_apply(CABiNet(8, "small", cfgs=[[3, 1, 16, 1, 0, 2]]))
+        elif entry == "fused_apply":
+            make_fused_apply(CABiNet(8, "large", cfgs=[[3, 1, 16, 0, 0, 1]]))
+        elif entry == "msc_eval":
+            MscEval(lambda v, x: (x, x), 8)
+        elif entry == "eval_forward":
+            make_eval_forward(CABiNet(8, "small", cfgs=[[3, 1, 16, 1, 0, 2]]), 256)
         else:
             resolve_device()

@@ -162,6 +162,64 @@ def test_mask_resize_follows_pil_nearest(n_in, n_out):
     np.testing.assert_array_equal(got[~tie], exact[~tie])
 
 
+@pytest.mark.parametrize("hw", [(700, 1000), (200, 300)])
+def test_input_resize_follows_pil_bilinear(hw):
+    """Frames of another size than imgsz are resized as PIL BILINEAR
+    resizes the uint8 frame in the JAX engine: a 1000x700 frame down to
+    512^2 (anti-aliased) and a 300x200 frame up to it. Within one level on
+    every pixel, and equal on at least 99% of them."""
+    from PIL import Image
+
+    from cabinet_tpu_torch.cli.infer import _resize_like_pil
+
+    rgb = np.random.default_rng(11).integers(0, 256, (*hw, 3), dtype=np.uint8)
+    pil = np.asarray(Image.fromarray(rgb).resize((512, 512), Image.BILINEAR))
+    got = _resize_like_pil(torch.from_numpy(rgb).permute(2, 0, 1)[None].float(),
+                           (512, 512))[0].permute(1, 2, 0).numpy()
+    diff = np.abs(got.astype(np.int64) - pil.astype(np.int64))
+    assert diff.max() <= 1
+    assert (diff == 0).mean() >= 0.99
+
+
+def test_segmenter_float32_matches_jax_segmenter(tmp_path):
+    """The f32 Segmenter on the CPU against the JAX f32 Segmenter, both
+    from one .pth: the normalised input within one level (1/255/std) of
+    the JAX engine's for a 1000x700 frame and equal at imgsz; masks equal
+    on every pixel whose JAX top-2 margin exceeds 1e-3 at imgsz, and on
+    >= 99% of the 1000x700 frame's pixels."""
+    from cabinet_tpu.cli.infer import Segmenter as JaxSegmenter
+    from cabinet_tpu_torch.cli.infer import Segmenter
+
+    jm = JaxCABiNet(n_classes=8, mode="large")
+    v = perturb(jm.init(jax.random.PRNGKey(9), jnp.zeros((1, 64, 64, 3)),
+                        train=False), seed=10)
+    ckpt = tmp_path / "uavid_large.pth"
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(a))
+                for k, a in flax_to_torch(v, MOBILENETV3_LARGE_CFGS).items()}, ckpt)
+    kw = dict(mode="large", imgsz=64, dtype_name="float32", batch=8)
+    jseg = JaxSegmenter(str(ckpt), "uavid", **kw)
+    seg = Segmenter(str(ckpt), "uavid", device="cpu", **kw)
+
+    rng = np.random.default_rng(12)
+    frame = rng.integers(0, 256, (700, 1000, 3), dtype=np.uint8)
+    step = 1 / 255 / min(seg.std.tolist())
+    d = np.abs(seg._preprocess(frame).numpy() - jseg._preprocess(frame))
+    assert d.max() <= step * 1.001 and (d < 1e-6).mean() >= 0.99
+
+    rgb = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    np.testing.assert_allclose(seg._preprocess(rgb).numpy(),
+                               jseg._preprocess(rgb), rtol=0, atol=1e-6)
+    logits, _ = jm.apply(v, jnp.asarray(jseg._preprocess(rgb)[None]), train=False)
+    logits = np.asarray(logits)[0]
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    sure = (top2[..., 1] - top2[..., 0]) > 1e-3
+    got, want = seg.predict_batch([rgb, frame]), jseg.predict_batch([rgb, frame])
+    assert sure.mean() > 0.9
+    np.testing.assert_array_equal(got[0][sure], want[0][sure])
+    assert got[1].shape == want[1].shape == (700, 1000)
+    assert (got[1] == want[1]).mean() >= 0.99
+
+
 def test_cli_main_writes_mask_and_overlay(tmp_path):
     """`python -m cabinet_tpu_torch.cli.infer` on one image, on the CPU."""
     from PIL import Image
