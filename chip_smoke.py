@@ -46,6 +46,7 @@ result. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -129,6 +130,31 @@ def max_err(got, ref):
     """(max abs error, max |ref|) in f32."""
     return (float((got.float() - ref.float()).abs().max()),
             float(ref.float().abs().max()))
+
+
+def _kernel_of(line: str) -> str:
+    """The `..._kernel` name inside a mangled name on a ptxas line, or "":
+    the last length-prefixed identifier that ends so."""
+    names = [m.group(2)[:int(m.group(1))]
+             for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", line)]
+    return next((n for n in reversed(names) if n.endswith("_kernel")), "")
+
+
+def ptxas_report():
+    """ptxas' registers, spills and wgmma notes for each kernel, from the
+    build logs, as "source/kernel: line"."""
+    from cabinet_tpu_torch.ops import _build
+
+    out = []
+    for src in _build.SOURCES:
+        log = _build.BUILD_DIR / f"{src}.log"
+        kernel = ""
+        for ln in log.read_text().splitlines() if log.exists() else ():
+            if "Compiling entry function" in ln:
+                kernel = _kernel_of(ln)
+            elif "registers" in ln or "spill" in ln or "wgmma" in ln:
+                out.append(f"{src}/{kernel}: {ln.strip()}")
+    return out
 
 
 class Peaks:
@@ -323,9 +349,12 @@ def check_tail(torch, peaks, S, n_classes, B, gen):
           "ms": time_ms(lambda: dt.head_conv3x3(*k3_args)),
           "plain_ms": time_ms(lambda: dt.head_conv3x3_plain(*k3_args)),
           "library_ms": time_ms(lambda: lib_k3())}
+    k3_flops = 2 * P * 256 * (9 * 256 + n_classes)
     k3["bound_ms"], k3["bound_by"] = peaks.bound(
         P * (256 + n_classes) * 2 + B * 256 * 4 + (9 * 256 * 256 + 256 * n_classes) * 2
-        + 256 * 4, 2 * P * 256 * (9 * 256 + n_classes))
+        + 256 * 4, k3_flops)
+    k3["tflops"] = k3_flops / (k3["ms"] * 1e9)
+    k3["ms_over_bound"] = k3["ms"] / k3["bound_ms"]
     say("kernels", name="ffm_pointwise", **k2)
     say("kernels", name="head_conv3x3", **k3)
     check(err2 <= k2["bound"], f"ffm_pointwise {shape}: feat err {err2} > {k2['bound']}")
@@ -750,14 +779,8 @@ def main() -> int:
     peaks = Peaks(name)
 
     seconds = _build.build_all()
-    ptxas = []
-    for src in _build.SOURCES:
-        log = _build.BUILD_DIR / f"{src}.log"
-        if log.exists():
-            ptxas += [f"{src}: {ln.strip()}" for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
     say("build", seconds=round(seconds, 2), sources=list(_build.SOURCES))
-    for ln in ptxas:
+    for ln in ptxas_report():
         print("  " + ln)
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)

@@ -95,16 +95,38 @@ def test_ffm_pointwise_kernel_matches_plain(gen, B, H, W):
     _close(sums, sums_ref, 1e-4)
 
 
-@pytest.mark.parametrize("B,H,W,n", [(1, 9, 9, 1), (2, 8, 12, 16),
-                                     (1, 90, 90, 12), (1, 16, 16, 128)])
-def test_head_conv3x3_kernel_matches_plain(gen, B, H, W, n):
+def _head_args(gen, B, H, W, n, scale_span=1.0):
+    """K3's operands; the SE scale is drawn from [1, 1 + scale_span)."""
     o = _tail(gen, B, H, W, n)
     feat = torch.relu(torch.randn(B, H, W, 256, generator=gen, device="cuda")).bfloat16()
-    args = (feat, o["scale"], o["w3"], o["b3"], o["wc"], n)
+    scale = 1 + scale_span * torch.rand(B, 256, generator=gen, device="cuda")
+    return (feat, scale, o["w3"], o["b3"], o["wc"], n)
+
+
+# (1, 7, 300): 2100 pixels, so the last 128-pixel tile is ragged and tiles
+# straddle image rows; (8, 128, 128): the batch-8 main path's shape; a
+# scale in [1, 5): feat * bf16(scale) rounds to bf16 in most lanes, once,
+# from the exact f32 product, in the kernel as in the plain version.
+@pytest.mark.parametrize("B,H,W,n,scale_span", [
+    (1, 9, 9, 1, 1.0), (2, 8, 12, 16, 1.0), (1, 90, 90, 12, 1.0),
+    (1, 16, 16, 128, 1.0), (1, 7, 300, 8, 1.0), (8, 128, 128, 8, 1.0),
+    (2, 33, 40, 8, 4.0)])
+def test_head_conv3x3_kernel_matches_plain(gen, B, H, W, n, scale_span):
+    args = _head_args(gen, B, H, W, n, scale_span)
     got = dt.head_conv3x3(*args)
     torch.cuda.synchronize()
     assert got.shape == (B, H, W, n)
     _close(got, dt.head_conv3x3_plain(*args), TWO_ROUNDINGS)
+
+
+def test_head_conv3x3_kernel_is_deterministic(gen):
+    """No atomics and no order between blocks: two launches on the same
+    inputs give the same bits."""
+    args = _head_args(gen, 2, 64, 64, 8)
+    first = dt.head_conv3x3(*args)
+    second = dt.head_conv3x3(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 def test_fused_tail_forward_kernel_path_matches_plain(gen):
