@@ -2,30 +2,47 @@
 //
 // Replaces the Pallas kernel cabinet_tpu/ops/attention.py:_attention_kernel
 // (pallas_call at :68, launched by fused_global_attention :44):
-//   out[b] = softmax(q[b] k[b]^T * K^-1/2) v[b],  q,k (B,N,K), v (B,N,V) bf16.
+//   out[b] = softmax(q[b] k[b]^T * K^-1/2) v[b],  q,k (B,N,K), v (B,N,V).
 //
 // What bounds it: on the main path (N=1024, K=V=128) it does 2*N*N*(K+V)
 // = 0.54 GFLOP per image and moves 1 MB, so the H100's tensor-core rate
-// bounds it, at about half a microsecond; at that size the launch and the
-// serial loop over key tiles dominate instead.
+// bounds it, at about half a microsecond; at that size the launch, the
+// latency of the first loads and the serial loop over key tiles dominate.
 //
-// Design. The TPU kernel holds the whole (N,N) f32 matrix in VMEM, one batch
-// element per grid step. An SM has at most 227 KB of shared memory, so here
-// one block of 4 warps owns a tile of 64 query rows (16 per warp) and walks
-// over the keys in tiles of 64 with an online softmax (running max and
-// sum per row, output rescaled when the max grows); the (N,N) matrix never
-// exists and N has no cap. Products run on the tensor cores through WMMA
-// bf16 16x16x16 tiles with f32 accumulators:
-//   - S = Q K^T: q and k are bf16, so the bf16 MMA with f32 accumulation is
-//     the f32 product of the Pallas body up to summation order;
-//   - O += P V: the Pallas body keeps the probabilities P in f32 through
-//     the value product (the JAX einsum path casts them to bf16 first).
-//     P is split into hi = bf16(P) and lo = bf16(P - hi), and both are
-//     multiplied by V, which keeps about 16 bits of P (relative error
-//     ~2^-17) instead of bf16's 8.
-// Softmax and rescaling read and write the tiles in shared memory, one warp
-// per row group, in f32 with expf. The output is O / l rounded to bf16.
-// Simple first: one stage, no cp.async/TMA, no wgmma.
+// The bf16 kernel (attention_kernel). The TPU kernel holds the whole (N,N)
+// f32 matrix in VMEM, one batch element per grid step. Here one warpgroup
+// (128 threads) owns a tile of 64 queries and walks over the keys in tiles
+// of 64 with an online softmax (running max and sum per row, output
+// rescaled when the max grows): the (N,N) matrix never exists, N has no cap.
+//   - Q is loaded once into 128-byte-swizzled shared memory (hopper.cuh);
+//     key and value tiles stream by cp.async through rings of 2 stages,
+//     rows past N zero-filled: keys t+2 and values t+1 load while the
+//     tensor cores run P V(t) and Q K^T(t+1).
+//   - S = Q K^T by wgmma.m64n64k16 from descriptors, both operands K-major.
+//     S stays in registers, 32 f32 a thread; a row lives in the 4 lanes of
+//     a quad, so its max takes two shuffles. The max, the rescale of O and
+//     the row sums (per thread until the end) stay in registers too.
+//   - O += P V by the register-A wgmma: the S accumulator's layout is the A
+//     operand's, so P goes to the tensor cores from registers. The Pallas
+//     body keeps the probabilities P in f32 through this product (the JAX
+//     einsum path casts them to bf16 first): P is split into hi = bf16(P)
+//     and lo = bf16(P - hi), and both are multiplied by V, which keeps about
+//     16 bits of P (relative error ~2^-17) instead of bf16's 8. V is read
+//     N-major, transposed by wgmma.
+//   - P V of tile t and Q K^T of tile t+1 are issued together, so the
+//     tensor cores run them back to back while the next tiles load.
+//   - V runs in passes of 128 columns (S recomputed in each), zero-filled
+//     past V, which keeps O at 64 f32 a thread. q and k are zero-padded to
+//     128 or 256 columns in shared memory, one instance each, so that the
+//     Q K^T loop has a compile-time count.
+//   - Split keys: at batch 1, N=1024 has 16 query tiles, which would leave
+//     most of the 132 SMs idle, so the wrapper (ops/attention.py:key_splits)
+//     splits each query tile's key tiles into `splits` contiguous ranges,
+//     grid (query tiles, splits, B). Each split writes its unnormalised O,
+//     row max and row sum to a workspace, and attention_combine_kernel
+//     merges the splits of each row in split order and rounds to bf16:
+//     deterministic, no atomics. With one split the kernel writes the
+//     output itself and the merge is not launched.
 //
 // The float32 variant (attention_f32_kernel) computes the same function on
 // f32 q, k, v with plain f32 FMAs on the CUDA cores: no tensor cores, so no
@@ -39,151 +56,286 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BKV = 64;   // key rows per tile
-constexpr int WARPS = 4;  // 16 query rows each
-constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 64;            // query rows per block: one warpgroup
+constexpr int BKV = 64;           // keys per tile
+constexpr int THREADS = 128;
+constexpr int VP = 128;           // value columns per pass
+constexpr int K_STAGES = 2;       // key tiles t+1 (read), t+2 (loading)
+constexpr int V_STAGES = 2;       // value tiles t (read), t+1 (loading)
+constexpr int PANEL = BQ * 128;   // 64 rows x 64 bf16, K-major: 8 KB
+constexpr float LOG2E = 1.4426950408889634f;
 
-size_t smem_bytes(int D, int DV) {
-  return (size_t)(BQ * D + BKV * D + BKV * DV) * sizeof(bf16)  // q, k, v
-         + (size_t)BQ * BKV * sizeof(float)                      // scores
-         + (size_t)2 * BQ * BKV * sizeof(bf16)                   // P hi, lo
-         + (size_t)BQ * DV * sizeof(float)                       // O
-         + (size_t)2 * BQ * sizeof(float);                       // m, l
+// Q, the key ring (KP panels a tile) and the value ring (64 keys x VP).
+size_t smem_bytes(int KP) {
+  return (size_t)(1 + K_STAGES) * KP * PANEL + (size_t)V_STAGES * BKV * VP * 2 +
+         1024;  // + room to align
 }
 
-// Copies `rows` rows of `width` bf16 (width % 8 == 0) from a (N, width)
-// matrix starting at row r0 into shared memory; rows past N are zero.
-__device__ void load_rows(bf16* dst, const bf16* src, int r0, int rows,
-                          int N, int width) {
-  const int vecs = rows * width / 8;
-  for (int i = threadIdx.x; i < vecs; i += THREADS) {
-    const int r = i / (width / 8), c = (i % (width / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < N)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * width + c);
-    *reinterpret_cast<uint4*>(dst + r * width + c) = val;
-  }
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// grid (ceil(N / BQ), splits, B), 128 threads. q and k columns padded with
+// zeros to KP panels of 64 (a zero column adds nothing to q.k), so the
+// k16 steps of Q K^T are a compile-time count: with a runtime count ptxas
+// serialises the wgmma instructions (note C7520). Value columns
+// [c0, c0 + VP) per pass. With splits > 1, ws holds O (splits, B, N, DV)
+// f32, then (max, sum) (splits, B, N) as float2, the max in log2 units.
+template <int KP>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 int N, int D, int DV, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + BQ * D;
-  bf16* v_s = k_s + BKV * D;
-  float* s_s = reinterpret_cast<float*>(v_s + BKV * DV);
-  bf16* ph_s = reinterpret_cast<bf16*>(s_s + BQ * BKV);
-  bf16* pl_s = ph_s + BQ * BKV;
-  float* o_s = reinterpret_cast<float*>(pl_s + BQ * BKV);
-  float* m_s = o_s + BQ * DV;
-  float* l_s = m_s + BQ;
+                 float* __restrict__ ws, int N, int D, int DV, int splits,
+                 float scale_log2) {
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  const uint32_t base = smem_addr(k1_smem);
+  const uint32_t q_s = base + ((1024 - (base & 1023)) & 1023);
+  const uint32_t k_s = q_s + KP * PANEL;
+  const uint32_t v_s = k_s + K_STAGES * KP * PANEL;
 
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's first row in the tile
-  const bf16* qb = q + (size_t)b * N * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, tq = lane % 4;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (N + BKV - 1) / BKV;
+  const int t0 = split * n_tiles / splits, t1 = (split + 1) * n_tiles / splits;
   const bf16* kb = k + (size_t)b * N * D;
   const bf16* vb = v + (size_t)b * N * DV;
+  const int cpr = D / 8;  // 16-byte chunks per row of q and k
 
-  load_rows(q_s, qb, q0, BQ, N, D);
-  for (int i = threadIdx.x; i < BQ * DV; i += THREADS) o_s[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.f;
-  }
+  // Rows [r0, r0 + 64) of a (N, D) matrix into K-major swizzled panels,
+  // zeros past N and past D.
+  auto load_rows = [&](uint32_t dst, const bf16* src, int r0) {
+    for (int i = tid; i < BQ * KP * 8; i += THREADS) {
+      const int r = i / (KP * 8), c = i % (KP * 8);
+      const bool in = r0 + r < N && c < cpr;
+      cp_async16_zfill(dst + (c / 8) * PANEL + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+                       src + (in ? (size_t)(r0 + r) * D + c * 8 : 0), in);
+    }
+  };
+  // Keys [kv0, kv0 + 64), value columns [c0, c0 + VP), N-major swizzled.
+  auto load_v = [&](uint32_t dst, int kv0, int c0) {
+    for (int i = tid; i < BKV * VP / 8; i += THREADS) {
+      const int r = i / (VP / 8), c = i % (VP / 8);
+      const bool in = kv0 + r < N && c0 + c * 8 < DV;
+      cp_async16_zfill(dst + (r / 8) * (VP * 16) + (c / 8) * 1024 + (r % 8) * 128 +
+                           (((c % 8) ^ (r % 8)) << 4),
+                       vb + (in ? (size_t)(kv0 + r) * DV + c0 + c * 8 : 0), in);
+    }
+  };
+  auto k_stage = [&](int t) { return k_s + (t % K_STAGES) * KP * PANEL; };
+  auto v_stage = [&](int t) { return v_s + (t % V_STAGES) * (BKV * VP * 2); };
 
-  for (int kv0 = 0; kv0 < N; kv0 += BKV) {
-    __syncthreads();  // the previous tile's k_s/v_s are no longer read
-    load_rows(k_s, kb, kv0, BKV, N, D);
-    load_rows(v_s, vb, kv0, BKV, N, DV);
+  // This thread's rows of the tile: row and row + 8. Accumulator 4j+{0,1}
+  // (of S or O) is (row, 8j + 2tq + {0,1}), 4j+{2,3} is (row + 8, same).
+  const int row = warp * 16 + lane / 4;
+  load_rows(q_s, q + (size_t)b * N * D, q0);  // committed with the first tiles
+
+  for (int c0 = 0; c0 < DV; c0 += VP) {
+    float o[VP / 2], s[32];
+#pragma unroll
+    for (int i = 0; i < VP / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    load_rows(k_stage(t0), kb, t0 * BKV);
+    if (t0 + 1 < t1) load_rows(k_stage(t0 + 1), kb, (t0 + 1) * BKV);
+    load_v(v_stage(t0), t0 * BKV, c0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
     __syncthreads();
-
-    // S[r0:r0+16, :] = Q K^T for this warp's rows.
-    for (int j = 0; j < BKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, q_s + r0 * D + kk, D);
-        wmma::load_matrix_sync(bt, k_s + j * 16 * D + kk, D);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(s_s + r0 * BKV + j * 16, acc, BKV,
-                              wmma::mem_row_major);
+    fence_acc(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * KP; ++kk) {
+      const uint32_t off = (kk / 4) * PANEL + (kk % 4) * 32;
+      wgmma_m64n64k16_ss(s, gmma_desc(q_s + off, 16, 1024),
+                         gmma_desc(k_stage(t0) + off, 16, 1024), kk > 0);
     }
-    __syncwarp();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
 
-    // Online softmax over this key tile, one row at a time across the warp
-    // (lane owns columns lane and lane + 32).
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const float* srow = s_s + r * BKV;
-      const float x0 = (kv0 + lane < N) ? srow[lane] * scale : -INFINITY;
-      const float x1 = (kv0 + lane + 32 < N) ? srow[lane + 32] * scale : -INFINITY;
-      float mx = fmaxf(x0, x1);
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: the tile has a key
-      const float alpha = expf(m_old - m_new);
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      float ps = p0 + p1;
-      for (int o = 16; o > 0; o >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
-      ph_s[r * BKV + lane] = h0;
-      ph_s[r * BKV + lane + 32] = h1;
-      pl_s[r * BKV + lane] = __float2bfloat16_rn(p0 - __bfloat162float(h0));
-      pl_s[r * BKV + lane + 32] = __float2bfloat16_rn(p1 - __bfloat162float(h1));
-      for (int c = lane; c < DV; c += 32) o_s[r * DV + c] *= alpha;
-      __syncwarp();  // every lane has read m_s[r], l_s[r]
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + ps;
+    for (int t = t0; t < t1; ++t) {
+      // Online softmax of S(t) in log2 units; keys past N are -inf.
+      const int kv0 = t * BKV;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = kv0 + 8 * j + 2 * tq + (e & 1) < N;
+          s[4 * j + e] = in ? s[4 * j + e] * scale_log2 : -INFINITY;
+          mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);  // finite: the tile has a key
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int i = 0; i < VP / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      // P as register A operands of k16 slice kk: register r is row
+      // row + 8(r%2), keys 16kk + 8(r/2) + 2tq + {0,1}, i.e. s[8kk+2r+{0,1}].
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float p0 = exp2f(s[8 * kk + 2 * r] - m[r % 2]);
+          const float p1 = exp2f(s[8 * kk + 2 * r + 1] - m[r % 2]);
+          l[r % 2] += p0 + p1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hi);
+          ph[kk][r] = bf162_bits(hi);
+          pl[kk][r] = bf162_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+        }
+
+      // Keys t+1 and values t have landed for every thread, and every
+      // thread has retired P V(t-1) and S(t): the stages of keys t and
+      // values t-1 take keys t+2 and values t+1. Waiting for all copies
+      // here keeps the ring one tile deep.
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+      if (t + 2 < t1) load_rows(k_stage(t + 2), kb, (t + 2) * BKV);
+      if (t + 1 < t1) load_v(v_stage(t + 1), (t + 1) * BKV, c0);
+      cp_async_commit();
+
+      fence_acc(o);
+      fence_acc(s);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
+      }
+      wgmma_fence();
+      const uint32_t vt = v_stage(t);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = gmma_desc(vt + kk * VP * 32, 1024, VP * 16);
+        wgmma_m64n128k16_rs(o, ph[kk], dv);
+        wgmma_m64n128k16_rs(o, pl[kk], dv);
+      }
+      if (t + 1 < t1) {
+#pragma unroll
+        for (int kk = 0; kk < 4 * KP; ++kk) {
+          const uint32_t off = (kk / 4) * PANEL + (kk % 4) * 32;
+          wgmma_m64n64k16_ss(s, gmma_desc(q_s + off, 16, 1024),
+                             gmma_desc(k_stage(t + 1) + off, 16, 1024), kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_acc(s);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
       }
     }
-    __syncwarp();
 
-    // O[r0:r0+16, :] += (P_hi + P_lo) V.
-    for (int j = 0; j < DV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, o_s + r0 * DV + j * 16, DV, wmma::mem_row_major);
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ah, al;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(ah, ph_s + r0 * BKV + kk, BKV);
-        wmma::load_matrix_sync(al, pl_s + r0 * BKV + kk, BKV);
-        wmma::load_matrix_sync(bv, v_s + kk * DV + j * 16, DV);
-        wmma::mma_sync(acc, ah, bv, acc);
-        wmma::mma_sync(acc, al, bv, acc);
-      }
-      wmma::store_matrix_sync(o_s + r0 * DV + j * 16, acc, DV, wmma::mem_row_major);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
-    __syncwarp();
-  }
-
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr;
-    if (q0 + r >= N) break;
-    const float l = l_s[r];
-    bf16* orow = out + ((size_t)b * N + q0 + r) * DV;
-    for (int c = lane; c < DV; c += 32)
-      orow[c] = __float2bfloat16_rn(o_s[r * DV + c] / l);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + row + 8 * h;
+      if (r >= N) continue;
+      if (splits == 1) {
+        bf16* orow = out + ((size_t)b * N + r) * DV + c0;
+#pragma unroll
+        for (int j = 0; j < VP / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          if (c0 + col < DV)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+                o[4 * j + 2 * h] / l[h], o[4 * j + 2 * h + 1] / l[h]);
+        }
+      } else {
+        const size_t at = ((size_t)split * gridDim.z + b) * N + r;
+        float* orow = ws + at * DV + c0;
+#pragma unroll
+        for (int j = 0; j < VP / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          if (c0 + col < DV)
+            *reinterpret_cast<float2*>(orow + col) =
+                make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+        }
+        if (c0 == 0 && tq == 0)
+          reinterpret_cast<float2*>(ws + (size_t)splits * gridDim.z * N * DV)[at] =
+              make_float2(m[h], l[h]);
+      }
+    }
+    __syncthreads();  // the rings are free before the next pass refills them
   }
 }
+
+// One warp per query row of the B*N: merges its splits,
+// out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s with M = max_s m_s,
+// rounded to bf16. The lanes read the splits' (m, l) in parallel, M and
+// the sum of l come from shuffles, and each column adds the splits in
+// split order: the same bits every run.
+__global__ void __launch_bounds__(256)
+attention_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
+                         int rows, int DV, int splits) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float2* ml = reinterpret_cast<const float2*>(ws + (size_t)splits * rows * DV);
+  float mx = -INFINITY, l = 0.f;
+  for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, ml[(size_t)s * rows + row].x);
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  for (int s = lane; s < splits; s += 32) {
+    const float2 e = ml[(size_t)s * rows + row];
+    l += exp2f(e.x - mx) * e.y;
+  }
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < splits; ++s) {
+    const float w = exp2f(ml[(size_t)s * rows + row].x - mx);
+    const float* o = ws + ((size_t)s * rows + row) * DV;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (lane + 32 * i < DV) acc[i] += w * o[lane + 32 * i];
+  }
+  bf16* orow = out + (size_t)row * DV;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (lane + 32 * i < DV) orow[lane + 32 * i] = __float2bfloat16_rn(acc[i] / l);
+}
+
+template <int KP>
+int launch_attention(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                     float* ws, int B, int N, int D, int DV, int splits,
+                     float scale_log2, cudaStream_t stream) {
+  const size_t smem = smem_bytes(KP);
+  cudaFuncSetAttribute(attention_kernel<KP>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid((N + BQ - 1) / BQ, splits, B);
+  attention_kernel<KP><<<grid, THREADS, smem, stream>>>(
+      q, k, v, out, ws, N, D, DV, splits, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 
 // ---------------------------------------------------------------------------
 // float32 variant
@@ -296,7 +448,6 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 }  // namespace
-
 // q,k (B,N,D), v and out (B,N,DV): f32, contiguous; D, DV multiples of 16
 // up to 256. Launches on `stream` and returns cudaGetLastError().
 extern "C" int cabinet_attention_f32(const void* q, const void* k,
@@ -314,17 +465,19 @@ extern "C" int cabinet_attention_f32(const void* q, const void* k,
 }
 
 // q,k (B,N,D), v and out (B,N,DV): bf16, contiguous, 16-byte aligned;
-// D, DV multiples of 16 up to 256. Launches on `stream` and returns
+// D, DV multiples of 16 up to 256; 1 <= splits <= ceil(N/64). With
+// splits > 1, ws is f32 scratch of splits*B*N*(DV+2) values, and a second
+// kernel merges the splits into out. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int cabinet_attention(const void* q, const void* k, const void* v,
-                                 void* out, int B, int N, int D, int DV,
-                                 float scale, void* stream) {
-  const size_t smem = smem_bytes(D, DV);
-  cudaFuncSetAttribute(attention_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((N + BQ - 1) / BQ, B);
-  attention_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, N, D, DV,
-      scale);
+                                 void* out, void* ws, int B, int N, int D,
+                                 int DV, int splits, float scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int rc = (D <= 128 ? launch_attention<2> : launch_attention<4>)(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)ws, B, N,
+      D, DV, splits, scale * LOG2E, st);
+  if (rc != 0 || splits == 1) return rc;
+  attention_combine_kernel<<<(B * N + 7) / 8, 256, 0, st>>>(
+      (const float*)ws, (bf16*)out, B * N, DV, splits);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@
 //   cabinet_tpu/ops/decoder_tail.py:_k1_kernel (pallas_call at :169):
 //   feat = relu(fsp W1_sp + fcp W1_cp + b1), the FFM 1x1 ConvBNReLU on
 //   concat([fsp 128ch, fcp 256ch]) with the concat removed by splitting the
-//   weight and BN folded, plus f32 channel sums of each tile of BM pixels.
+//   weight and BN folded, plus f32 channel sums of each tile of FFM_TILE
+//   pixels.
 // K3 cabinet_head_conv3x3 replaces the Pallas kernel
 //   cabinet_tpu/ops/decoder_tail.py:_k2_kernel (pallas_call at :210):
 //   per pixel, x = feat * bf16(scale) (zero outside the image), a 3x3 conv
@@ -12,52 +13,59 @@
 //   bias-free 1x1 classifier 256->n_classes, rounded to bf16.
 //
 // What bounds them, at the main path's S=128 (1024^2 input), per image:
-//   K2 does 2*S^2*384*256 = 3.2 GFLOP and moves ~21 MB: memory-bound.
+//   K2 does 2*S^2*384*256 = 3.2 GFLOP and moves ~21 MB (153 FLOP/B, under
+//   the card's ~295): memory-bound, 0.0064 ms at 3.35 TB/s.
 //   K3 does 2*S^2*256*(9*256 + n_classes) ~ 19.4 GFLOP and moves ~10 MB:
 //   compute-bound on the tensor cores, 0.0196 ms at 989 TFLOP/s.
 //
-// Both kernels are implicit GEMMs over pixels of the flattened NHWC image.
-// The TPU kernels' row tiles with a one-row halo become per-pixel (y, x)
-// neighbour addressing: K3 reads each of the 9 taps of its pixels straight
-// from global memory (L2 serves the reuse) and writes zeros for taps
-// outside the image, so any H, W works and no tile needs a halo.
+// Both kernels are implicit GEMMs over pixels of the flattened NHWC image,
+// with the same block: 128 pixels x all 256 output channels (one wave of
+// 128 blocks on 132 SMs for a 128^2 image), two warpgroups of 64 pixels
+// each with one wgmma.m64n256k16 f32 accumulator, and K streaming in steps
+// of 64 channels through a ring of 4 stages (A 16 KB + weight chunk 32 KB)
+// in 128-byte-swizzled shared memory (hopper.cuh): the A tile K-major, the
+// weight chunk N-major as it lies in memory (wgmma transposes it).
 //
-// K2: BM = 64 pixels x all 256 output channels per block, 8 warps in a 2x4
-// grid each holding 32x64 of f32 accumulators in WMMA bf16 16x16x16
-// fragments; K streams through shared memory in chunks of 64 channels (one
-// stage). It writes one row of 256 sums per (image, tile) and the SE glue
-// in PyTorch reduces them in a fixed order: no atomics, so the sums do not
-// depend on block order.
+// K2: K = 128 fsp + 256 fcp channels in 6 steps (the step picks the source,
+// so the concat never exists). A needs no gather, so both operands come by
+// cp.async, three steps ahead of the tensor cores; rows past the image are
+// zero-filled by the copy. The epilogue stays in registers: + b1, relu, the
+// bf16 feat staged through the drained ring and written with 16-byte
+// stores, and the f32 column sums of each warpgroup's 64 pixels, which are
+// exactly one FFM_TILE: summed in the thread, then over the 8 lanes of a
+// column by shuffles, then over the 4 warps in shared memory, in a fixed
+// order. One row of sums per (image, tile); the SE glue in PyTorch reduces
+// the rows in a fixed order: no atomics, so the sums do not depend on block
+// order. The lever left: every block streams all of W1 (196 KB) from L2,
+// ~25 MB per image; blocks holding W1 resident would remove it.
 //
-// K3: 128 pixels x all 256 output channels per block (one wave of 128
-// blocks on 132 SMs for a 128^2 image), two warpgroups of 64 pixels each
-// with one wgmma.m64n256k16 accumulator. K = 9 taps x 256 channels runs in
-// 36 steps of 64 channels through a ring of 4 stages in 128-byte-swizzled
-// shared memory, the layouts wgmma reads from its descriptors without bank
-// conflicts: the A tile K-major, the W3 chunk N-major as it lies in memory
-// (wgmma transposes it). The loads of step s+2 are in flight while the
-// tensor cores run step s: W3 by cp.async, A through registers, since it
-// is a per-pixel gather, zero outside the image and multiplied by
-// bf16(scale) before the product (which rules out a tiled TMA load). The
-// 1x1 classifier runs on WMMA fragments from the bf16 relu output kept in
-// shared memory (about 1% of the FLOPs); only n_classes columns of the
-// logits are written. The lever left: every block streams all of W3
-// (1.18 MB) from L2, ~151 MB per image, which costs about as much as the
-// bound; a thread-block cluster could multicast each W3 chunk to its
-// blocks.
+// K3: K = 9 taps x 256 channels in 36 steps. The TPU kernel's row tiles
+// with a one-row halo become per-pixel (y, x) neighbour addressing: each of
+// the 9 taps of a pixel is read straight from global memory (L2 serves the
+// reuse), zeros for taps outside the image, so any H, W works and no tile
+// needs a halo. The loads of step s+2 are in flight while the tensor cores
+// run step s: W3 by cp.async, A through registers, since it is a per-pixel
+// gather, zero outside the image and multiplied by bf16(scale) before the
+// product (which rules out a tiled TMA load). The 1x1 classifier runs on
+// WMMA fragments from the bf16 relu output kept in shared memory (about 1%
+// of the FLOPs); only n_classes columns of the logits are written. The
+// lever left: every block streams all of W3 (1.18 MB) from L2, ~151 MB per
+// image, which costs about as much as the bound; a thread-block cluster
+// could multicast each W3 chunk to its blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64;      // pixels per block (FFM_TILE in decoder_tail.py)
-constexpr int BK = 64;      // channels per K chunk
+constexpr int BK = 64;      // channels per K step
 constexpr int C = 256;      // FFM / head width
 constexpr int C_SP = 128;   // fsp channels
 constexpr int C_CP = 256;   // fcp channels
@@ -65,88 +73,162 @@ constexpr int THREADS = 256;
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
 
-// acc[2][4] (this warp's 32x64 slice of BM x C) += A (BM x BK) B (BK x C).
-__device__ void mma_chunk(AccFrag (&acc)[2][4], const bf16* a_s,
-                          const bf16* b_s, int wm, int wn) {
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], a_s + (wm * 32 + i * 16) * BK + kk, BK);
-    for (int j = 0; j < 4; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-      wmma::load_matrix_sync(bw, b_s + kk * C + wn * 64 + j * 16, C);
-      for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], bw, acc[i][j]);
-    }
-  }
-}
-
-// Copies a contiguous BK x C bf16 weight chunk into shared memory.
-__device__ void load_weight_chunk(bf16* b_s, const bf16* w) {
-  for (int i = threadIdx.x; i < BK * C / 8; i += THREADS)
-    reinterpret_cast<uint4*>(b_s)[i] = reinterpret_cast<const uint4*>(w)[i];
-}
-
-__device__ void store_acc(float* c_s, AccFrag (&acc)[2][4], int wm, int wn) {
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(c_s + (wm * 32 + i * 16) * C + wn * 64 + j * 16,
-                              acc[i][j], C, wmma::mem_row_major);
-}
-
 // ---------------------------------------------------------------------------
-// K2: grid (n_tiles, B). Shared: A chunk 8 KB + W chunk 32 KB, then the
-// 64 KB f32 accumulator tile.
+// K2: grid (ceil(P / K2_BM), B), 256 threads = warpgroups 0 and 1, which own
+// pixels [0, 64) and [64, 128) of the block's tile. Shared (dynamic, from a
+// base aligned to 1024 bytes):
+//   [0, 192K)            the ring: 4 stages of A 16 KB + W1 chunk 32 KB,
+//                        laid out as K3's (below);
+//   once the ring is drained, in its place:
+//   [0, K2_RED_OFF)      feat, bf16 128 x K2_LDY (rows padded 16 B)
+//   [K2_RED_OFF, +8 KB)  f32 column sums of each warp's 16 pixels,
+//                        [warpgroup][warp][channel]
+// Step s < 2 reads fsp channels 64s.. with w_sp rows 64s..; step s >= 2
+// reads fcp channels 64(s-2).. with w_cp rows 64(s-2)...
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+constexpr int FFM_TILE_IN_CU = 64;                 // FFM_TILE in decoder_tail.py
+constexpr int K2_BM = 128;                         // pixels per block
+constexpr int K2_STAGES = 4;
+constexpr int K2_STEPS = (C_SP + C_CP) / BK;       // 6
+constexpr int K2_A_BYTES = K2_BM * BK * 2;         // 16 KB
+constexpr int K2_STAGE_BYTES = K2_A_BYTES + BK * C * 2;  // + 32 KB of W1
+constexpr int K2_LDY = C + 8;                      // feat row pitch
+constexpr size_t K2_RED_OFF = (size_t)K2_BM * K2_LDY * 2;
+constexpr size_t K2_SMEM = (size_t)K2_STAGES * K2_STAGE_BYTES + 1024;  // + align
+static_assert(K2_BM == 2 * FFM_TILE_IN_CU,
+              "each warpgroup's 64 pixels must be one FFM_TILE of sums");
+static_assert(C_SP % BK == 0 && C_CP % BK == 0, "a step reads one source");
+static_assert(K2_RED_OFF + 2 * 4 * C * 4 <= (size_t)K2_STAGES * K2_STAGE_BYTES,
+              "the epilogue must fit in the drained ring");
+
+__global__ void __launch_bounds__(THREADS, 1)
 ffm_pointwise_kernel(const bf16* __restrict__ fsp, const bf16* __restrict__ fcp,
                      const bf16* __restrict__ w_sp, const bf16* __restrict__ w_cp,
                      const float* __restrict__ b1, bf16* __restrict__ feat,
                      float* __restrict__ sums, int P, int n_tiles) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);
-  bf16* b_s = a_s + BM * BK;
-  float* c_s = reinterpret_cast<float*>(smem);
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  unsigned char* smem = k2_smem + ((1024 - (smem_addr(k2_smem) & 1023)) & 1023);
 
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int p0 = tile * BM, rows = min(BM, P - p0);
-  const int warp = threadIdx.x / 32, wm = warp / 4, wn = warp % 4;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int b = blockIdx.y, p0 = blockIdx.x * K2_BM;
+  auto stage = [&](int s) { return smem_addr(smem + (s % K2_STAGES) * K2_STAGE_BYTES); };
 
-  AccFrag acc[2][4];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < C_SP + C_CP; k0 += BK) {
-    const bool sp = k0 < C_SP;
-    const bf16* src = sp ? fsp : fcp;
-    const int ld = sp ? C_SP : C_CP, kk = sp ? k0 : k0 - C_SP;
-    for (int i = threadIdx.x; i < BM * BK / 8; i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < rows)
-        val = *reinterpret_cast<const uint4*>(
-            src + ((size_t)b * P + p0 + r) * ld + kk + c);
-      *reinterpret_cast<uint4*>(a_s + r * BK + c) = val;
+  // Step s into its stage, all by cp.async: this thread's A chunks are
+  // chunk ac of pixels ar + 32j (zero-filled past P), its W1 chunks rows
+  // bk + 8j, chunk bn of 32, as K3 copies W3.
+  const int ac = tid % 8, ar = tid / 8, bk = tid / 32, bn = tid % 32;
+  auto load = [&](int s) {
+    const bool sp = s < C_SP / BK;
+    const int ld = sp ? C_SP : C_CP, k0 = (sp ? s : s - C_SP / BK) * BK;
+    const bf16* src = (sp ? fsp : fcp) + (size_t)b * P * ld + k0 + ac * 8;
+    const uint32_t a0 = stage(s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = ar + 32 * j;
+      const bool in = p0 + r < P;
+      cp_async16_zfill(a0 + r * 128 + ((ac ^ (r & 7)) << 4),
+                       src + (size_t)(in ? p0 + r : 0) * ld, in);
     }
-    load_weight_chunk(b_s, sp ? w_sp + (size_t)kk * C : w_cp + (size_t)kk * C);
-    __syncthreads();
-    mma_chunk(acc, a_s, b_s, wm, wn);
-    __syncthreads();
+    const bf16* w = (sp ? w_sp : w_cp) + ((size_t)k0 + bk) * C + bn * 8;
+    const uint32_t dst = a0 + K2_A_BYTES + (bn / 8) * 1024 + bk * 128 +
+                         (((bn % 8) ^ bk) << 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cp_async16(dst + j * 4096, w + (size_t)j * 8 * C);
+  };
+
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  for (int s = 0; s < K2_STAGES - 1; ++s) {
+    load(s);
+    cp_async_commit();
   }
-  store_acc(c_s, acc, wm, wn);
+
+  // Steps s+1 and s+2 are in flight while the tensor cores run step s.
+  // Step s+3 goes to the stage of step s-1 once both warpgroups have
+  // retired it (wgmma_wait<1> after issuing step s, then the barrier).
+  for (int s = 0; s < K2_STEPS; ++s) {
+    cp_async_wait<K2_STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t a0 = stage(s);
+    fence_acc(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n256k16(d, gmma_desc(a0 + wg * 8192 + kk * 32, 16, 1024),
+                       gmma_desc(a0 + K2_A_BYTES + kk * 8192, 1024, 4096));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(d);
+    __syncthreads();
+    if (s + K2_STAGES - 1 < K2_STEPS) load(s + K2_STAGES - 1);
+    cp_async_commit();
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  __syncthreads();  // the ring is drained: its space is reused below
+
+  // + b1, relu. Accumulator 4j+{0,1} is (row, col+{0,1}) and 4j+{2,3} is
+  // (row+8, col+{0,1}), with row = 16*warp + lane/4 in the warpgroup's 64
+  // and col = 8j + 2*(lane%4). feat goes to shared memory in bf16; d keeps
+  // this thread's sum of its two rows, rows past P left out.
+  bf16* y_s = reinterpret_cast<bf16*>(smem);
+  float* red = reinterpret_cast<float*>(smem + K2_RED_OFF);
+  const int wq = (tid % 128) / 32;
+  const int row = wg * 64 + wq * 16 + lane / 4;
+  const bool in0 = p0 + row < P, in1 = p0 + row + 8 < P;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    const float2 bias = *reinterpret_cast<const float2*>(b1 + col);
+    const float y00 = fmaxf(d[4 * j] + bias.x, 0.f);
+    const float y01 = fmaxf(d[4 * j + 1] + bias.y, 0.f);
+    const float y10 = fmaxf(d[4 * j + 2] + bias.x, 0.f);
+    const float y11 = fmaxf(d[4 * j + 3] + bias.y, 0.f);
+    *reinterpret_cast<__nv_bfloat162*>(y_s + row * K2_LDY + col) =
+        __floats2bfloat162_rn(y00, y01);
+    *reinterpret_cast<__nv_bfloat162*>(y_s + (row + 8) * K2_LDY + col) =
+        __floats2bfloat162_rn(y10, y11);
+    d[4 * j] = (in0 ? y00 : 0.f) + (in1 ? y10 : 0.f);
+    d[4 * j + 1] = (in0 ? y01 : 0.f) + (in1 ? y11 : 0.f);
+  }
+  // Over the 8 lanes that share a column (lane/4 = 0..7), then lanes 0-3
+  // hold the warp's 16-pixel sums of all 256 channels.
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = d[4 * j + e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      d[4 * j + e] = v;
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<float2*>(red + (wg * 4 + wq) * C + 8 * j + 2 * lane) =
+          make_float2(d[4 * j], d[4 * j + 1]);
+  }
   __syncthreads();
 
-  // One thread per channel: bias, relu, bf16 store, and the tile's sum of
-  // the f32 values in a fixed row order.
-  const int c = threadIdx.x;
-  const float bias = b1[c];
-  float sum = 0.f;
-  bf16* out = feat + ((size_t)b * P + p0) * C + c;
-  for (int r = 0; r < rows; ++r) {
-    const float y = fmaxf(c_s[r * C + c] + bias, 0.f);
-    sum += y;
-    out[(size_t)r * C] = __float2bfloat16_rn(y);
+  const int rows = min(K2_BM, P - p0);
+  bf16* fb = feat + ((size_t)b * P + p0) * C;
+  for (int i = tid; i < rows * (C / 8); i += THREADS) {
+    const int r = i / (C / 8), c = i % (C / 8);
+    *reinterpret_cast<uint4*>(fb + (size_t)r * C + c * 8) =
+        *reinterpret_cast<const uint4*>(y_s + r * K2_LDY + c * 8);
   }
-  sums[((size_t)b * n_tiles + tile) * C + c] = sum;
+  // One row of sums per warpgroup whose first pixel lies in the image;
+  // thread tid is channel tid, the 4 warps added in order.
+  for (int h = 0; h < 2; ++h) {
+    const int tile = blockIdx.x * 2 + h;
+    if (tile >= n_tiles) break;
+    const float* rs = red + h * 4 * C + tid;
+    sums[((size_t)b * n_tiles + tile) * C + tid] = ((rs[0] + rs[C]) + rs[2 * C]) + rs[3 * C];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -184,85 +266,6 @@ constexpr size_t K3_SMEM = K3_SC_OFF + C * 2 + 1024;  // + room to align
 static_assert((size_t)K3_STAGES * K3_STAGE_BYTES <= K3_SC_OFF,
               "the ring must not reach the scale");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle; byte offsets.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lead,
-                                              uint32_t stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma instructions.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 256 f32, this warpgroup's) += A (64 x 16 bf16, K-major) *
-// B (16 x 256 bf16, N-major: transposed, the last immediate).
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 head_conv3x3_kernel(const bf16* __restrict__ feat, const float* __restrict__ scale,
@@ -354,7 +357,7 @@ head_conv3x3_kernel(const bf16* __restrict__ feat, const float* __restrict__ sca
   // (wgmma_wait<1> at the end of step s-1, then the barrier).
   for (int s = 0; s < K3_STEPS; ++s) {
     cp_async_wait<1>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
     const uint32_t a0 = smem_addr(stage(s));
     fence_acc(d);
@@ -433,10 +436,10 @@ extern "C" int cabinet_ffm_pointwise(const void* fsp, const void* fcp,
                                      const void* w_sp, const void* w_cp,
                                      const void* b1, void* feat, void* sums,
                                      int B, int P, int n_tiles, void* stream) {
-  const size_t smem = (size_t)BM * C * sizeof(float);  // >= A + W chunks
   cudaFuncSetAttribute(ffm_pointwise_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  ffm_pointwise_kernel<<<dim3(n_tiles, B), THREADS, smem, (cudaStream_t)stream>>>(
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K2_SMEM);
+  const int blocks = (P + K2_BM - 1) / K2_BM;
+  ffm_pointwise_kernel<<<dim3(blocks, B), THREADS, K2_SMEM, (cudaStream_t)stream>>>(
       (const bf16*)fsp, (const bf16*)fcp, (const bf16*)w_sp, (const bf16*)w_cp,
       (const float*)b1, (bf16*)feat, (float*)sums, P, n_tiles);
   return (int)cudaGetLastError();

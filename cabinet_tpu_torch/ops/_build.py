@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` becomes `_build/<name>-<hash>.so`, compiled by `nvcc`
 for `sm_90a` with a plain C interface and loaded with `ctypes`. The hash
-covers the source and the flags, so an edited source is rebuilt. Nothing is
-compiled or loaded when this module is imported: `load` builds on the first
-launch of a kernel, and `build_all` builds every source at once, one `nvcc`
-process per source, all started together.
+covers the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source or header is rebuilt. Nothing is compiled or loaded when
+this module is imported: `load` builds on the first launch of a kernel,
+and `build_all` builds every source at once, one `nvcc` process per
+source, all started together.
 """
 
 from __future__ import annotations
@@ -42,9 +43,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """`_build/<name>-<hash>.so`, the hash over `<name>.cu`, every header
+    of `csrc/` (any source may include any of them) and the flags."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> float:

@@ -5,7 +5,9 @@ softmax(q k^T * K^-0.5) v per batch element over all N tokens of the CAB's
 Replaces the Pallas kernel `cabinet_tpu/ops/attention.py:_attention_kernel`,
 which takes any dtype. The CUDA kernels are in `csrc/attention.cu`, one for
 bf16 (tensor cores) and one for f32 (f32 FMAs, no TF32); see its header for
-the design.
+the design. When a batch has too few query tiles to fill the card, the bf16
+kernel splits each tile's keys into ranges (`key_splits`) and a second
+kernel merges them in a fixed order.
 
 Like the Pallas body, the kernel and its plain version keep the
 probabilities in f32 through the value product. The JAX einsum path
@@ -17,6 +19,7 @@ they agree to rounding.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,18 +35,37 @@ def global_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(attn, v.float()).to(v.dtype)
 
 
+BLOCK = 64  # queries per block and keys per tile (BQ, BKV in csrc/attention.cu)
+
+
+def key_splits(B: int, N: int, n_sm: int) -> int:
+    """How many contiguous ranges of key tiles the bf16 kernel splits each
+    query tile's keys into (split i walks tiles [i*T//splits,
+    (i+1)*T//splits) of the T = ceil(N/64)), on a card with `n_sm` SMs: as
+    many as keep the grid within one block per SM, at most one per key
+    tile. So 1 when the B x T query tiles alone exceed half the SMs (B=8,
+    N=1024 on 132 SMs: 128 blocks): a second split would stack two blocks
+    on some SMs, which shortens nothing there, and cost the merge."""
+    tiles = -(-N // BLOCK)
+    return max(1, min(tiles, n_sm // (B * tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The library with its launchers' signatures set, once."""
     lib = _build.load("attention")
-    for fn in (lib.cabinet_attention, lib.cabinet_attention_f32):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib.cabinet_attention.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.cabinet_attention_f32.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    lib.cabinet_attention.restype = ctypes.c_int
+    lib.cabinet_attention_f32.restype = ctypes.c_int
     return lib
-
-
-# The kernel launched for each input dtype: (C entry point, launch counter).
-_KERNELS = {torch.bfloat16: ("cabinet_attention", "launches"),
-            torch.float32: ("cabinet_attention_f32", "launches_f32")}
 
 
 def fused_global_attention(q: torch.Tensor, k: torch.Tensor,
@@ -51,7 +73,8 @@ def fused_global_attention(q: torch.Tensor, k: torch.Tensor,
     """softmax(q k^T * K^-0.5) v; q,k (B,N,K), v (B,N,V) -> (B,N,V).
 
     CPU tensors take the plain version. CUDA tensors launch K1: its bf16
-    kernel for bf16 inputs (counted in `launches`), its f32 kernel for f32
+    kernel for bf16 inputs (counted in `launches`, once a call whether or
+    not the splits are merged by a second kernel), its f32 kernel for f32
     inputs (counted in `launches_f32`). Both take contiguous, 16-byte
     aligned tensors of one dtype, K and V multiples of 16 up to 256;
     anything else raises."""
@@ -59,7 +82,7 @@ def fused_global_attention(q: torch.Tensor, k: torch.Tensor,
         return global_attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"fused_global_attention: unsupported device {q.device}")
-    if q.dtype not in _KERNELS:
+    if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the attention kernel takes bfloat16 or float32, "
                          f"q is {q.dtype}")
     B, N, K = q.shape
@@ -83,14 +106,24 @@ def fused_global_attention(q: torch.Tensor, k: torch.Tensor,
                          f"multiples of 16; got K={K}, V={V}")
     if N < 1:
         raise ValueError("empty token dimension")
-    entry, counter = _KERNELS[q.dtype]
     out = torch.empty_like(v)
-    rc = getattr(_lib(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, K, V,
-        float(K) ** -0.5, _build.stream_ptr(q.device))
-    _build.check_launch(rc, entry)
-    setattr(fused_global_attention, counter,
-            getattr(fused_global_attention, counter) + 1)
+    stream = _build.stream_ptr(q.device)
+    if q.dtype == torch.float32:
+        rc = _lib().cabinet_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, K, V,
+            float(K) ** -0.5, stream)
+        _build.check_launch(rc, "cabinet_attention_f32")
+        fused_global_attention.launches_f32 += 1
+        return out
+    splits = key_splits(B, N, _sm_count(q.device.index))
+    ws = (torch.empty(splits * B * N * (V + 2), dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
+    rc = _lib().cabinet_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, N, K, V, splits,
+        float(K) ** -0.5, stream)
+    _build.check_launch(rc, "cabinet_attention")
+    fused_global_attention.launches += 1
     return out
 
 

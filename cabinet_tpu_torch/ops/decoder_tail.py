@@ -22,6 +22,7 @@ the order in which blocks run.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -31,7 +32,7 @@ from cabinet_tpu_torch.ops import _build
 
 ROW_TILE = 16
 LANES = 128
-FFM_TILE = 64      # pixels per K2 block; must equal BM in csrc/decoder_tail.cu
+FFM_TILE = 64      # pixels per row of K2's sums: FFM_TILE_IN_CU in csrc/decoder_tail.cu
 C_SP, C_CP, C_MID = 128, 256, 256  # fsp, fcp and FFM/head widths (architecture)
 
 
@@ -129,7 +130,10 @@ def _check(name, t, shape, dtype, device):
                          f"kernels read 16 bytes at a time)")
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The library with its launchers' signatures set, once: a launch
+    costs the host only the call."""
     lib = _build.load("decoder_tail")
     lib.cabinet_ffm_pointwise.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]

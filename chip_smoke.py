@@ -12,8 +12,12 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
   2. build    compile csrc/*.cu (one nvcc per source, in parallel)
   3. kernels  K1 attention (bf16 and f32), K2 FFM 1x1, K3 3x3 head and K4
               stem+block_0 at the main paths' shapes against their plain
-              versions, with times of the kernel, the plain version and
-              one library call
+              versions, with times of the kernel's wrapper, the plain
+              version and one library call: called back to back (`ms`,
+              `plain_ms`, `library_ms`: the host's time where launching
+              takes longer), and the same calls replayed from a CUDA graph
+              (`device_ms`, `plain_device_ms`, `library_device_ms`: the
+              device's time alone)
   4. main     each path driven with the launch counts set to 0 just before
               it and read just after:
               - the fused-tail forward on the trained Large fixture
@@ -110,7 +114,9 @@ def say(phase: str, **fields) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call from CUDA events around `iters` back-to-back calls."""
+    """Mean ms per call from CUDA events around `iters` back-to-back calls:
+    the card's time, or the host's where launching takes longer (a wrapper's
+    checks and allocations, a forward's ~300 launches)."""
     import torch
 
     for _ in range(warmup):
@@ -124,6 +130,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3, replays: int = 5) -> float:
+    """Mean device ms per call: `iters` calls captured in one CUDA graph and
+    timed by CUDA events over `replays` replays, so the host's cost of
+    launching (the wrapper's checks, ctypes, allocation) is not counted."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def timings(kernel, plain, library, iters: int = 20) -> dict:
+    """The wrapper's, the plain version's and the library call's times,
+    back to back (`ms`, ...) and replayed from a CUDA graph
+    (`device_ms`, ...)."""
+    out = {}
+    for prefix, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        out[f"{prefix}ms"] = time_ms(fn, iters)
+        out[f"{prefix}device_ms"] = graph_ms(fn, iters)
+    return out
 
 
 def max_err(got, ref):
@@ -179,12 +221,21 @@ class Peaks:
 # ---------------------------------------------------------------------------
 
 
+def add_rate(row, flops: float) -> None:
+    """The kernel's TFLOP/s and its time over its bound, into `row`."""
+    row["tflops"] = flops / (row["ms"] * 1e9)
+    row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+
+
 def check_attention(torch, peaks, B, N=1024, D=128, gen=None):
+    """The bf16 K1 against its plain version; `splits` is how many key
+    ranges the kernel splits each query tile into on this card."""
     import torch.nn.functional as F
 
     from cabinet_tpu_torch.ops.attention import (
         fused_global_attention,
         global_attention_plain,
+        key_splits,
     )
 
     q, k, v = (torch.randn(B, N, D, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -196,12 +247,14 @@ def check_attention(torch, peaks, B, N=1024, D=128, gen=None):
     bound = BOUND_K1 * top
     row = {
         "shape": f"B={B} N={N} K=V={D}", "max_abs_err": err, "bound": bound,
-        "ms": time_ms(lambda: fused_global_attention(q, k, v)),
-        "plain_ms": time_ms(lambda: global_attention_plain(q, k, v)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        "splits": key_splits(B, N, torch.cuda.get_device_properties(0).multi_processor_count),
+        **timings(lambda: fused_global_attention(q, k, v),
+                  lambda: global_attention_plain(q, k, v),
+                  lambda: F.scaled_dot_product_attention(q, k, v)),
     }
-    row["bound_ms"], row["bound_by"] = peaks.bound(
-        B * N * 4 * D * 2, 2 * B * N * N * 2 * D)
+    flops = 2 * B * N * N * 2 * D
+    row["bound_ms"], row["bound_by"] = peaks.bound(B * N * 4 * D * 2, flops)
+    add_rate(row, flops)
     say("kernels", name="attention", **row)
     check(err <= bound, f"attention B={B}: max err {err} > bound {bound}")
     return row
@@ -224,10 +277,9 @@ def check_attention_f32(torch, peaks, B, N=1024, D=128, gen=None):
     bound = BOUND_F32 * top
     row = {
         "shape": f"B={B} N={N} K=V={D} f32", "max_abs_err": err, "bound": bound,
-        "ms": time_ms(lambda: fused_global_attention(q, k, v), iters=10),
-        "plain_ms": time_ms(lambda: global_attention_plain(q, k, v), iters=10),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
-                              iters=10),
+        **timings(lambda: fused_global_attention(q, k, v),
+                  lambda: global_attention_plain(q, k, v),
+                  lambda: F.scaled_dot_product_attention(q, k, v), iters=10),
     }
     row["bound_ms"], row["bound_by"] = peaks.bound(
         B * N * 4 * D * 4, 2 * B * N * N * 2 * D, f32=True)
@@ -270,10 +322,9 @@ def check_stem_block0(torch, peaks, shape, dtype, gen):
     n_out = B * (H // 2) * (W // 2)
     row = {"shape": f"{tuple(shape)} {str(dtype)[6:]}", "max_abs_err": err,
            "bound": bound,
-           "ms": time_ms(lambda: es.fused_stem_block0(x, *w, out_dtype=dtype), iters=10),
-           "plain_ms": time_ms(lambda: es.stem_block0_plain(x, *w, out_dtype=dtype),
-                               iters=10),
-           "library_ms": time_ms(lib_k4, iters=10)}
+           **timings(lambda: es.fused_stem_block0(x, *w, out_dtype=dtype),
+                     lambda: es.stem_block0_plain(x, *w, out_dtype=dtype),
+                     lib_k4, iters=10)}
     row["bound_ms"], row["bound_by"] = peaks.bound(
         x.numel() * x.element_size() + 16 * n_out * got.element_size() + 880 * 4,
         2 * n_out * (16 * 27 + 16 * 9 + 16 * 16), f32=True)
@@ -339,22 +390,22 @@ def check_tail(torch, peaks, S, n_classes, B, gen):
     P = B * S * S
     k2 = {"shape": shape, "max_abs_err": err2, "bound": BOUND_K2 * top2,
           "sums_err": err_s, "sums_bound": BOUND_K2_SUMS * top_s,
-          "ms": time_ms(lambda: dt.ffm_pointwise(*k2_args)),
-          "plain_ms": time_ms(lambda: dt.ffm_pointwise_plain(*k2_args)),
-          "library_ms": time_ms(lambda: torch.matmul(fcat, w1))}
+          **timings(lambda: dt.ffm_pointwise(*k2_args),
+                    lambda: dt.ffm_pointwise_plain(*k2_args),
+                    lambda: torch.matmul(fcat, w1))}
+    k2_flops = 2 * P * 384 * 256
     k2["bound_ms"], k2["bound_by"] = peaks.bound(
         P * (128 + 256 + 256) * 2 + sums.numel() * 4 + (384 * 256) * 2 + 256 * 4,
-        2 * P * 384 * 256)
+        k2_flops)
+    add_rate(k2, k2_flops)
     k3 = {"shape": shape, "max_abs_err": err3, "bound": BOUND_K3 * top3,
-          "ms": time_ms(lambda: dt.head_conv3x3(*k3_args)),
-          "plain_ms": time_ms(lambda: dt.head_conv3x3_plain(*k3_args)),
-          "library_ms": time_ms(lambda: lib_k3())}
+          **timings(lambda: dt.head_conv3x3(*k3_args),
+                    lambda: dt.head_conv3x3_plain(*k3_args), lib_k3)}
     k3_flops = 2 * P * 256 * (9 * 256 + n_classes)
     k3["bound_ms"], k3["bound_by"] = peaks.bound(
         P * (256 + n_classes) * 2 + B * 256 * 4 + (9 * 256 * 256 + 256 * n_classes) * 2
         + 256 * 4, k3_flops)
-    k3["tflops"] = k3_flops / (k3["ms"] * 1e9)
-    k3["ms_over_bound"] = k3["ms"] / k3["bound_ms"]
+    add_rate(k3, k3_flops)
     say("kernels", name="ffm_pointwise", **k2)
     say("kernels", name="head_conv3x3", **k3)
     check(err2 <= k2["bound"], f"ffm_pointwise {shape}: feat err {err2} > {k2['bound']}")
@@ -847,7 +898,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in every),
          "ms": main["ms"], "plain_ms": main["plain_ms"],
          "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-         "library_ms": main["library_ms"], "shape": main["shape"]}
+         "library_ms": main["library_ms"], "device_ms": main["device_ms"],
+         "plain_device_ms": main["plain_device_ms"],
+         "library_device_ms": main["library_device_ms"], "shape": main["shape"]}
         for n, src, rep, main, every in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

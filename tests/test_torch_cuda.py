@@ -35,17 +35,40 @@ def _close(got, ref, rel):
     assert err <= bound, f"max abs err {err} > bound {bound}"
 
 
-@pytest.mark.parametrize("B,N,K,V", [(1, 1, 16, 16), (2, 100, 32, 64),
-                                     (1, 1024, 128, 128), (3, 257, 128, 256)])
+def _qkv(gen, B, N, K, V):
+    return [torch.randn(B, N, d, generator=gen, device="cuda").bfloat16()
+            for d in (K, K, V)]
+
+
+# On the H100's 132 SMs (attn.key_splits): (1, 1024) the main path's batch
+# 1, 8 splits; (1, 1000) a ragged last key tile, 8 splits; (1, 1500) 5
+# uneven splits of 24 key tiles; (1, 4096) 2 splits of 32; (8, 1024) the
+# batch-8 shape, 1 split, no merge; (2, 100, 32, 64) the 64-column
+# instance, 2 splits; (3, 257, 128, 256) two passes of 128 value columns;
+# K of 80, 192 and 256: q and k padded to 2, 3 and 4 panels of 64 columns,
+# with V of 48 (a partial 64-column instance) and 256 (two passes).
+@pytest.mark.parametrize("B,N,K,V", [
+    (1, 1, 16, 16), (2, 100, 32, 64), (1, 1024, 128, 128), (3, 257, 128, 256),
+    (1, 1000, 128, 128), (1, 1500, 128, 128), (1, 4096, 128, 128),
+    (8, 1024, 128, 128), (1, 70, 80, 48), (1, 300, 192, 128), (2, 130, 256, 256)])
 def test_attention_kernel_matches_plain(gen, B, N, K, V):
-    q = torch.randn(B, N, K, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(B, N, K, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(B, N, V, generator=gen, device="cuda").bfloat16()
+    q, k, v = _qkv(gen, B, N, K, V)
     before = attn.fused_global_attention.launches
     got = attn.fused_global_attention(q, k, v)
     torch.cuda.synchronize()
     assert attn.fused_global_attention.launches == before + 1
     _close(got, attn.global_attention_plain(q, k, v), ONE_ROUNDING)
+
+
+@pytest.mark.parametrize("B,N", [(1, 1024), (8, 1024)])
+def test_attention_kernel_is_deterministic(gen, B, N):
+    """The splits merge in a fixed order, with no atomics: two launches on
+    the same inputs give the same bits, split (B=1) or not (B=8)."""
+    q, k, v = _qkv(gen, B, N, 128, 128)
+    first = attn.fused_global_attention(q, k, v)
+    second = attn.fused_global_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(gen):
@@ -83,16 +106,33 @@ def _tail(gen, B, H, W, n_classes):
                 b3=rnd(256, std=0.1), wc=wc.bfloat16())
 
 
-@pytest.mark.parametrize("B,H,W", [(1, 9, 9), (2, 8, 12), (1, 128, 128)])
+# (1, 7, 300): 2100 pixels, so the last 128-pixel block's second warpgroup
+# has no pixel and n_tiles = 33 is odd; (1, 90, 90): 64 blocks, a ragged
+# last one; (8, 128, 128): the batch-8 main path's shape.
+@pytest.mark.parametrize("B,H,W", [(1, 9, 9), (2, 8, 12), (1, 128, 128),
+                                   (1, 7, 300), (1, 90, 90), (8, 128, 128)])
 def test_ffm_pointwise_kernel_matches_plain(gen, B, H, W):
     o = _tail(gen, B, H, W, 8)
     args = (o["fsp"], o["fcp"], o["w1_sp"], o["w1_cp"], o["b1"])
+    before = dt.ffm_pointwise.launches
     feat, sums = dt.ffm_pointwise(*args)
     torch.cuda.synchronize()
+    assert dt.ffm_pointwise.launches == before + 1
     feat_ref, sums_ref = dt.ffm_pointwise_plain(*args)
     assert sums.shape == sums_ref.shape
     _close(feat, feat_ref, ONE_ROUNDING)
     _close(sums, sums_ref, 1e-4)
+
+
+def test_ffm_pointwise_kernel_is_deterministic(gen):
+    """The sums are reduced in a fixed order, with no atomics: two launches
+    on the same inputs give the same feat and sums, to the bit."""
+    o = _tail(gen, 1, 7, 300, 8)
+    args = (o["fsp"], o["fcp"], o["w1_sp"], o["w1_cp"], o["b1"])
+    (f1, s1), (f2, s2) = dt.ffm_pointwise(*args), dt.ffm_pointwise(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(f1.view(torch.int16), f2.view(torch.int16))
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
 
 
 def _head_args(gen, B, H, W, n, scale_span=1.0):
