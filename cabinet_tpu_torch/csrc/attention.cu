@@ -47,12 +47,36 @@
 // The float32 variant (attention_f32_kernel) computes the same function on
 // f32 q, k, v with plain f32 FMAs on the CUDA cores: no tensor cores, so no
 // TF32 and no bf16 splitting, as the Pallas body's f32 math and the f32
-// eval parity need. At N=1024, K=V=128 its 0.54 GFLOP per image bound it on
-// the f32 SIMT rate (67 TFLOP/s, ~8 us). One block of 256 threads owns 32
-// query rows and walks key tiles of 32 with the same online softmax; each
-// thread keeps 4 scores and up to 32 output columns of one row in
-// registers, and the 8 threads of a row reduce its max and sum by shuffles.
-// Shared rows are padded by one word against bank conflicts.
+// eval parity need.
+//   What bounds it: 2*N*N*(K+V) = 0.54 GFLOP per image at N=1024, K=V=128
+//   on the f32 SIMT rate of 67 TFLOP/s: 0.008 ms an image, 0.064 ms at
+//   B=8; its 1.5 MB an image take a tenth of that. So the FMA pipe bounds
+//   it, and the design keeps the rest of the work off it:
+//   - Register tiling. A block of 256 threads owns 64 queries and walks
+//     key tiles of 64 with the online softmax. Each thread holds a 4 x 4
+//     micro-tile of S (queries 4ty + i, keys tx + 16j) and a 4 x 8 one of
+//     O (value columns 4tx + e and 64 + 4tx + e): in Q K^T, 8 16-byte
+//     shared loads (4 d of 4 queries and of 4 keys) feed 64 FMAs; in P V,
+//     3 (P of 4 queries for one key, 8 value columns) feed 32.
+//   - q and k stay row-major in shared memory, so that cp.async copies
+//     them 16 bytes at a time; chunk c of row r sits at chunk c ^ (r % 8),
+//     so the 16-byte reads of a quarter-warp fall in distinct banks. P
+//     goes through shared memory once a key tile, key-major, in the layout
+//     P V reads as float4 (swizzled the same way against store conflicts).
+//   - Online softmax in log2 units, exp2f of the scaled score: each row's
+//     max and sum stay in registers; the row's 16 threads (half a warp)
+//     reduce the max by 4 shuffles and the sum once at the end.
+//   - A 2-stage cp.async ring, one stage for keys and one for values, 16
+//     bytes a thread, rows past N zero-filled: keys t+1 load while P V(t)
+//     runs, values t+1 while Q K^T(t+1) runs. 112 KB of shared memory at
+//     K <= 128; the registers (about 160 a thread, for the loads of the
+//     next chunk in flight) hold one block on an SM. A cap of 128 for two
+//     blocks an SM was slower at B=8, where the 128 blocks fill one wave.
+//   - Split keys at small batch, as in the bf16 kernel (key_splits: 8 at
+//     B=1, N=1024 on 132 SMs; 1 at B=8), merged in split order by
+//     attention_combine_kernel<float>: no atomics, the same bits every run.
+//   - V runs in passes of 128 columns (S recomputed in each), zero-filled
+//     past V. The shared-memory limit is raised once per device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -287,13 +311,18 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+__device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
 // One warp per query row of the B*N: merges its splits,
 // out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s with M = max_s m_s,
-// rounded to bf16. The lanes read the splits' (m, l) in parallel, M and
-// the sum of l come from shuffles, and each column adds the splits in
-// split order: the same bits every run.
+// in TOut (bf16: rounded once; f32). Both kernels keep the max in log2
+// units. The lanes read the splits' (m, l) in parallel, M and the sum of l
+// come from shuffles, and each column adds the splits in split order: the
+// same bits every run.
+template <typename TOut>
 __global__ void __launch_bounds__(256)
-attention_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
+attention_combine_kernel(const float* __restrict__ ws, TOut* __restrict__ out,
                          int rows, int DV, int splits) {
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -317,10 +346,10 @@ attention_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
     for (int i = 0; i < 8; ++i)
       if (lane + 32 * i < DV) acc[i] += w * o[lane + 32 * i];
   }
-  bf16* orow = out + (size_t)row * DV;
+  TOut* orow = out + (size_t)row * DV;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    if (lane + 32 * i < DV) orow[lane + 32 * i] = __float2bfloat16_rn(acc[i] / l);
+    if (lane + 32 * i < DV) store_out(orow + lane + 32 * i, acc[i] / l);
 }
 
 template <int KP>
@@ -341,126 +370,247 @@ int launch_attention(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 // float32 variant
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 32;      // query rows per block
-constexpr int F_BKV = 32;     // key rows per tile
-constexpr int F_THREADS = 256;
-constexpr int F_LANES = 8;    // threads per query row
-constexpr int F_MAX_DV = 256;
+constexpr int F_BQ = 64;        // query rows per block
+constexpr int F_BKV = 64;       // keys per tile
+constexpr int F_THREADS = 256;  // 16 x 16: tx picks keys and columns, ty queries
+constexpr int F_VP = 128;       // value columns per pass
+constexpr int F_MAX_D = 256;
 
-size_t smem_bytes_f32(int D, int DV) {
-  return (size_t)(F_BQ * (D + 1) + F_BKV * (D + 1) + F_BKV * DV
-                  + F_BQ * (F_BKV + 1)) * sizeof(float);
+// Words of a shared row of q or k: D rounded up to 32, so that the chunk
+// swizzle c ^ (r % 8) stays inside the row.
+__host__ __device__ constexpr int f32_ld(int D) { return (D + 31) / 32 * 32; }
+
+// q (64 rows), the ring's key stage (64 rows), its value stage (64 keys x
+// VP) and P (64 keys x 64 queries): 112 KB at D <= 128.
+size_t smem_bytes_f32(int D) {
+  return (size_t)(2 * F_BQ * f32_ld(D) + F_BKV * F_VP + F_BKV * F_BQ) * sizeof(float);
 }
 
-// Copies `rows` rows of `width` f32 from a (N, width) matrix starting at row
-// r0 into shared rows of stride `ld`; rows past N are zero.
-__device__ void load_rows_f32(float* dst, const float* src, int r0, int rows,
-                              int N, int width, int ld) {
-  for (int i = threadIdx.x; i < rows * width; i += F_THREADS) {
-    const int r = i / width, c = i % width;
-    dst[r * ld + c] = (r0 + r < N) ? src[(size_t)(r0 + r) * width + c] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(F_THREADS)
+// grid (ceil(N / 64), splits, B), 256 threads. Thread (tx, ty) = (tid % 16,
+// tid / 16) owns queries 4ty + i and keys tx + 16j (i, j < 4) of S, and
+// queries 4ty + i, value columns 4tx + e and 64 + 4tx + e (e < 4) of the
+// pass's O. With splits > 1, ws holds O (splits, B, N, DV) f32, then (max,
+// sum) (splits, B, N) as float2, the max in log2 units (the bf16 layout).
+__global__ void __launch_bounds__(F_THREADS, 1)  // 1 block an SM: ptxas takes ~160 registers
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int N, int D, int DV, float scale) {
+                     float* __restrict__ ws, int N, int D, int DV, int splits,
+                     float scale_log2) {
   extern __shared__ __align__(16) float fsmem[];
-  const int ldq = D + 1, ldp = F_BKV + 1;
-  float* q_s = fsmem;                    // (F_BQ, D + 1)
-  float* k_s = q_s + F_BQ * ldq;         // (F_BKV, D + 1)
-  float* v_s = k_s + F_BKV * ldq;        // (F_BKV, DV)
-  float* p_s = v_s + F_BKV * DV;         // (F_BQ, F_BKV + 1)
+  const int ld4 = f32_ld(D) / 4;  // 16-byte chunks a shared row of q or k
+  float4* q_s = reinterpret_cast<float4*>(fsmem);  // (64, ld4), swizzled
+  float4* k_s = q_s + F_BQ * ld4;                  // (64, ld4), swizzled
+  float4* v_s = k_s + F_BKV * ld4;                 // (64, VP / 4)
+  float4* p_s = v_s + F_BKV * F_VP / 4;            // (64 keys, 16), swizzled
 
-  const int b = blockIdx.y, q0 = blockIdx.x * F_BQ;
-  const int r = threadIdx.x / F_LANES;   // this thread's query row
-  const int g = threadIdx.x % F_LANES;   // its column group
-  const int n_out = DV / F_LANES;        // output columns g, g+8, ...
-  const float* qb = q + (size_t)b * N * D;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * F_BQ, split = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (N + F_BKV - 1) / F_BKV;
+  const int t0 = split * n_tiles / splits, t1 = (split + 1) * n_tiles / splits;
   const float* kb = k + (size_t)b * N * D;
   const float* vb = v + (size_t)b * N * DV;
+  const int cpr = D / 4;  // 16-byte chunks a row of q and k
 
-  load_rows_f32(q_s, qb, q0, F_BQ, N, D, ldq);
-  float o[F_MAX_DV / F_LANES];
-#pragma unroll
-  for (int j = 0; j < F_MAX_DV / F_LANES; ++j) o[j] = 0.f;
-  float m = -INFINITY, l = 0.f;  // the row's running max and sum
-
-  for (int kv0 = 0; kv0 < N; kv0 += F_BKV) {
-    __syncthreads();  // the previous tile's k_s, v_s, p_s are no longer read
-    load_rows_f32(k_s, kb, kv0, F_BKV, N, D, ldq);
-    load_rows_f32(v_s, vb, kv0, F_BKV, N, DV, DV);
-    __syncthreads();
-
-    // Scores of row r against keys g, g+8, g+16, g+24 of the tile.
-    float s[F_BKV / F_LANES];
-#pragma unroll
-    for (int j = 0; j < F_BKV / F_LANES; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = q_s[r * ldq + d];
-#pragma unroll
-      for (int j = 0; j < F_BKV / F_LANES; ++j)
-        s[j] = fmaf(qd, k_s[(g + F_LANES * j) * ldq + d], s[j]);
-    }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < F_BKV / F_LANES; ++j) {
-      s[j] = (kv0 + g + F_LANES * j < N) ? s[j] * scale : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    for (int off = F_LANES / 2; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m, mx);  // finite: the tile has a key
-    const float alpha = expf(m - m_new);
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < F_BKV / F_LANES; ++j) {
-      const float p = expf(s[j] - m_new);
-      p_s[r * ldp + g + F_LANES * j] = p;
-      ps += p;
-    }
-    for (int off = F_LANES / 2; off > 0; off >>= 1)
-      ps += __shfl_xor_sync(0xffffffffu, ps, off);
-    m = m_new;
-    l = l * alpha + ps;
-    __syncwarp();  // the row's 8 threads share a warp; p_s row r is written
-
-    // O[r, g + 8j] = alpha * O + sum_c P[r, c] V[c, g + 8j].
-#pragma unroll
-    for (int j = 0; j < F_MAX_DV / F_LANES; ++j) {
-      if (j < n_out) {
-        const int col = g + F_LANES * j;
-        float acc = o[j] * alpha;
-        for (int c = 0; c < F_BKV; ++c)
-          acc = fmaf(p_s[r * ldp + c], v_s[c * DV + col], acc);
-        o[j] = acc;
+  // Rows [r0, r0 + 64) of a (N, D) matrix: chunk c of row r to chunk
+  // c ^ (r % 8) of shared row r, zeros past N. The thread's (row, chunk)
+  // steps by 256 chunks without a division.
+  auto load_qk = [&](float4* dst, const float* src, int r0) {
+    const int dr = F_THREADS / cpr, dc = F_THREADS % cpr;
+    for (int r = tid / cpr, c = tid % cpr; r < 64;) {
+      const bool in = r0 + r < N;
+      cp_async16_zfill(smem_addr(dst + r * ld4 + (c ^ (r % 8))),
+                       src + (in ? (size_t)(r0 + r) * D + 4 * c : 0), in);
+      r += dr;
+      c += dc;
+      if (c >= cpr) {
+        c -= cpr;
+        ++r;
       }
     }
-  }
-
-  if (q0 + r < N) {
-    float* orow = out + ((size_t)b * N + q0 + r) * DV;
+  };
+  // Keys [kv0, kv0 + 64), value columns [c0, c0 + VP); zeros past N and DV.
+  auto load_v = [&](int kv0, int c0) {
 #pragma unroll
-    for (int j = 0; j < F_MAX_DV / F_LANES; ++j)
-      if (j < n_out) orow[g + F_LANES * j] = o[j] / l;
+    for (int i = tid; i < F_BKV * F_VP / 4; i += F_THREADS) {
+      const int r = i / (F_VP / 4), c = i % (F_VP / 4);
+      const bool in = kv0 + r < N && c0 + 4 * c < DV;
+      cp_async16_zfill(smem_addr(v_s + i),
+                       vb + (in ? (size_t)(kv0 + r) * DV + c0 + 4 * c : 0), in);
+    }
+  };
+
+  const int sw_q = ty % 2 * 4;  // (4ty + i) % 8 == sw_q + i
+  const int sw_k = tx % 8;      // (tx + 16j) % 8 == sw_k
+
+  for (int c0 = 0; c0 < DV; c0 += F_VP) {
+    float o[4][8], m[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
+    }
+    if (c0 == 0) load_qk(q_s, q + (size_t)b * N * D, q0);
+    load_qk(k_s, kb, t0 * F_BKV);
+    cp_async_commit();
+    load_v(t0 * F_BKV, c0);
+    cp_async_commit();
+
+    for (int t = t0; t < t1; ++t) {
+      const int kv0 = t * F_BKV;
+      cp_async_wait<1>();  // keys t (and q) have landed; values t may not
+      __syncthreads();
+
+      // S = Q K^T: per chunk, 8 16-byte loads feed 64 FMAs.
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < cpr; ++c) {
+        float4 a[4], kk[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = q_s[(4 * ty + i) * ld4 + (c ^ (sw_q + i))];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kk[j] = k_s[(tx + 16 * j) * ld4 + (c ^ sw_k)];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i].x, kk[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, kk[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, kk[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, kk[j].w, s[i][j]);
+          }
+      }
+      __syncthreads();  // every thread is done with keys t: keys t+1 load
+      if (t + 1 < t1) load_qk(k_s, kb, kv0 + F_BKV);
+      cp_async_commit();
+
+      // Online softmax in log2 units; keys past N are -inf. A row's 16
+      // threads are the half-warp of one ty: the max by 4 shuffles, the
+      // sum per thread until the end.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = kv0 + tx + 16 * j < N ? s[i][j] * scale_log2 : -INFINITY;
+          mx = fmaxf(mx, s[i][j]);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);  // finite: the tile has a key
+        const float alpha = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[i][e] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = exp2f(s[i][j] - m_new);
+          l[i] += s[i][j];
+        }
+      }
+      // P key-major: key tx + 16j, queries 4ty..4ty+3 in chunk ty ^ (key % 8).
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p_s[(tx + 16 * j) * 16 + (ty ^ sw_k)] =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      cp_async_wait<1>();  // values t have landed; keys t+1 may not
+      __syncthreads();     // and every thread's P is in place
+
+      // O += P V(t): per key, 3 16-byte loads feed 32 FMAs.
+#pragma unroll 4
+      for (int c = 0; c < F_BKV; ++c) {
+        const float4 p4 = p_s[c * 16 + (ty ^ (c % 8))];
+        const float4 va = v_s[c * (F_VP / 4) + tx], vc = v_s[c * (F_VP / 4) + 16 + tx];
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][0] = fmaf(p[i], va.x, o[i][0]);
+          o[i][1] = fmaf(p[i], va.y, o[i][1]);
+          o[i][2] = fmaf(p[i], va.z, o[i][2]);
+          o[i][3] = fmaf(p[i], va.w, o[i][3]);
+          o[i][4] = fmaf(p[i], vc.x, o[i][4]);
+          o[i][5] = fmaf(p[i], vc.y, o[i][5]);
+          o[i][6] = fmaf(p[i], vc.z, o[i][6]);
+          o[i][7] = fmaf(p[i], vc.w, o[i][7]);
+        }
+      }
+      __syncthreads();  // values t and P are no longer read: values t+1 load
+      if (t + 1 < t1) load_v(kv0 + F_BKV, c0);
+      cp_async_commit();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + 4 * ty + i;
+      if (r >= N) continue;
+      const size_t at = ((size_t)split * gridDim.z + b) * N + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + 64 * h + 4 * tx;
+        if (col >= DV) continue;
+        const float4 oh = make_float4(o[i][4 * h], o[i][4 * h + 1], o[i][4 * h + 2],
+                                      o[i][4 * h + 3]);
+        if (splits == 1)
+          *reinterpret_cast<float4*>(out + ((size_t)b * N + r) * DV + col) =
+              make_float4(oh.x / l[i], oh.y / l[i], oh.z / l[i], oh.w / l[i]);
+        else
+          *reinterpret_cast<float4*>(ws + at * DV + col) = oh;
+      }
+      if (splits > 1 && c0 == 0 && tx == 0)
+        reinterpret_cast<float2*>(ws + (size_t)splits * gridDim.z * N * DV)[at] =
+            make_float2(m[i], l[i]);
+    }
   }
+}
+
+// Raises the f32 kernel's dynamic shared-memory limit to its largest use,
+// once per device (the attribute belongs to the device's context), not at
+// every launch.
+cudaError_t raise_smem_limit_f32() {
+  constexpr int MAX_DEVICES = 64;
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return e;
+  e = cudaFuncSetAttribute(attention_f32_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_bytes_f32(F_MAX_D));
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return e;
 }
 
 }  // namespace
-// q,k (B,N,D), v and out (B,N,DV): f32, contiguous; D, DV multiples of 16
-// up to 256. Launches on `stream` and returns cudaGetLastError().
+// q,k (B,N,D), v and out (B,N,DV): f32, contiguous, 16-byte aligned; D, DV
+// multiples of 16 up to 256; 1 <= splits <= ceil(N/64). With splits > 1,
+// ws is f32 scratch of splits*B*N*(DV+2) values, and the merge kernel
+// writes out. Launches on `stream` and returns the first CUDA error.
 extern "C" int cabinet_attention_f32(const void* q, const void* k,
-                                     const void* v, void* out, int B, int N,
-                                     int D, int DV, float scale,
-                                     void* stream) {
-  const size_t smem = smem_bytes_f32(D, DV);
-  cudaFuncSetAttribute(attention_f32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((N + F_BQ - 1) / F_BQ, B);
-  attention_f32_kernel<<<grid, F_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, N, D,
-      DV, scale);
+                                     const void* v, void* out, void* ws,
+                                     int B, int N, int D, int DV, int splits,
+                                     float scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = raise_smem_limit_f32();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + F_BQ - 1) / F_BQ, splits, B);
+  attention_f32_kernel<<<grid, F_THREADS, smem_bytes_f32(D), st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)ws, N, D, DV, splits, scale * LOG2E);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || splits == 1) return rc;
+  attention_combine_kernel<float><<<(B * N + 7) / 8, 256, 0, st>>>(
+      (const float*)ws, (float*)out, B * N, DV, splits);
   return (int)cudaGetLastError();
 }
 
@@ -477,7 +627,7 @@ extern "C" int cabinet_attention(const void* q, const void* k, const void* v,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)ws, B, N,
       D, DV, splits, scale * LOG2E, st);
   if (rc != 0 || splits == 1) return rc;
-  attention_combine_kernel<<<(B * N + 7) / 8, 256, 0, st>>>(
+  attention_combine_kernel<bf16><<<(B * N + 7) / 8, 256, 0, st>>>(
       (const float*)ws, (bf16*)out, B * N, DV, splits);
   return (int)cudaGetLastError();
 }

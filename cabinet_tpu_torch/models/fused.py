@@ -30,6 +30,7 @@ from cabinet_tpu_torch.ops.decoder_tail import (
 from cabinet_tpu_torch.ops.early_stage import (
     fold_stem_block0_params,
     fused_stem_block0,
+    pack_stem_block0_weights,
     stem_block0_plain,
 )
 
@@ -65,8 +66,10 @@ def _early_stage(model: CABiNet, device: torch.device, dtype: torch.dtype,
                  kernels: bool) -> Callable[[torch.Tensor], torch.Tensor]:
     """images (B,H,W,3) -> block_0's output planes (B,16,H/2,W/2) in
     `dtype`, through K4 (or its plain version with `kernels=False`), from
-    weights folded now, before the model moves."""
-    folded = tuple(t.to(device) for t in fold_stem_block0_params(model.mobile))
+    weights folded now, before the model moves, and packed once into the
+    buffer K4 launches from."""
+    folded = pack_stem_block0_weights(
+        *(t.to(device) for t in fold_stem_block0_params(model.mobile)))
     k4 = fused_stem_block0 if kernels else stem_block0_plain
 
     def early(images: torch.Tensor) -> torch.Tensor:

@@ -5,15 +5,20 @@ softmax(q k^T * K^-0.5) v per batch element over all N tokens of the CAB's
 Replaces the Pallas kernel `cabinet_tpu/ops/attention.py:_attention_kernel`,
 which takes any dtype. The CUDA kernels are in `csrc/attention.cu`, one for
 bf16 (tensor cores) and one for f32 (f32 FMAs, no TF32); see its header for
-the design. When a batch has too few query tiles to fill the card, the bf16
+the design. When a batch has too few query tiles to fill the card, either
 kernel splits each tile's keys into ranges (`key_splits`) and a second
 kernel merges them in a fixed order.
 
 Like the Pallas body, the kernel and its plain version keep the
 probabilities in f32 through the value product. The JAX einsum path
-(`cabinet_tpu/models/cab.py`, and the Pallas wrapper's off-TPU fallback)
-casts them to v's dtype first; in bf16 the two differ by about 1e-2, in f32
-they agree to rounding.
+(`cabinet_tpu/models/cab.py`, and the Pallas wrapper's fallback) casts them
+to v's dtype first; in bf16 the two differ by about 1e-2, in f32 they agree
+to rounding. The Pallas wrapper takes that fallback off the TPU, and on the
+TPU whenever the kernel's VMEM working set 4*(N^2 + 2NK + 2NV) bytes
+exceeds 12 MB (`cabinet_tpu/ops/attention.py:57-58`): at K=V=128, N > 1536,
+e.g. the /32 map of a 1280^2 input (N=1600). The port keeps f32
+probabilities at every N: that budget is the TPU's memory, not part of the
+function.
 """
 
 from __future__ import annotations
@@ -35,17 +40,20 @@ def global_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(attn, v.float()).to(v.dtype)
 
 
-BLOCK = 64  # queries per block and keys per tile (BQ, BKV in csrc/attention.cu)
+# Queries per block and keys per tile of both kernels (BQ, BKV and F_BQ,
+# F_BKV in csrc/attention.cu).
+BLOCK = 64
 
 
 def key_splits(B: int, N: int, n_sm: int) -> int:
-    """How many contiguous ranges of key tiles the bf16 kernel splits each
+    """How many contiguous ranges of key tiles either kernel splits each
     query tile's keys into (split i walks tiles [i*T//splits,
     (i+1)*T//splits) of the T = ceil(N/64)), on a card with `n_sm` SMs: as
     many as keep the grid within one block per SM, at most one per key
     tile. So 1 when the B x T query tiles alone exceed half the SMs (B=8,
     N=1024 on 132 SMs: 128 blocks): a second split would stack two blocks
-    on some SMs, which shortens nothing there, and cost the merge."""
+    on some SMs, which shortens nothing there, and cost the merge. Both
+    kernels hold one block an SM (the f32 one by its registers)."""
     tiles = -(-N // BLOCK)
     return max(1, min(tiles, n_sm // (B * tiles)))
 
@@ -61,8 +69,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     lib.cabinet_attention.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
-    lib.cabinet_attention_f32.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    lib.cabinet_attention_f32.argtypes = lib.cabinet_attention.argtypes
     lib.cabinet_attention.restype = ctypes.c_int
     lib.cabinet_attention_f32.restype = ctypes.c_int
     return lib
@@ -107,23 +114,19 @@ def fused_global_attention(q: torch.Tensor, k: torch.Tensor,
     if N < 1:
         raise ValueError("empty token dimension")
     out = torch.empty_like(v)
-    stream = _build.stream_ptr(q.device)
-    if q.dtype == torch.float32:
-        rc = _lib().cabinet_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, K, V,
-            float(K) ** -0.5, stream)
-        _build.check_launch(rc, "cabinet_attention_f32")
-        fused_global_attention.launches_f32 += 1
-        return out
+    f32 = q.dtype == torch.float32
     splits = key_splits(B, N, _sm_count(q.device.index))
     ws = (torch.empty(splits * B * N * (V + 2), dtype=torch.float32, device=q.device)
           if splits > 1 else None)
-    rc = _lib().cabinet_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, N, K, V, splits,
-        float(K) ** -0.5, stream)
-    _build.check_launch(rc, "cabinet_attention")
-    fused_global_attention.launches += 1
+    launcher = _lib().cabinet_attention_f32 if f32 else _lib().cabinet_attention
+    rc = launcher(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  None if ws is None else ws.data_ptr(), B, N, K, V, splits,
+                  float(K) ** -0.5, _build.stream_ptr(q.device))
+    _build.check_launch(rc, "cabinet_attention_f32" if f32 else "cabinet_attention")
+    if f32:
+        fused_global_attention.launches_f32 += 1
+    else:
+        fused_global_attention.launches += 1
     return out
 
 

@@ -24,6 +24,7 @@ wpw (16 out, 16 in).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -108,10 +109,41 @@ def _check(name, t, shape, dtypes, device):
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
+# Where each folded weight starts in the packed buffer that K4 copies to
+# its constant block (W_STEM, B_STEM, ... in csrc/early_stage.cu), each
+# flattened row-major in the layout of `fold_stem_block0_params`.
+PACKED_OFFSETS = {"wstem": 0, "bstem": 432, "wdw": 448, "bdw": 592,
+                  "wpw": 608, "bpw": 864}
+N_PACKED = 880
+
+
+def pack_stem_block0_weights(wstem, bstem, wdw, bdw, wpw, bpw) -> Folded:
+    """The six folded f32 weights copied into one buffer of N_PACKED values,
+    each at its PACKED_OFFSETS entry, and returned as views of that buffer
+    in their own shapes: `fused_stem_block0` launches from such views as
+    they are, and packs any other weights on every call."""
+    ws = (wstem, bstem, wdw, bdw, wpw, bpw)
+    buf = torch.cat([t.reshape(-1) for t in ws])
+    return tuple(buf[o:o + t.numel()].view(t.shape)
+                 for t, o in zip(ws, PACKED_OFFSETS.values()))
+
+
+def is_packed(ws: Folded) -> bool:
+    """Whether the six (contiguous) weights lie one after another at their
+    PACKED_OFFSETS entries from ws[0]'s start, as the views of
+    `pack_stem_block0_weights` do: then the N_PACKED floats there are the
+    packed buffer."""
+    base = ws[0].data_ptr()
+    return all(t.data_ptr() == base + 4 * o
+               for t, o in zip(ws, PACKED_OFFSETS.values()))
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The library with its launcher's signature set, once."""
     lib = _build.load("early_stage")
     fn = lib.cabinet_stem_block0
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -125,9 +157,16 @@ def fused_stem_block0(x: torch.Tensor, wstem: torch.Tensor,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K4 wrapper: x (B,H,W,3) -> planes (B,16,H/2,W/2) in `out_dtype`, in
     channels-last memory; see `stem_block0_plain` for the function. CPU
-    tensors take the plain version. CUDA tensors launch the kernel, which takes f32 or bf16 x and
-    out_dtype, even H and W, f32 folded weights, all contiguous and
-    16-byte aligned; anything else raises."""
+    tensors take the plain version. CUDA tensors launch the kernel, which
+    takes f32 or bf16 x and out_dtype, even H and W, f32 folded weights,
+    all contiguous and 16-byte aligned; anything else raises. The weights
+    go to the kernel as one packed buffer: the views that
+    `pack_stem_block0_weights` returns are launched from as they are (the
+    form `models/fused.py` holds them in), other weights are packed first,
+    one more launch. The launcher copies that buffer to the kernel's
+    constant block on the same stream. The constant block is one for the
+    process: this wrapper must not run on two streams at once with
+    different weights, or one launch may read the other's."""
     if x.device.type == "cpu":
         return stem_block0_plain(x, wstem, bstem, wdw, bdw, wpw, bpw, out_dtype)
     if x.device.type != "cuda":
@@ -147,9 +186,10 @@ def fused_stem_block0(x: torch.Tensor, wstem: torch.Tensor,
         _check(name, t, shape, f32, dev)
     out = torch.empty((B, H // 2, W // 2, C), dtype=out_dtype,
                       device=dev).permute(0, 3, 1, 2)
+    ws = (wstem, bstem, wdw, bdw, wpw, bpw)
+    packed = ws[0] if is_packed(ws) else pack_stem_block0_weights(*ws)[0]
     rc = _lib().cabinet_stem_block0(
-        x.data_ptr(), wstem.data_ptr(), bstem.data_ptr(), wdw.data_ptr(),
-        bdw.data_ptr(), wpw.data_ptr(), bpw.data_ptr(), out.data_ptr(),
+        x.data_ptr(), packed.data_ptr(), out.data_ptr(),
         B, H, W, int(x.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check_launch(rc, "stem_block0")

@@ -9,7 +9,9 @@ It drives the port's main paths through the entry points a user calls, and
 holds every hand-written kernel against its plain PyTorch version. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    compile csrc/*.cu (one nvcc per source, in parallel)
+  2. build    compile csrc/*.cu (one nvcc per source, in parallel); print
+              ptxas' registers and spills and, from the SASS, each kernel's
+              FFMAs by operand kind and its ULDC, LDS and HMMA counts
   3. kernels  K1 attention (bf16 and f32), K2 FFM 1x1, K3 3x3 head and K4
               stem+block_0 at the main paths' shapes against their plain
               versions, with times of the kernel's wrapper, the plain
@@ -29,7 +31,7 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               - Segmenter in float32 at batch 8 (K4 and the f32 K1 through
                 make_fused_apply) against the plain path;
               then forward ms/img with K4 and without it at batch 1 and 8,
-              timed in turns
+              timed in turns, back to back and replayed from a CUDA graph
   5. attn     the fixture with its zero gamma/project_out perturbed: the
               kernel path against the plain path, logits and argmax, and
               how far the attention moves the logits (the same forward
@@ -199,6 +201,39 @@ def ptxas_report():
     return out
 
 
+def sass_report():
+    """For each kernel of the built libraries, from `cuobjdump -sass`: its
+    FFMAs by where their second source comes from (a constant-bank operand
+    c[..], a uniform register UR, a register), and its ULDC, LDS and HMMA
+    (tensor-core) instructions, as "source/kernel#instance: counts"."""
+    import shutil
+
+    from cabinet_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.is_file() and shutil.which("cuobjdump") is None:
+        return ["cuobjdump not found"]
+    out = []
+    for src in _build.SOURCES:
+        sass = subprocess.run([str(tool) if tool.is_file() else "cuobjdump", "-sass",
+                               str(_build.library_path(src))],
+                              capture_output=True, text=True).stdout
+        seen = {}
+        for block in sass.split("Function : ")[1:]:
+            name = _kernel_of(block.split(None, 1)[0])
+            seen[name] = seen.get(name, -1) + 1
+            ffma = [ln for ln in block.splitlines() if " FFMA" in ln]
+            count = {
+                "FFMA": len(ffma),
+                "FFMA_c": sum("c[0x" in ln for ln in ffma),
+                "FFMA_UR": sum(re.search(r"\bUR\d", ln) is not None for ln in ffma),
+                **{op: sum(f" {op}" in ln for ln in block.splitlines())
+                   for op in ("ULDC", "LDS", "HMMA")}}
+            out.append(f"{src}/{name}#{seen[name]}: "
+                       + " ".join(f"{k}={v}" for k, v in count.items()))
+    return out
+
+
 class Peaks:
     def __init__(self, name: str):
         for frag, flops, flops_f32, bw in PEAKS:
@@ -207,12 +242,12 @@ class Peaks:
                 return
         raise SmokeFailure(f"no peak rates known for card {name!r}")
 
-    def bound(self, n_bytes: float, n_flops: float, f32: bool = False):
-        """(bound ms, what bounds it): the larger of bytes over the memory
-        rate and operations over the rate of their type: bf16 on the tensor
-        cores, or with `f32` f32 FMAs on the CUDA cores."""
+    def bound(self, n_bytes: float, tensor_flops: float = 0.0, f32_flops: float = 0.0):
+        """(bound ms, what bounds it): the largest of bytes over the memory
+        rate, bf16 operations over the tensor cores' rate and f32 FMAs over
+        the CUDA cores' rate (the two units run side by side)."""
         t_mem = n_bytes / self.bw
-        t_ops = n_flops / (self.flops_f32 if f32 else self.flops)
+        t_ops = max(tensor_flops / self.flops, f32_flops / self.flops_f32)
         return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -282,25 +317,35 @@ def check_attention_f32(torch, peaks, B, N=1024, D=128, gen=None):
                   lambda: F.scaled_dot_product_attention(q, k, v), iters=10),
     }
     row["bound_ms"], row["bound_by"] = peaks.bound(
-        B * N * 4 * D * 4, 2 * B * N * N * 2 * D, f32=True)
+        B * N * 4 * D * 4, f32_flops=2 * B * N * N * 2 * D)
     say("kernels", name="attention_f32", **row)
     check(err <= bound, f"attention_f32 B={B}: max err {err} > bound {bound}")
     return row
 
 
+def stem_weights(torch, gen):
+    """K4's folded f32 weights (wstem, bstem, wdw, bdw, wpw, bpw), drawn at
+    the scales of the unit tests."""
+    def rnd(*s, std):
+        return torch.randn(*s, generator=gen, device=DEVICE) * std
+
+    return (rnd(16, 27, std=0.2), rnd(16, std=0.1), rnd(3, 3, 16, std=0.2),
+            rnd(16, std=0.1), rnd(16, 16, std=0.2), rnd(16, std=0.1))
+
+
 def check_stem_block0(torch, peaks, shape, dtype, gen):
-    """K4 against its plain version on x of `dtype` with planes of `dtype`;
-    the library call is cuDNN's conv chain in the same dtype."""
+    """K4 against its plain version on x of `dtype` with planes of `dtype`,
+    the weights packed once as `models/fused.py` holds them; the library
+    call is cuDNN's conv chain in the same dtype. The bound prices the
+    stem's multiply-adds as the kernel does them, each f32 weight as three
+    bf16 parts on the tensor cores, and the depthwise and pointwise as f32
+    FMAs."""
     import torch.nn.functional as F
 
     from cabinet_tpu_torch.models.layers import hard_swish
     from cabinet_tpu_torch.ops import early_stage as es
 
-    def rnd(*s, std):
-        return torch.randn(*s, generator=gen, device=DEVICE) * std
-
-    w = (rnd(16, 27, std=0.2), rnd(16, std=0.1), rnd(3, 3, 16, std=0.2),
-         rnd(16, std=0.1), rnd(16, 16, std=0.2), rnd(16, std=0.1))
+    w = es.pack_stem_block0_weights(*stem_weights(torch, gen))
     x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
     got = es.fused_stem_block0(x, *w, out_dtype=dtype)
     torch.cuda.synchronize()
@@ -327,7 +372,7 @@ def check_stem_block0(torch, peaks, shape, dtype, gen):
                      lib_k4, iters=10)}
     row["bound_ms"], row["bound_by"] = peaks.bound(
         x.numel() * x.element_size() + 16 * n_out * got.element_size() + 880 * 4,
-        2 * n_out * (16 * 27 + 16 * 9 + 16 * 16), f32=True)
+        tensor_flops=3 * 2 * n_out * 16 * 27, f32_flops=2 * n_out * (16 * 9 + 16 * 16))
     say("kernels", name="stem_block0", **row)
     check(err <= bound, f"stem_block0 {shape} {dtype}: max err {err} > bound {bound}")
     return row
@@ -611,8 +656,10 @@ def time_early_stage(torch, ckpt: Path, size: int, rounds: int = 5):
     """bf16 fused-tail forward ms/img with stem and block_0 through K4
     (use_early) and through the plain modules, at batch 1 and 8, timed in
     turns within this call: `rounds` of (without, with, with, without), so
-    10 pairs of one timing each. Per batch: each side's median, and in how
-    many pairs the forward with K4 was the faster."""
+    10 pairs of one timing each, back to back (`ms`, the host included) and
+    replayed from a CUDA graph (`device_ms`, the device alone). Per batch
+    and timer: each side's median, and in how many pairs the forward with
+    K4 was the faster."""
     import statistics
 
     from cabinet_tpu_torch.cli.infer import load_state_dict
@@ -629,17 +676,23 @@ def time_early_stage(torch, ckpt: Path, size: int, rounds: int = 5):
                                                 use_early=use_early)
     out = {}
     for b in (1, 8):
-        ms = {False: [], True: []}
+        ms = {(t, k4): [] for t in ("ms", "device_ms") for k4 in (False, True)}
         for _ in range(rounds):
             for use_early in (False, True, True, False):
-                ms[use_early].append(time_ms(lambda: fwds[use_early](x[:b]),
-                                             iters=10) / b)
-        out[b] = {"without_k4": ms[False], "with_k4": ms[True],
-                  "median_without_k4": statistics.median(ms[False]),
-                  "median_with_k4": statistics.median(ms[True]),
-                  "pairs_k4_faster": sum(w < o for w, o in zip(ms[True], ms[False])),
-                  "pairs": len(ms[True])}
-        say("main", part="forward_ms_per_img_k4_on_off_in_turns", batch=b, **out[b])
+                fn = lambda: fwds[use_early](x[:b])  # noqa: E731
+                ms["ms", use_early].append(time_ms(fn, iters=10) / b)
+                ms["device_ms", use_early].append(
+                    graph_ms(fn, iters=3, warmup=1, replays=3) / b)
+        out[b] = {}
+        for t in ("ms", "device_ms"):
+            without, with_k4 = ms[t, False], ms[t, True]
+            out[b][t] = {"without_k4": without, "with_k4": with_k4,
+                         "median_without_k4": statistics.median(without),
+                         "median_with_k4": statistics.median(with_k4),
+                         "pairs_k4_faster": sum(w < o for w, o in zip(with_k4, without)),
+                         "pairs": len(with_k4)}
+            say("main", part="forward_ms_per_img_k4_on_off_in_turns", batch=b,
+                timer=t, **out[b][t])
     return out
 
 
@@ -831,7 +884,7 @@ def main() -> int:
 
     seconds = _build.build_all()
     say("build", seconds=round(seconds, 2), sources=list(_build.SOURCES))
-    for ln in ptxas_report():
+    for ln in ptxas_report() + sass_report():
         print("  " + ln)
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)

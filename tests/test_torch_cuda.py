@@ -247,6 +247,35 @@ def test_attention_f32_kernel_matches_plain(gen, B, N):
     _close(got, attn.global_attention_plain(q, k, v), 1e-5)
 
 
+# (3, 257, 128, 256): a ragged query and key tile, 5 splits, two passes of
+# 128 value columns; (2, 64, 128, 128): the f32 MscEval's 256^2 crops, one
+# tile; (1, 1500, 128, 128): 5 uneven splits of 24 key tiles; K of 80 (rows
+# of q and k padded to 96 words in shared memory) with V of 48 (a partial
+# pass); K=V=256 (the largest shared-memory use).
+@pytest.mark.parametrize("B,N,K,V", [
+    (3, 257, 128, 256), (2, 64, 128, 128), (1, 1500, 128, 128), (1, 70, 80, 48),
+    (2, 130, 256, 256)])
+def test_attention_f32_kernel_matches_plain_at_other_widths(gen, B, N, K, V):
+    q, k = (torch.randn(B, N, K, generator=gen, device="cuda") for _ in range(2))
+    v = torch.randn(B, N, V, generator=gen, device="cuda")
+    before = attn.fused_global_attention.launches_f32
+    got = attn.fused_global_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn.fused_global_attention.launches_f32 == before + 1
+    _close(got, attn.global_attention_plain(q, k, v), 1e-5)
+
+
+def test_attention_f32_kernel_is_deterministic(gen):
+    """At B=1, N=1024 the f32 kernel splits the keys (8 ranges on 132 SMs)
+    and merges them in split order: two launches give the same bits."""
+    q, k, v = (torch.randn(1, 1024, 128, generator=gen, device="cuda")
+               for _ in range(3))
+    first = attn.fused_global_attention(q, k, v)
+    second = attn.fused_global_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
 def _early_weights(gen):
     def rnd(*shape, std):
         return torch.randn(*shape, generator=gen, device="cuda") * std
@@ -261,8 +290,8 @@ def _early_weights(gen):
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
 def test_stem_block0_kernel_matches_plain(gen, shape, x_dtype, out_dtype):
-    """K4 against its plain version at tile edges the 16x32 output tiles do
-    not divide: the same bf16-rounded input, f32 sums over 27, 9 and 16
+    """K4 against its plain version at shapes its 64-column, 32-row strips
+    do not divide: the same bf16-rounded input, f32 sums over 27, 9 and 16
     terms in another order; within 1e-5 of max|plain| for f32 planes and
     one bf16 rounding (2^-7) for bf16 planes."""
     from cabinet_tpu_torch.ops import early_stage as es
@@ -278,6 +307,81 @@ def test_stem_block0_kernel_matches_plain(gen, shape, x_dtype, out_dtype):
     assert got.is_contiguous(memory_format=torch.channels_last)
     ref = es.stem_block0_plain(x, *w, out_dtype=out_dtype)
     _close(got, ref, 1e-5 if out_dtype == torch.float32 else ONE_ROUNDING)
+
+
+# Output grids (H/2, W/2) at the strips' edges: exactly one strip (32, 64);
+# one row and one column past it (33, 65); one short (31, 63); fewer rows
+# than an 8-row step, three strips across (5, 129); a ragged last step (14,
+# 64); and an image of 2 x 2 pixels, whose 24 bytes put the second image
+# of the batch off a 16-byte boundary. All of these take 32-row strips; at
+# batch 8 the launcher takes 64-row strips once the grid has two blocks an
+# SM (132 SMs): a 720^2 input (360 = 5 x 64 + 40 rows, 40 columns in the
+# last strip) and (150, 650) (a last strip of 22 rows, 2 steps and 6 rows,
+# and 10 columns).
+@pytest.mark.parametrize("shape", [(1, 64, 128, 3), (1, 66, 130, 3), (2, 62, 126, 3),
+                                   (1, 10, 258, 3), (2, 28, 128, 3), (3, 2, 2, 3),
+                                   (8, 720, 720, 3), (8, 300, 1300, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_block0_kernel_matches_plain_at_strip_edges(gen, shape, dtype):
+    from cabinet_tpu_torch.ops import early_stage as es
+
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    w = _early_weights(gen)
+    got = es.fused_stem_block0(x, *w, out_dtype=dtype)
+    torch.cuda.synchronize()
+    ref = es.stem_block0_plain(x, *w, out_dtype=dtype)
+    _close(got, ref, 1e-5 if dtype == torch.float32 else ONE_ROUNDING)
+
+
+def test_stem_block0_kernel_is_deterministic(gen):
+    from cabinet_tpu_torch.ops import early_stage as es
+
+    x = torch.randn(2, 130, 258, 3, generator=gen, device="cuda")
+    w = _early_weights(gen)
+    first = es.fused_stem_block0(x, *w)
+    second = es.fused_stem_block0(x, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def test_stem_block0_kernel_takes_packed_views_as_they_are(gen):
+    """The weights as `pack_stem_block0_weights` views (the form the fused
+    forwards hold them in) launch with no packing of their own, and give
+    the bits that the same weights packed by the wrapper give."""
+    from cabinet_tpu_torch.ops import early_stage as es
+
+    x = torch.randn(2, 66, 130, 3, generator=gen, device="cuda")
+    w = _early_weights(gen)
+    views = es.pack_stem_block0_weights(*w)
+    es.fused_stem_block0(x, *views)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    from_views = es.fused_stem_block0(x, *views)
+    # the output alone: no packed buffer was allocated
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated + 1
+    from_six = es.fused_stem_block0(x, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(from_views.view(torch.int32), from_six.view(torch.int32))
+
+
+def test_stem_block0_weights_are_stream_ordered_in_a_graph(gen):
+    """The launcher copies the weights to the kernel's constant block on the
+    launch's stream: two launches with different weights captured in one
+    CUDA graph each see their own."""
+    from cabinet_tpu_torch.ops import early_stage as es
+
+    x = torch.randn(1, 64, 128, 3, generator=gen, device="cuda")
+    w1, w2 = _early_weights(gen), _early_weights(gen)
+    es.fused_stem_block0(x, *w1)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out1 = es.fused_stem_block0(x, *w1)
+        out2 = es.fused_stem_block0(x, *w2)
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(out1, es.stem_block0_plain(x, *w1), 1e-5)
+    _close(out2, es.stem_block0_plain(x, *w2), 1e-5)
 
 
 def test_stem_block0_kernel_rejects_what_it_does_not_take(gen):

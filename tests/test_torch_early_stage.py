@@ -66,6 +66,60 @@ def test_stem_block0_plain_matches_pallas_kernel(H, W):
                                               ).numpy(), ref)
 
 
+def test_packed_weights_follow_the_fold_layouts():
+    """K4's launcher takes the folded weights packed into one buffer: each
+    weight of `fold_stem_block0_params` flattened at its offset, the
+    offsets those of the kernel's constant block (csrc/early_stage.cu).
+    `pack_stem_block0_weights` returns views of that buffer, which the
+    wrapper recognises as packed; the weights as folded it does not."""
+    import re
+    from pathlib import Path
+
+    _, v = _jax_model_and_vars()
+    folded = es.fold_stem_block0_params(port_model(v, 6, "large", CFGS).mobile)
+    views = es.pack_stem_block0_weights(*folded)
+    assert es.is_packed(views) and not es.is_packed(folded)
+    assert views[0].untyped_storage().nbytes() == 4 * es.N_PACKED
+    packed = views[0].as_strided((es.N_PACKED,), (1,))
+    assert packed.dtype == torch.float32
+    names = ("wstem", "bstem", "wdw", "bdw", "wpw", "bpw")
+    starts = [es.PACKED_OFFSETS[n] for n in names]
+    assert starts == sorted(starts) and starts[0] == 0
+    for name, t, view, start, end in zip(names, folded, views, starts,
+                                         starts[1:] + [es.N_PACKED]):
+        assert end - start == t.numel(), name
+        assert view.shape == t.shape and torch.equal(view, t), name
+        assert torch.equal(packed[start:end].view(t.shape), t), name
+    # wdw (3,3,16) at tap i*3+j, channel c; wpw [co, ci]: the orders the
+    # kernel indexes.
+    wdw, wpw = folded[2], folded[4]
+    assert packed[es.PACKED_OFFSETS["wdw"] + (2 * 3 + 1) * 16 + 5] == wdw[2, 1, 5]
+    assert packed[es.PACKED_OFFSETS["wpw"] + 7 * 16 + 3] == wpw[7, 3]
+    src = (Path(es.__file__).resolve().parent.parent / "csrc" / "early_stage.cu").read_text()
+    cu = dict(re.findall(r"\b([WB]_(?:STEM|DW|PW)) = (\d+)", src))
+    assert {k: int(n) for k, n in cu.items()} == {
+        "W_STEM": 0, "B_STEM": es.PACKED_OFFSETS["bstem"],
+        "W_DW": es.PACKED_OFFSETS["wdw"], "B_DW": es.PACKED_OFFSETS["bdw"],
+        "W_PW": es.PACKED_OFFSETS["wpw"], "B_PW": es.PACKED_OFFSETS["bpw"]}
+
+
+def test_is_packed_takes_only_the_packed_order():
+    """Views of one buffer count as packed only at PACKED_OFFSETS, in the
+    packed order: two weights swapped, a buffer laid out in another order,
+    or one view replaced by a copy of it, each must be packed anew."""
+    g = torch.Generator().manual_seed(0)
+    shapes = ((16, 27), (16,), (3, 3, 16), (16,), (16, 16), (16,))
+    views = es.pack_stem_block0_weights(*(torch.randn(*s, generator=g) for s in shapes))
+    assert es.is_packed(views)
+    assert not es.is_packed(views[:1] + views[3:4] + views[2:3] + views[1:2] + views[4:])
+    backwards = torch.cat([t.reshape(-1) for t in reversed(views)])
+    ends = torch.tensor([0] + [t.numel() for t in reversed(views)]).cumsum(0).tolist()
+    reordered = [backwards[a:b].view(t.shape)
+                 for t, a, b in zip(reversed(views), ends, ends[1:])][::-1]
+    assert not es.is_packed(tuple(reordered))
+    assert not es.is_packed(views[:5] + (views[5].clone(),))
+
+
 def _jax_model_and_vars(n_classes=6, seed=0):
     jm = JaxCABiNet(n_classes=n_classes, mode="large", cfgs=CFGS)
     v = perturb(jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 64, 64, 3)),

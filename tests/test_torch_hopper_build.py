@@ -1,5 +1,5 @@
-"""The kernel build's hash over the shared CUDA header, and the bf16
-attention kernel's rule for splitting keys across blocks. Nothing here is
+"""The kernel build's hash over the shared CUDA header, and the attention
+kernels' rule for splitting keys across blocks. Nothing here is
 compiled or launched: the kernels themselves are held on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -26,8 +26,7 @@ def _append(path, text="\n// edited\n"):
 
 @pytest.mark.parametrize("name", _build.SOURCES)
 def test_library_path_changes_with_the_shared_header(csrc_copy, name):
-    if name != "early_stage":  # the sources that use it
-        assert '#include "hopper.cuh"' in (csrc_copy / f"{name}.cu").read_text()
+    assert '#include "hopper.cuh"' in (csrc_copy / f"{name}.cu").read_text()
     before = _build.library_path(name)
     assert _build.library_path(name) == before
     _append(csrc_copy / "hopper.cuh")
@@ -70,9 +69,20 @@ def test_key_splits_rule(B, N, n_sm, expected):
         assert splits == tiles or blocks * (splits + 1) > n_sm
 
 
+# The f32 kernel's split counts on the H100's 132 SMs at the shapes the port
+# runs it: 1024^2 serving at batch 1 (16 query tiles of 64, so 8 splits of 2
+# key tiles) and batch 8 (128 blocks, no split), and the f32 MscEval's
+# 256^2 crops (N=64: one key tile, nothing to split).
+@pytest.mark.parametrize("B,N,expected", [(1, 1024, 8), (8, 1024, 1), (1, 64, 1)])
+def test_f32_key_splits_at_the_ports_shapes(B, N, expected):
+    splits = attn.key_splits(B, N, 132)
+    assert splits == expected
+    assert B * -(-N // attn.BLOCK) * splits <= 132
+
+
 def _split_ranges(tiles, splits):
     """The key tiles [t0, t1) that each split walks, as attention_kernel
-    computes them from its split index."""
+    and attention_f32_kernel compute them from their split index."""
     return [(i * tiles // splits, (i + 1) * tiles // splits) for i in range(splits)]
 
 

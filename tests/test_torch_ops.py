@@ -74,6 +74,25 @@ def test_attention_bf16_probability_dtype_difference():
     assert float(np.abs(got - einsum).max()) <= 2e-2 * top
 
 
+def test_attention_past_the_pallas_vmem_budget_matches_einsum_path():
+    """At N=1600 (the /32 map of a 1280^2 input), 4*(N^2 + 2NK + 2NV)
+    bytes exceed the Pallas wrapper's 12 MB VMEM budget, so JAX takes its
+    einsum path with bf16 probabilities on the TPU too. The port's kernel
+    path (its plain version on the CPU) keeps f32 probabilities: in bf16 it
+    stays within the 2e-2 of max that the main-path shape is held to."""
+    B, N, K, V = 1, 1600, 128, 128
+    assert 4 * (N * N + 2 * N * K + 2 * N * V) > 12 * 2 ** 20
+    q, k, v = _qkv(B, N, K, V, seed=5)
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .to(torch.bfloat16) for a in (qb, kb, vb))
+    got = t_attn.fused_global_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, N, V)
+    einsum = np.asarray(j_attn.fused_global_attention(qb, kb, vb), np.float32)
+    top = float(np.abs(einsum).max())
+    assert float(np.abs(got.float().numpy() - einsum).max()) <= 2e-2 * top
+
+
 def test_attention_wrapper_takes_plain_version_on_cpu():
     q, k, v = map(torch.from_numpy, _qkv(1, 40, 16, 32, seed=2))
     before = t_attn.fused_global_attention.launches
