@@ -1,0 +1,145 @@
+"""Shared CLI plumbing (counterpart of the part of `cabinet_tpu.cli.common`
+that evaluation uses): config composition, model, dataset and loader
+construction, checkpoint loading, and the eval settings.
+
+Not ported here, each waiting for its ROADMAP item: `--legacy-config` and
+`runtime.loader=grain` (Queue 1 item 8), orbax checkpoint directories (the
+checkpoint module of training, Queue 1 item 2), and `eval_tile_mesh`
+(Queue 1 item 7; the port's evaluation runs on one device).
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from cabinet_tpu_torch.core.config import Config, compose
+from cabinet_tpu_torch.core.exceptions import ConfigurationError
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+CONFIG_DIR = REPO_ROOT / "configs"
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def parse_cli(argv: Optional[Sequence[str]], default_config: str,
+              description: str) -> Tuple[Config, argparse.Namespace]:
+    """Hydra-style CLI: positional key=value overrides, --config-name, and
+    --device (CUDA unless "cpu" is asked for)."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--config-name", default=default_config)
+    p.add_argument("--config-dir", default=str(CONFIG_DIR))
+    p.add_argument("--legacy-config", default=None, metavar="JSON",
+                   help="pre-Hydra legacy JSON config (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain versions")
+    p.add_argument("overrides", nargs="*", help="key=value overrides")
+    args = p.parse_args(argv)
+    if args.legacy_config:
+        raise NotImplementedError(
+            "--legacy-config is not ported yet (core/legacy_config.py, "
+            "ROADMAP Queue 1 item 8)")
+    return compose(args.config_dir, args.config_name, args.overrides), args
+
+
+def compute_dtype_of(cfg: Config) -> torch.dtype:
+    name = str(cfg.select("runtime.compute_dtype", "float32"))
+    return _DTYPES[name]
+
+
+def build_model(cfg: Config, n_classes: int):
+    """CABiNet from `model.mode` and `model.cfgs`; `runtime.use_pallas`
+    picks the attention kernel K1 for the CAB, else its einsum path."""
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    return CABiNet(n_classes, mode=cfg.model.mode,
+                   cfgs=[list(row) for row in cfg.model.cfgs],
+                   attention="kernel" if bool(cfg.select("runtime.use_pallas", False))
+                   else "einsum")
+
+
+def build_datasets(cfg: Config, modes: Sequence[str]) -> List[Any]:
+    from cabinet_tpu_torch.data.datasets import DATASET_KWARGS_BUILDERS, DATASET_REGISTRY
+
+    name = cfg.dataset.name
+    if name not in DATASET_REGISTRY:
+        raise ConfigurationError(
+            f"Unknown dataset '{name}'. Available: {sorted(DATASET_REGISTRY)}")
+    cls = DATASET_REGISTRY[name]
+    builder = DATASET_KWARGS_BUILDERS[name]
+    if not cfg.dataset.dataset_path:
+        raise ConfigurationError(
+            "dataset_path is empty — set the dataset root env var for "
+            f"'{name}' (see configs/dataset/{name}.yaml)")
+    return [cls(**builder(cfg, mode)) for mode in modes]
+
+
+def guard_val_batch(cfg: Config, dataset: Any, batch_size: int) -> None:
+    """Variable-resolution datasets can't stack val batches > 1
+    (reference train.py:233-241)."""
+    if not getattr(dataset, "UNIFORM_RESOLUTION", True) and batch_size != 1:
+        raise ConfigurationError(
+            f"{dataset.NAME} has mixed native resolutions; "
+            f"validation batch_size must be 1 (got {batch_size}).")
+
+
+def load_model_variables(checkpoint_path: str, model: Any) -> Dict[str, torch.Tensor]:
+    """The state dict for `model` from a reference `.pth` or a JAX
+    variables `.npz` (`cli.infer.load_state_dict`)."""
+    from cabinet_tpu_torch.cli.infer import load_state_dict
+
+    if Path(checkpoint_path).is_dir():
+        raise NotImplementedError(
+            f"{checkpoint_path} is a directory: orbax checkpoints are not "
+            f"ported yet (train/checkpoint.py, ROADMAP Queue 1 item 2); "
+            f"convert it to a .pth or .npz")
+    return load_state_dict(checkpoint_path, model)
+
+
+def make_loader(cfg: Config, dataset: Any, batch_size: int, *,
+                num_workers: int = 4) -> Any:
+    """The input pipeline of `runtime.loader`: `thread` (data/loader.py), in
+    order, as evaluation reads it."""
+    kind = str(cfg.select("runtime.loader", "thread")).lower()
+    if kind == "grain":
+        raise NotImplementedError(
+            "runtime.loader=grain is not ported yet (data/grain_loader.py, "
+            "ROADMAP Queue 1 item 8); use runtime.loader=thread")
+    if kind != "thread":
+        raise ConfigurationError(
+            f"runtime.loader must be 'thread' or 'grain', got {kind!r}")
+    from cabinet_tpu_torch.data.loader import DataLoader
+
+    return DataLoader(dataset, batch_size, num_workers=num_workers)
+
+
+def eval_tile_batch(cfg: Config) -> int:
+    """Tiles folded into one sliding-window forward (runtime.eval_tile_batch;
+    0 = auto: the port's `MscEval` `TILE_BATCH`, not the 64 the JAX package
+    measured on a TPU)."""
+    from cabinet_tpu_torch.eval.evaluator import TILE_BATCH
+
+    return int(cfg.select("runtime.eval_tile_batch", 0)) or TILE_BATCH
+
+
+def eval_acc_dtype(cfg: Config) -> Optional[torch.dtype]:
+    """Probability-accumulation dtype (runtime.eval_acc_dtype):
+    auto (None -> MscEval follows compute_dtype) | float32 | bfloat16."""
+    s = str(cfg.select("runtime.eval_acc_dtype", "auto")).lower()
+    try:
+        return {"auto": None, "float32": torch.float32,
+                "bfloat16": torch.bfloat16}[s]
+    except KeyError:
+        raise ConfigurationError(
+            f"runtime.eval_acc_dtype must be auto|float32|bfloat16, got {s!r}") from None
+
+
+def eval_pad_to(cfg: Config) -> Any:
+    """(H, W) eval resolution bucket (validation_config.eval_pad_to), or the
+    dataset's declared bucket (dataset.eval_pad_to), or None."""
+    return (cfg.select("validation_config.eval_pad_to", None)
+            or cfg.select("dataset.eval_pad_to", None))

@@ -2,7 +2,8 @@
 `cabinet_tpu.cli.infer`).
 
 Routes by path type/extension:
-  - image (.png/.jpg/...): writes <stem>_mask.png + <stem>_overlay.png
+  - image (.png/.jpg/...): writes <stem>_mask.png + <stem>_overlay.png (PNG
+    read and written by the port's own codec, other formats read by PIL)
   - folder: every image inside
   - video (.mp4/.avi/...): writes <stem>_mask.mp4 + <stem>_overlay.mp4,
     batch-1 at the fixed resolution, or chunks of frames with --batch N
@@ -203,16 +204,17 @@ def _overlay(rgb: np.ndarray, mask_rgb: np.ndarray, alpha: float) -> np.ndarray:
 
 def infer_image(seg: Segmenter, classes, path: Path, out_dir: Path,
                 alpha: float) -> None:
-    from PIL import Image
-
+    """<stem>_mask.png and <stem>_overlay.png of one image. PNG is read by
+    the port's own reader; other formats (JPEG) by PIL, as the JAX CLI
+    reads them, which raises `DatasetError` where PIL cannot be imported."""
+    from cabinet_tpu_torch.data.decode import open_rgb, save_png
     from cabinet_tpu_torch.data.palettes import colorize_mask
 
-    rgb = np.asarray(Image.open(path).convert("RGB"))
+    rgb = open_rgb(path)
     mask_rgb = colorize_mask(seg.predict(rgb), classes)
     out_dir.mkdir(parents=True, exist_ok=True)
-    Image.fromarray(mask_rgb).save(out_dir / f"{path.stem}_mask.png")
-    Image.fromarray(_overlay(rgb, mask_rgb, alpha)).save(
-        out_dir / f"{path.stem}_overlay.png")
+    save_png(out_dir / f"{path.stem}_mask.png", mask_rgb)
+    save_png(out_dir / f"{path.stem}_overlay.png", _overlay(rgb, mask_rgb, alpha))
 
 
 def infer_video(seg: Segmenter, classes, path: Path, out_dir: Path,

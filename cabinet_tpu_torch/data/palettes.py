@@ -1,10 +1,12 @@
 """Per-dataset class tables and mask colouring (copy of
-`cabinet_tpu.data.palettes`: the class records, `PALETTES` and
-`colorize_mask`). numpy only."""
+`cabinet_tpu.data.palettes`: the class records, `PALETTES`,
+`load_labels_info`, `id_to_trainid_lut` and `colorize_mask`). numpy only."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import json
+from pathlib import Path
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 
@@ -107,6 +109,20 @@ PALETTES: Dict[str, List[Dict]] = {
     "vdd": VDD_CLASSES,
     "cityscapes": CITYSCAPES_CLASSES,
 }
+
+
+def load_labels_info(path: Union[str, Path]) -> List[Dict]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def id_to_trainid_lut(classes: Sequence[Dict], ignore_label: int = 255) -> np.ndarray:
+    """256-entry raw-id -> trainId LUT (reference cityscapes.py:53-61)."""
+    lut = np.full(256, ignore_label, dtype=np.int64)
+    for el in classes:
+        if 0 <= el["id"] < 256:
+            lut[el["id"]] = el["trainId"]
+    return lut
 
 
 def trainid_palette(classes: Sequence[Dict]) -> np.ndarray:

@@ -20,6 +20,9 @@ order and divides by the same counts, so the two agree to the bit.
 from __future__ import annotations
 
 import math
+import queue
+import threading
+import time
 from typing import Any, Callable, Dict, Iterable, Sequence, Tuple, Union
 
 import numpy as np
@@ -199,7 +202,7 @@ class MscEval:
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         preds = torch.argmax(self._probs(variables, self._to_device(images)),
                              dim=-1)
-        labels = torch.as_tensor(np.asarray(labels), device=self.device)
+        labels = torch.as_tensor(labels, device=self.device)
         return preds, confusion_matrix(preds, labels, self.n_classes,
                                        self.ignore_label)
 
@@ -221,13 +224,109 @@ class MscEval:
         images, labels, _ = self._pad_to_bucket(images, labels)
         return self._run(variables, images, labels)[1].cpu().numpy()
 
+    def _stage(self, images: np.ndarray, labels: np.ndarray, stream):
+        """A batch padded to the bucket and copied to the device, on `stream`
+        where there is one; the event marks when the copy is done."""
+        images, labels, _ = self._pad_to_bucket(images, labels)
+        if stream is None:
+            return self._to_device(images), torch.as_tensor(np.asarray(labels)), None
+        with torch.cuda.stream(stream):
+            images_d = self._to_device(images)
+            labels_d = torch.as_tensor(np.asarray(labels), device=self.device)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return images_d, labels_d, done
+
     def evaluate(self, variables_or_model: Any,
-                 dataloader: Iterable[Tuple[np.ndarray, np.ndarray]]
-                 ) -> Dict[str, Any]:
-        """Metrics over every (images, labels) batch of the loader."""
-        hist = np.zeros((self.n_classes, self.n_classes), np.float64)
-        for images, labels in dataloader:
-            hist += self.hist_batch(variables_or_model, images, labels)
-        return metrics_from_hist(hist)
+                 dataloader: Iterable[Tuple[np.ndarray, np.ndarray]],
+                 progress: bool = False) -> Dict[str, Any]:
+        """Metrics over every (images, labels) batch of the loader, with the
+        next batch staged while this one runs, as the JAX engine does.
+
+        A worker thread pulls batches from the loader, pads them to the
+        bucket and copies them to the device (on CUDA on a side stream, the
+        consumer's stream waiting on its event), one batch ahead behind a
+        queue of 2. A stop event keeps the worker from blocking on a full
+        queue after the consumer failed; the worker's exceptions reach the
+        consumer. The confusion matrix is the sum of what `hist_batch` gives
+        batch by batch, each copied back as it is done. `progress` prints a
+        plain line now and then. The result's `timing` holds the loop's
+        seconds, the seconds the consumer waited on the worker (in all, and
+        before each batch and the end), and the frame count."""
+        n_total = len(dataloader) if hasattr(dataloader, "__len__") else None
+        stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                  else None)
+        q: queue.Queue = queue.Queue(maxsize=2)
+        done = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def stage():
+            it = None
+            try:
+                it = iter(dataloader)
+                for images, labels in it:
+                    if stop.is_set() or not put(self._stage(images, labels, stream)):
+                        return
+            except BaseException as e:  # handed to the consumer, which raises it
+                put(e)
+                return
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()  # a generator loader shuts its own pool down here
+            put(done)
+
+        hist = np.zeros((self.n_classes, self.n_classes), np.int64)
+        frames = batches = 0
+        waits = []
+        t0 = time.perf_counter()
+        worker = threading.Thread(target=stage, daemon=True, name="MscEval-stage")
+        worker.start()
+        try:
+            while True:
+                tw = time.perf_counter()
+                item = q.get()
+                waits.append(time.perf_counter() - tw)
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                images_d, labels_d, ready = item
+                if ready is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(ready)
+                    # the side stream allocated them; this stream reads them
+                    images_d.record_stream(current)
+                    labels_d.record_stream(current)
+                # blocks on the device, while the worker stages the next batch
+                hist += self._run(variables_or_model, images_d, labels_d)[1].cpu().numpy()
+                frames += int(images_d.shape[0])
+                batches += 1
+                if progress and (batches == n_total or batches % 10 == 0):
+                    print(f"Evaluating: {batches}/{n_total or '?'} batches, "
+                          f"{frames} frames, {time.perf_counter() - t0:.1f} s",
+                          flush=True)
+        finally:
+            stop.set()
+            while worker.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                worker.join(timeout=0.1)
+        result = metrics_from_hist(hist)
+        result["timing"] = {"seconds": time.perf_counter() - t0,
+                            "loader_wait_seconds": sum(waits),
+                            "loader_wait_seconds_per_batch": waits, "frames": frames}
+        return result
 
     __call__ = evaluate

@@ -42,7 +42,20 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               of tests/parity/test_miou_at_scale_large.py; in bf16 through
               make_eval_forward(fused_tail="true", use_pallas=True) (K1-K3)
               on a 1024x2048 image at 3 scales against the plain path
-  7. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  7. evaluate_main  `cli/evaluate.py:main` as a user runs it, over a
+              Cityscapes-layout val split of 2048x1024 PNG frames that this
+              script writes with the port's `save_png`: in bf16 with
+              runtime.use_pallas=true (K1-K3 on every tile forward, at
+              evaluate.yaml's six scales with flip, crop 1024, batch 2)
+              against the plain path's confusion matrix and argmax, and in
+              float32 on one frame at scale 1 (the f32 K1) against the f32
+              plain path's, near ties allowed; with main's seconds per
+              frame, the share of its loop spent waiting on the loader, and
+              the PNG reader's ms per frame and per mask
+  8. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+
+The packages the port may lack on the card's machine (yaml, PIL, cv2,
+torchvision, rich, tqdm) are listed first; the port needs none of them.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
@@ -849,6 +862,251 @@ def run_eval_kernels(torch, h: int = 1024, w: int = 2048, crop: int = 1024):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: cli/evaluate.py main over a split read from disk
+# ---------------------------------------------------------------------------
+
+# Raw Cityscapes ids whose trainIds are 0-4 (road, sidewalk, building, wall,
+# fence), and the rows of raw id 0 (unlabeled: the ignore label) on top.
+CITY_RAW_IDS = (7, 8, 11, 12, 13)
+CITY_IGNORE_ROWS = 64
+# Cityscapes' native frame, the crop of configs/dataset/cityscapes.yaml
+EVAL_MAIN_FRAMES, FRAME_H, FRAME_W, EVAL_MAIN_CROP = 4, 1024, 2048, 1024
+
+
+def optional_packages() -> dict:
+    """Which of the packages the port does without import here (in a child
+    process, so that this one loads none of them)."""
+    names = ("yaml", "PIL", "cv2", "torchvision", "rich", "tqdm")
+    code = ("import importlib, json\nout = {}\nfor m in %r:\n"
+            "    try:\n        importlib.import_module(m)\n        out[m] = True\n"
+            "    except Exception:\n        out[m] = False\nprint(json.dumps(out))" % (names,))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def write_city_split(np, root: Path, n_frames: int, h: int, w: int, seed: int = 31):
+    """A Cityscapes-layout val split of `n_frames` h x w frames:
+    leftImg8bit/val/<city>/*_leftImg8bit.png and
+    gtFine/val/<city>/*_gtFine_labelIds.png, written with the port's
+    save_png. Each frame is the fixture's palette task (`synthetic_palette`,
+    128-pixel blocks) stored so that Cityscapes' normalisation gives back
+    the palette values plus noise; its labels are CITY_RAW_IDS, with
+    CITY_IGNORE_ROWS rows of raw id 0 on top."""
+    from cabinet_tpu_torch.data.datasets import CityScapes
+    from cabinet_tpu_torch.data.decode import save_png
+
+    mean = np.asarray(CityScapes.MEAN, np.float32)
+    std = np.asarray(CityScapes.STD, np.float32)
+    rng = np.random.default_rng(seed)
+    raw_ids = np.asarray(CITY_RAW_IDS, np.uint8)
+    for i in range(n_frames):
+        city = ("frankfurt", "lindau", "munster")[i % 3]
+        (root / "leftImg8bit" / "val" / city).mkdir(parents=True, exist_ok=True)
+        (root / "gtFine" / "val" / city).mkdir(parents=True, exist_ok=True)
+        image, labels = synthetic_palette(np, rng, h, w, 128)
+        u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
+        raw = raw_ids[labels]
+        raw[:CITY_IGNORE_ROWS] = 0
+        base = f"{city}_{i:06d}_000019"
+        save_png(root / "leftImg8bit" / "val" / city / f"{base}_leftImg8bit.png", u8,
+                 compress_level=1)
+        save_png(root / "gtFine" / "val" / city / f"{base}_gtFine_labelIds.png", raw,
+                 compress_level=1)
+
+
+def paeth_png(np, path: Path, rgb) -> None:
+    """An 8-bit RGB PNG with every row Paeth-filtered, the filter the
+    reader's anti-diagonal sweep pays most for (encoders that pick a filter
+    per row, as libpng and PIL do, write many such rows)."""
+    import struct
+    import zlib
+
+    from cabinet_tpu_torch.data.decode import PNG_SIGNATURE
+
+    h, w, _ = rgb.shape
+    r = rgb.reshape(h, -1).astype(np.int16)
+    up = np.vstack([np.zeros((1, r.shape[1]), np.int16), r[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int16), r[:, :-3]])
+    upleft = np.hstack([np.zeros((h, 3), np.int16), up[:, :-3]])
+    pa, pb, pc = (np.abs(up - upleft), np.abs(left - upleft),
+                  np.abs(left + up - 2 * upleft))
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    rows = np.hstack([np.full((h, 1), 4, np.uint8), ((r - pred) & 255).astype(np.uint8)])
+
+    def chunk(t, payload):
+        return (struct.pack(">I", len(payload)) + t + payload
+                + struct.pack(">I", zlib.crc32(t + payload)))
+
+    path.write_bytes(PNG_SIGNATURE
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                     + chunk(b"IEND", b""))
+
+
+def png_reader_ms(np, root: Path, reps: int = 3) -> dict:
+    """The port's PNG reader on the split's first frame and mask (filter 0,
+    as save_png writes), and on the same frame Paeth-filtered: mean host ms
+    per read over `reps` reads, each checked against the first."""
+    from cabinet_tpu_torch.data.decode import open_mask, open_rgb
+
+    img = sorted((root / "leftImg8bit" / "val").rglob("*.png"))[0]
+    mask = sorted((root / "gtFine" / "val").rglob("*.png"))[0]
+    rgb = open_rgb(img)
+    paeth = root / "paeth.png"
+    paeth_png(np, paeth, rgb)
+    out = {}
+    for name, fn, path in (("rgb_frame", open_rgb, img), ("mask", open_mask, mask),
+                           ("rgb_frame_paeth", open_rgb, paeth)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = fn(path)
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+        check(got.shape[:2] == rgb.shape[:2], f"{name}: shape {got.shape}")
+    check(np.array_equal(open_rgb(paeth), rgb), "Paeth-filtered frame reads back wrong")
+    paeth.unlink()
+    return out
+
+
+def run_main(argv):
+    """`cli/evaluate.py:main(argv)` in this process; its output is shown
+    with a prefix (so that no line of it looks like this script's result
+    lines) and its JSON line parsed. Returns (result, JSON line, host s)."""
+    import contextlib
+    import io
+
+    from cabinet_tpu_torch.cli.evaluate import main as evaluate_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = evaluate_main(argv)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        print(f"  main| {ln}")
+    line = json.loads(lines[-1])
+    check(set(line) == {"mIoU", "accuracy", "iou_per_class"}, f"main's JSON line {line}")
+    check(line["mIoU"] == res["mIoU"], "main's JSON line is not its result")
+    return res, line, seconds
+
+
+def plain_eval(torch, dtype, scales, flip, crop):
+    """MscEval on the plain path: the fixture with attention="plain" and
+    the plain versions of K2 and K3 (bf16), or its modules (float32)."""
+    from cabinet_tpu_torch.eval.evaluator import MscEval
+    from cabinet_tpu_torch.models.fused import make_fused_tail_apply
+
+    model = fixture_model(torch, "plain")
+    if dtype == torch.bfloat16:
+        plain = make_fused_tail_apply(model, DEVICE, dtype, kernels=False)
+
+        def fwd(v, x):
+            return plain(x)
+    else:
+        model.to(DEVICE).eval()
+
+        @torch.no_grad()
+        def fwd(v, x):
+            return tuple(t.permute(0, 2, 3, 1) for t in model(x.permute(0, 3, 1, 2)))
+    return MscEval(fwd, len(PALETTE), ignore_label=255, scales=scales, flip=flip,
+                   cropsize=crop, compute_dtype=dtype, device=DEVICE)
+
+
+
+def run_evaluate_main(torch, paths, tmp: Path, n_frames: int = EVAL_MAIN_FRAMES,
+                      h: int = FRAME_H, w: int = FRAME_W, crop: int = EVAL_MAIN_CROP):
+    """Phase 7 on `n_frames` h x w frames at `crop` (cityscapes.yaml's own
+    at 1024); returns what it measured."""
+    import shutil
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.common import CONFIG_DIR
+    from cabinet_tpu_torch.core.config import load_yaml
+    from cabinet_tpu_torch.data.datasets import CityScapes
+    from cabinet_tpu_torch.data.loader import DataLoader
+    from cabinet_tpu_torch.eval.metrics import metrics_from_hist
+
+    root = tmp / "cityscapes"
+    t0 = time.perf_counter()
+    write_city_split(np, root, n_frames, h, w)
+    say("evaluate_main", part="split", frames=n_frames, size=f"{w}x{h}",
+        write_seconds=time.perf_counter() - t0)
+    png_ms = png_reader_ms(np, root)
+    say("evaluate_main", part="png_reader", ms=png_ms)
+
+    scales = tuple(load_yaml(CONFIG_DIR / "evaluate.yaml")["validation_config"]["eval_scales"])
+    common = [f"checkpoint_path={FIXTURE}", "dataset=cityscapes", "dataset.num_classes=5"]
+    if crop != max(load_yaml(CONFIG_DIR / "dataset" / "cityscapes.yaml")["cropsize"]):
+        common.append(f"dataset.cropsize=[{crop},{crop}]")
+
+    # bf16 on the kernels: K1, K2 and K3 on every tile forward, no K4
+    argv = common + [f"dataset.dataset_path={root}", "validation_config.batch_size=2",
+                     "runtime.compute_dtype=bfloat16", "runtime.use_pallas=true",
+                     "--device", DEVICE]
+    res, _, main_s = paths.drive("evaluate_main_bf16", run_main, argv)
+    counts = paths.per_path["evaluate_main_bf16"]
+    check(all(counts[k] > 0 for k in TAIL), f"evaluate main bf16 launches {counts}")
+    check(counts["attention_f32"] == 0 and counts["stem_block0"] == 0,
+          f"evaluate main bf16 launched the f32 K1 or K4: {counts}")
+    timing = res["timing"]
+    check(timing["frames"] == n_frames, f"main evaluated {timing['frames']} frames")
+
+    dataset = CityScapes(255, str(root), [crop] * 2, mode="val")
+    ref = plain_eval(torch, torch.bfloat16, scales, True, crop).evaluate(
+        None, DataLoader(dataset, 2, num_workers=8))
+    hist, ref_hist = res["confusion_matrix"], ref["confusion_matrix"]
+    pixels = float(hist.sum())
+    disagree = float(np.abs(hist - ref_hist).sum() / 2)
+    agreement = 1.0 - disagree / pixels
+    check(pixels == n_frames * (h - CITY_IGNORE_ROWS) * w == ref_hist.sum(),
+          f"confusion matrices count {pixels} and {ref_hist.sum()} pixels")
+    say("evaluate_main", part="bf16_kernels", scales=list(scales), flip=True,
+        batch=2, frames=timing["frames"], mIoU=res["mIoU"], plain_mIoU=ref["mIoU"],
+        hist_agreement=agreement, main_seconds=main_s,
+        main_seconds_per_frame=main_s / timing["frames"],
+        loop_seconds_per_frame=timing["seconds"] / timing["frames"],
+        loader_wait_seconds=timing["loader_wait_seconds"],
+        loader_wait_share=timing["loader_wait_seconds"] / timing["seconds"],
+        loader_wait_seconds_per_batch=timing["loader_wait_seconds_per_batch"],
+        plain_loop_seconds_per_frame=ref["timing"]["seconds"] / timing["frames"])
+    check(agreement >= 0.999, f"evaluate main bf16: the confusion matrices differ on "
+          f"{disagree} of {pixels} pixels")
+    check(abs(res["mIoU"] - ref["mIoU"]) < 5e-3,
+          f"evaluate main bf16 mIoU {res['mIoU']} against the plain path's {ref['mIoU']}")
+
+    # float32 on one frame at scale 1: the f32 K1
+    one = tmp / "cityscapes_one"
+    for sub in ("leftImg8bit", "gtFine"):
+        first = sorted((root / sub / "val").rglob("*.png"))[0]
+        dst = one / sub / "val" / first.parent.name
+        dst.mkdir(parents=True)
+        shutil.copy(first, dst / first.name)
+    argv = common + [f"dataset.dataset_path={one}", "validation_config.batch_size=1",
+                     "validation_config.eval_scales=[1.0]", "validation_config.flip=false",
+                     "runtime.use_pallas=true", "--device", DEVICE]
+    res32, _, main32_s = paths.drive("evaluate_main_f32", run_main, argv)
+    counts = paths.per_path["evaluate_main_f32"]
+    check(counts["attention_f32"] > 0, f"evaluate main f32 launches {counts}")
+    check(all(counts[k] == 0 for k in ("attention", "ffm_pointwise", "head_conv3x3",
+                                       "stem_block0")),
+          f"evaluate main f32 launched a bf16 kernel or K4: {counts}")
+    image, labels = CityScapes(255, str(one), [crop] * 2, mode="val")[0]
+    probs = plain_eval(torch, torch.float32, (1.0,), False, crop).prob_batch(None, image[None])
+    ties, hist32_ref = ties_hist(np, probs, labels[None])
+    disagree32 = float(np.abs(res32["confusion_matrix"] - hist32_ref).sum() / 2)
+    say("evaluate_main", part="f32_kernel", frames=1, mIoU=res32["mIoU"],
+        plain_mIoU=metrics_from_hist(hist32_ref)["mIoU"], disagree=disagree32,
+        near_ties=ties, main_seconds=main32_s)
+    check(disagree32 <= ties, f"evaluate main f32: {disagree32} pixels disagree with the "
+          f"plain path, {ties} near ties")
+    return {"png_ms": png_ms, "main_seconds_per_frame": main_s / timing["frames"],
+            "loader_wait_share": timing["loader_wait_seconds"] / timing["seconds"]}
+
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -873,6 +1131,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    say("packages", **optional_packages())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -927,6 +1186,9 @@ def main() -> int:
 
     paths.drive("eval_f32_reference", run_eval_reference, torch)
     paths.drive("eval_bf16_kernels", run_eval_kernels, torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        measured = run_evaluate_main(torch, paths, Path(tmp))
+    say("evaluate_main", card=smi, **measured)
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")

@@ -444,3 +444,45 @@ def test_msc_eval_kernel_path_matches_plain_path(gen):
     assert dt.head_conv3x3.launches > before
     ref = MscEval(lambda v, x: plain(x), **protocol).prob_batch(None, image)
     assert (got.argmax(-1) == ref.argmax(-1)).mean() >= 0.999
+
+
+def test_staged_evaluate_on_cuda_equals_the_serial_sum(gen):
+    """`MscEval.evaluate` on CUDA, which copies each batch on a side stream
+    while the previous one runs, gives the confusion matrix that
+    `hist_batch` gives batch by batch, bit for bit, through the kernel
+    path (bf16, K1-K3), with bucket padding on some batches; and a loader
+    that fails mid-way raises and leaves no staging thread."""
+    import threading
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.evaluate import make_eval_forward
+    from cabinet_tpu_torch.eval.evaluator import MscEval
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    torch.manual_seed(0)
+    fwd = make_eval_forward(CABiNet(5, "large"), 256, "cuda", torch.bfloat16,
+                            use_pallas=True, fused_tail="true")
+    ev = MscEval(fwd, 5, scales=(0.75, 1.0), flip=True, cropsize=256,
+                 compute_dtype=torch.bfloat16, pad_to=(320, 384), device="cuda")
+    rng = np.random.default_rng(1)
+    batches = []
+    for i in range(5):
+        h, w = (320, 384) if i % 2 else (300, 360)
+        labels = rng.integers(0, 5, (2, h, w))
+        labels[:, :8] = 255
+        batches.append((rng.normal(size=(2, h, w, 3)).astype(np.float32), labels))
+    serial = sum(ev.hist_batch(None, x, y) for x, y in batches)
+    before = dt.head_conv3x3.launches
+    res = ev.evaluate(None, batches)
+    assert dt.head_conv3x3.launches > before
+    np.testing.assert_array_equal(res["confusion_matrix"], serial.astype(np.float64))
+    assert res["timing"]["frames"] == 10
+
+    def failing():
+        yield batches[0]
+        raise OSError("disk went away")
+
+    with pytest.raises(OSError, match="disk went away"):
+        ev.evaluate(None, failing())
+    assert not [t for t in threading.enumerate() if t.name == "MscEval-stage"]

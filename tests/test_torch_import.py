@@ -56,12 +56,14 @@ def test_no_kernel_build_at_import():
 
 
 @pytest.mark.parametrize("entry", ["segmenter", "fused_tail", "fused_apply",
-                                   "msc_eval", "eval_forward", "resolve_device"])
+                                   "msc_eval", "eval_forward", "evaluate_main",
+                                   "resolve_device"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without device="cpu" the entry points ask for CUDA, and raise where
     there is none instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default runs there")
+    from cabinet_tpu_torch.cli.evaluate import main as evaluate_main
     from cabinet_tpu_torch.cli.evaluate import make_eval_forward
     from cabinet_tpu_torch.cli.infer import Segmenter
     from cabinet_tpu_torch.core.device import resolve_device
@@ -80,5 +82,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             MscEval(lambda v, x: (x, x), 8)
         elif entry == "eval_forward":
             make_eval_forward(CABiNet(8, "small", cfgs=[[3, 1, 16, 1, 0, 2]]), 256)
+        elif entry == "evaluate_main":
+            evaluate_main([f"checkpoint_path={tmp_path / 'unused.pth'}",
+                           f"dataset.dataset_path={tmp_path}"])
         else:
             resolve_device()
