@@ -1,19 +1,22 @@
-"""Shared CLI plumbing (counterpart of the part of `cabinet_tpu.cli.common`
-that evaluation uses): config composition, model, dataset and loader
-construction, checkpoint loading, and the eval settings.
+"""Shared CLI plumbing (counterpart of `cabinet_tpu.cli.common`): config
+composition, seeding, model, dataset and loader construction, checkpoint
+loading, the warm start and the pretrained backbone, and the eval settings.
 
 Not ported here, each waiting for its ROADMAP item: `--legacy-config` and
-`runtime.loader=grain` (Queue 1 item 8), orbax checkpoint directories (the
-checkpoint module of training, Queue 1 item 2), and `eval_tile_mesh`
-(Queue 1 item 7; the port's evaluation runs on one device).
+`runtime.loader=grain` (Queue 1 item 8), the loader's multi-process
+`shard` and `eval_tile_mesh` (Queue 1 item 7; the port runs on one
+device). Orbax checkpoint directories raise: the JAX package's
+`cli/convert_checkpoint.py` turns them into a `.pth` or `.npz`.
 """
 
 from __future__ import annotations
 
 import argparse
+import random
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cabinet_tpu_torch.core.config import Config, compose
@@ -44,6 +47,14 @@ def parse_cli(argv: Optional[Sequence[str]], default_config: str,
             "--legacy-config is not ported yet (core/legacy_config.py, "
             "ROADMAP Queue 1 item 8)")
     return compose(args.config_dir, args.config_name, args.overrides), args
+
+
+def seed_everything(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators (reference
+    train.py:36-43); the model's random init draws from torch's."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def compute_dtype_of(cfg: Config) -> torch.dtype:
@@ -88,22 +99,58 @@ def guard_val_batch(cfg: Config, dataset: Any, batch_size: int) -> None:
 
 
 def load_model_variables(checkpoint_path: str, model: Any) -> Dict[str, torch.Tensor]:
-    """The state dict for `model` from a reference `.pth` or a JAX
-    variables `.npz` (`cli.infer.load_state_dict`)."""
+    """The state dict for `model` from a `.pth` (a state dict, a reference
+    training checkpoint, or a full training checkpoint of
+    `train.checkpoint.CheckpointManager.save_full`) or a JAX variables
+    `.npz`. An orbax directory raises (`train.checkpoint.load_any_checkpoint`)."""
     from cabinet_tpu_torch.cli.infer import load_state_dict
 
-    if Path(checkpoint_path).is_dir():
-        raise NotImplementedError(
-            f"{checkpoint_path} is a directory: orbax checkpoints are not "
-            f"ported yet (train/checkpoint.py, ROADMAP Queue 1 item 2); "
-            f"convert it to a .pth or .npz")
     return load_state_dict(checkpoint_path, model)
 
 
+def warm_start(model: torch.nn.Module, checkpoint_path: str) -> List[str]:
+    """Cross-dataset warm start (reference train.py:126-176): load the
+    tensors of a `.pth` or `.npz` whose names and shapes match the model's,
+    keep the model's own elsewhere (a classifier head of another class
+    count is skipped), as `merge_variables(match_shapes=True)` of the JAX
+    package does. Returns the keys loaded."""
+    from cabinet_tpu_torch.train.checkpoint import load_any_checkpoint
+
+    loaded = load_any_checkpoint(checkpoint_path, model)
+    own = model.state_dict()
+    keys = [k for k, v in loaded.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)]
+    model.load_state_dict({**own, **{k: loaded[k] for k in keys}}, strict=True)
+    return keys
+
+
+def load_pretrained_backbone(model: torch.nn.Module, path: Path) -> List[str]:
+    """Load an ImageNet MobileNetV3 `.pth` (keys `features.*`, `conv.*`,
+    `classifier.*`) into `model.mobile`: `features.*` -> `mobile.features.*`,
+    the classifier skipped, as `backbone_torch_to_flax` of the JAX package
+    maps it. Every backbone tensor of the model must be in the file (BN step
+    counters aside). Returns the keys loaded."""
+    from cabinet_tpu_torch.train.checkpoint import load_any_checkpoint
+
+    blob = load_any_checkpoint(path)
+    sd = {f"mobile.{k}": v for k, v in blob.items() if not k.startswith("classifier")}
+    own = model.state_dict()
+    need = [k for k in own if k.startswith("mobile.")
+            and not k.endswith("num_batches_tracked")]
+    missing = [k for k in need if k not in sd]
+    if missing:
+        raise ConfigurationError(f"{path} lacks backbone tensors, e.g. {missing[:3]}")
+    keys = [k for k in own if k in sd]
+    model.load_state_dict({**own, **{k: sd[k] for k in keys}}, strict=True)
+    return keys
+
+
 def make_loader(cfg: Config, dataset: Any, batch_size: int, *,
-                num_workers: int = 4) -> Any:
-    """The input pipeline of `runtime.loader`: `thread` (data/loader.py), in
-    order, as evaluation reads it."""
+                shuffle: bool = False, drop_last: bool = False,
+                num_workers: int = 4, seed: int = 0) -> Any:
+    """The input pipeline of `runtime.loader`: `thread` (data/loader.py),
+    with the JAX package's batch order for `shuffle`, `drop_last` and
+    `seed`."""
     kind = str(cfg.select("runtime.loader", "thread")).lower()
     if kind == "grain":
         raise NotImplementedError(
@@ -114,7 +161,8 @@ def make_loader(cfg: Config, dataset: Any, batch_size: int, *,
             f"runtime.loader must be 'thread' or 'grain', got {kind!r}")
     from cabinet_tpu_torch.data.loader import DataLoader
 
-    return DataLoader(dataset, batch_size, num_workers=num_workers)
+    return DataLoader(dataset, batch_size, shuffle=shuffle, drop_last=drop_last,
+                      num_workers=num_workers, seed=seed)
 
 
 def eval_tile_batch(cfg: Config) -> int:

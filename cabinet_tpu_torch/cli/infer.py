@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from cabinet_tpu_torch.core.device import resolve_device
+from cabinet_tpu_torch.core.exceptions import ModelLoadError
 from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
 from cabinet_tpu_torch.models.cabinet import CABiNet
 
@@ -35,31 +36,24 @@ VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv"}
 
 def load_state_dict(checkpoint: Union[str, Path], model: CABiNet
                     ) -> Dict[str, torch.Tensor]:
-    """Weights for `model` from a reference `.pth` (a state dict, or a
-    training checkpoint with `model_state`/`ema_state`) or a JAX variables
-    `.npz` (nested or flat keys, through `utils.convert`)."""
-    path = Path(checkpoint)
-    if path.suffix == ".npz":
-        from cabinet_tpu_torch.utils.convert import state_dict_from_jax
+    """Weights for `model` from a `.pth` (a state dict, a reference training
+    checkpoint with `model_state`/`ema_state`, or a full training
+    checkpoint of the port's trainer) or a JAX variables `.npz` (nested or
+    flat keys, through `utils.convert`); `train.checkpoint.load_any_checkpoint`
+    reads them."""
+    from cabinet_tpu_torch.train.checkpoint import load_any_checkpoint
 
-        with np.load(path) as data:
-            return state_dict_from_jax({k: data[k] for k in data.files},
-                                       model.cfgs)
-    if path.suffix in (".pth", ".pt"):
-        blob = torch.load(str(path), map_location="cpu", weights_only=True)
-        if isinstance(blob, dict) and "model_state" in blob:
-            blob = blob.get("ema_state") or blob["model_state"]
-        if not isinstance(blob, dict):
-            raise ValueError(f"Unrecognized checkpoint format: {path}")
-        sd = {k: v for k, v in blob.items()
-              if not k.startswith("mobile.classifier")}
-        # BN step counters are bookkeeping, not weights; a state dict written
-        # from JAX variables has none.
-        for k, v in model.state_dict().items():
-            if k.endswith("num_batches_tracked"):
-                sd.setdefault(k, v)
-        return sd
-    raise ValueError(f"Unrecognized checkpoint: {path}")
+    try:
+        blob = load_any_checkpoint(checkpoint, model)
+    except ModelLoadError as e:
+        raise ValueError(str(e)) from None
+    sd = {k: v for k, v in blob.items() if not k.startswith("mobile.classifier")}
+    # BN step counters are bookkeeping, not weights; a state dict written
+    # from JAX variables has none.
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, v)
+    return sd
 
 
 def choose_route(mode: str, device_type: str, dtype: torch.dtype, batch: int,

@@ -357,3 +357,15 @@ def compose(
         _set_dotted(merged, key, value, allow_new)
 
     return Config(merged)
+
+
+def to_yaml(cfg: Config, resolve: bool = False) -> str:
+    """The config as YAML text (`core.yaml_subset.dump`), interpolations
+    expanded with `resolve=True`: `yaml.safe_load` of it gives the tree of
+    `cabinet_tpu.core.config.to_yaml`, and `load_yaml`/`compose` read it back."""
+    return yaml_subset.dump(cfg.to_dict(resolve=resolve))
+
+
+def save_config(cfg: Config, path: Union[str, Path], resolve: bool = True) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(to_yaml(cfg, resolve=resolve))

@@ -22,3 +22,7 @@ MODEL_CONFIG: Dict[str, Dict[str, Any]] = {
         "output_channel": 1024,
     },
 }
+
+# Training constants.
+OHEM_DIVISOR = 16  # n_min = batch * crop_h * crop_w // OHEM_DIVISOR
+DEFAULT_SCORE_THRESHOLD = 0.7  # OHEM loss threshold

@@ -393,3 +393,99 @@ class _Reader:
 def load(text: str, yaml12_floats: bool = False) -> Any:
     """The Python value of one YAML document in the supported subset."""
     return _Reader(text, yaml12_floats).document()
+
+
+# ---------------------------------------------------------------------------
+# Writing
+# ---------------------------------------------------------------------------
+
+
+def _dump_scalar(v: Any) -> str:
+    """A scalar as PyYAML's SafeDumper resolves it back: strings always
+    double-quoted (JSON escapes are YAML escapes), floats in PyYAML's form
+    (a dot before any exponent, which YAML 1.1 needs to read a float)."""
+    import json
+
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(v, str):
+        return json.dumps(v)
+    raise ConfigurationError(f"cannot write a {type(v).__name__} as YAML: {v!r}")
+
+
+def _has_mapping(v: Any) -> bool:
+    return isinstance(v, dict) or (isinstance(v, list) and any(map(_has_mapping, v)))
+
+
+def _dump_flow(v: Any) -> str:
+    if isinstance(v, list):
+        return "[" + ", ".join(_dump_flow(x) for x in v) + "]"
+    return _dump_scalar(v)
+
+
+def _dump_key(k: Any) -> str:
+    if isinstance(k, str) and re.fullmatch(r"[A-Za-z_][A-Za-z0-9_.-]*", k) \
+            and resolve_plain(k) == k and resolve_plain(k, True) == k:
+        return k
+    return _dump_scalar(k)
+
+
+def _dump_node(v: Any, indent: int, out: List[str]) -> None:
+    """Lines of the block node `v` (a non-empty mapping, or a sequence that
+    holds a mapping) at `indent`."""
+    pad = " " * indent
+    if isinstance(v, dict):
+        for k, x in v.items():
+            key = f"{pad}{_dump_key(k)}:"
+            if isinstance(x, dict) and x:
+                out.append(key)
+                _dump_node(x, indent + 2, out)
+            elif isinstance(x, list) and _has_mapping(x):
+                out.append(key)
+                _dump_node(x, indent, out)
+            elif isinstance(x, dict):
+                raise ConfigurationError(f"cannot write the empty mapping at {k!r}: "
+                                         f"flow mappings are outside the subset")
+            else:
+                out.append(f"{key} {_dump_flow(x)}")
+        return
+    for x in v:
+        if isinstance(x, dict) and x:
+            sub: List[str] = []
+            _dump_node(x, indent + 2, sub)
+            out.append(f"{pad}- {sub[0].lstrip(' ')}")
+            out.extend(sub[1:])
+        elif isinstance(x, list) and _has_mapping(x):
+            raise ConfigurationError("cannot write a sequence of sequences that "
+                                     "holds a mapping")
+        else:
+            out.append(f"{pad}- {_dump_flow(x)}")
+
+
+def dump(data: Any) -> str:
+    """YAML text of `data` (dicts, lists and scalars) that `load` reads back
+    to the same value and PyYAML's `safe_load` parses to the same tree:
+    block mappings, flow sequences, and block sequences where an entry is
+    a mapping."""
+    if isinstance(data, dict) and data:
+        out: List[str] = []
+        _dump_node(data, 0, out)
+        return "\n".join(out) + "\n"
+    if isinstance(data, list) and _has_mapping(data):
+        out = []
+        _dump_node(data, 0, out)
+        return "\n".join(out) + "\n"
+    return _dump_flow(data) + "\n"

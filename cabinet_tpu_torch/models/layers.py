@@ -3,7 +3,8 @@
 Counterpart of `cabinet_tpu.models.layers`. Module and attribute names follow
 the reference torch state-dict keys, so a reference `.pth` loads with
 `load_state_dict(strict=True)`. BatchNorm uses eps 1e-5 and torch momentum 0.1
-(flax momentum 0.9), as in the JAX package.
+(flax momentum 0.9), as in the JAX package; in train mode the running
+variance takes the biased batch variance, as flax's does.
 """
 
 from __future__ import annotations
@@ -46,9 +47,37 @@ class HardSwish(nn.Module):
         return hard_swish(x)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    """BatchNorm with the JAX package's numerics (eps 1e-5)."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` with flax's running variance.
+
+    Train mode normalises with the biased batch variance, as both
+    frameworks do. flax's `BatchNorm` stores that biased variance in its
+    running average (`ra_var = m * ra_var + (1 - m) * var`); torch's layer
+    stores the unbiased one, n/(n-1) times larger for n = B*H*W pixels a
+    channel. So after torch's own train-mode forward (one pass over the
+    input, its statistics in f32 whatever the input's dtype), the running
+    variance is corrected on the C channels alone: torch added
+    momentum * var * n/(n-1), flax adds momentum * var, so 1/n of the added
+    term comes off. Eval mode, the state-dict keys (`num_batches_tracked`
+    included) and the momentum are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        before = self.running_var.clone()
+        y = super().forward(x)
+        with torch.no_grad():
+            # a new tensor: autograd keeps the one torch's forward updated
+            n = x.numel() // x.shape[1]
+            added = self.running_var - (1.0 - self.momentum) * before
+            self.running_var = self.running_var - added / n
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    """BatchNorm with the JAX package's numerics (eps 1e-5, flax's running
+    variance)."""
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class DepthwiseConv2D(nn.Conv2d):

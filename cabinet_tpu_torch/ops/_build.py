@@ -106,3 +106,22 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would record a call of `kernel` on `tensors`.
+
+    The kernels are forward-only, as the Pallas kernels they replace are
+    (nothing in `cabinet_tpu/ops/` defines a VJP): their outputs carry no
+    `grad_fn`, so a call under autograd would silently drop every gradient
+    through it. This holds on every device, the plain versions on CPU
+    tensors included, so that the rule is the same wherever it is tested;
+    under `torch.no_grad()` the call runs."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the kernel has no backward (as in the JAX package); "
+            f"call it under torch.no_grad(), or train through the modules "
+            f"(CABiNet(attention='einsum'), the model's own forward)")

@@ -84,7 +84,9 @@ def fused_global_attention(q: torch.Tensor, k: torch.Tensor,
     not the splits are merged by a second kernel), its f32 kernel for f32
     inputs (counted in `launches_f32`). Both take contiguous, 16-byte
     aligned tensors of one dtype, K and V multiples of 16 up to 256;
-    anything else raises."""
+    anything else raises, and so does a call under autograd on inputs that
+    require grad (`_build.refuse_grad`): K1 has no backward."""
+    _build.refuse_grad("fused_global_attention", q, k, v)
     if q.device.type == "cpu":
         return global_attention_plain(q, k, v)
     if q.device.type != "cuda":

@@ -147,7 +147,9 @@ def _lib() -> ctypes.CDLL:
 def ffm_pointwise(fsp, fcp, w1_sp, w1_cp, b1):
     """K2 wrapper; see `ffm_pointwise_plain` for the function. CPU tensors
     take the plain version; CUDA tensors launch the kernel, which takes
-    bf16 NHWC contiguous activations and weights, and f32 b1."""
+    bf16 NHWC contiguous activations and weights, and f32 b1. Under
+    autograd on inputs that require grad it raises: K2 has no backward."""
+    _build.refuse_grad("ffm_pointwise", fsp, fcp, w1_sp, w1_cp, b1)
     if fsp.device.type == "cpu":
         return ffm_pointwise_plain(fsp, fcp, w1_sp, w1_cp, b1)
     if fsp.device.type != "cuda":
@@ -195,7 +197,9 @@ def head_conv3x3(feat, scale, w3, b3, wc, n_classes):
     """K3 wrapper; see `head_conv3x3_plain` for the function. CPU tensors
     take the plain version; CUDA tensors launch the kernel, which takes
     bf16 NHWC contiguous feat and weights (wc padded to a multiple of 16
-    columns, at most 128), f32 scale and b3."""
+    columns, at most 128), f32 scale and b3. Under autograd on inputs that
+    require grad it raises: K3 has no backward."""
+    _build.refuse_grad("head_conv3x3", feat, scale, w3, b3, wc)
     if feat.device.type == "cpu":
         return head_conv3x3_plain(feat, scale, w3, b3, wc, n_classes)
     if feat.device.type != "cuda":
@@ -242,7 +246,10 @@ def fused_ffm_head(fsp: torch.Tensor, fcp: torch.Tensor,
                    kernels: bool = True) -> torch.Tensor:
     """(B,S,S,128) + (B,S,S,256) -> (B,S,S,n_classes) logits. `kernels=False`
     runs the plain versions on any device (the reference the kernels are
-    held against on the card)."""
+    held against on the card); with the kernels, a call under autograd on
+    inputs that require grad raises (K2 and K3 have no backward)."""
+    if kernels:
+        _build.refuse_grad("fused_ffm_head", fsp, fcp, *folded.values())
     B, S, S2, _ = fsp.shape
     if not fused_tail_supported(S, S2, folded["n_classes"]):
         raise ValueError(f"fused tail unsupported for S={S}x{S2}")

@@ -166,7 +166,9 @@ def fused_stem_block0(x: torch.Tensor, wstem: torch.Tensor,
     one more launch. The launcher copies that buffer to the kernel's
     constant block on the same stream. The constant block is one for the
     process: this wrapper must not run on two streams at once with
-    different weights, or one launch may read the other's."""
+    different weights, or one launch may read the other's. Under autograd
+    on inputs that require grad it raises: K4 has no backward."""
+    _build.refuse_grad("fused_stem_block0", x, wstem, bstem, wdw, bdw, wpw, bpw)
     if x.device.type == "cpu":
         return stem_block0_plain(x, wstem, bstem, wdw, bdw, wpw, bpw, out_dtype)
     if x.device.type != "cuda":

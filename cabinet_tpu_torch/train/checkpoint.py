@@ -1,0 +1,158 @@
+"""Checkpoints of the training state and of model variables, as `.pth`
+files (counterpart of `cabinet_tpu.train.checkpoint`, whose format is
+orbax).
+
+`CheckpointManager.save_full` writes `<name>.pth` with the fields of the JAX
+tree (`checkpoint.py:48-72`): `params` and `batch_stats` (the model's
+parameters and BatchNorm buffers, by state-dict key), `opt_state` (the SGD
+momentum, `torch.optim` state dict), `step`, `micro_step`, `accum_grads`
+(the window's summed gradients, by parameter name), `ema_variables` (the
+EMA shadow, a state dict) and `ema_updates`; and the same
+`<name>.meta.json` sidecar (epoch, best mIoU and loss, early-stop state).
+`restore_full` puts all of it back, so that a resumed run continues
+bit-exactly. `save_variables` writes a model state dict (the EMA weights
+of `<name>_best` and the final `<name>`), the reference `.pth` format that
+`cli/evaluate.py` and `cli/infer.py` load.
+
+An orbax checkpoint directory raises: reading one needs orbax and
+tensorstore. Convert it with the JAX package's `cli/convert_checkpoint.py`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from cabinet_tpu_torch.core.exceptions import ModelLoadError
+
+_NO_META = {"epoch": 0, "best_miou": 0.0, "best_loss": float("inf"),
+            "early_stop_best_fitness": 0.0, "early_stop_best_epoch": 0}
+
+
+def _cpu(tree: Any) -> Any:
+    """A copy of `tree` with every tensor on the CPU (torch.save keeps the
+    device otherwise)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def _save(obj: Any, path: Path) -> None:
+    """torch.save through a temporary file and a rename, so that a reader
+    never sees half a checkpoint."""
+    tmp = path.with_name(path.name + f".tmp{os.getpid()}")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _load(path: Path) -> Any:
+    return torch.load(str(path), map_location="cpu", weights_only=True)
+
+
+class CheckpointManager:
+    """`.pth` checkpoints under `directory`, with a metadata sidecar."""
+
+    def __init__(self, directory: Union[str, Path]):
+        self.directory = Path(directory).resolve()
+        self.directory.mkdir(parents=True, exist_ok=True)
+
+    def path(self, name: str) -> Path:
+        return self.directory / f"{name}.pth"
+
+    # ---------------------------------------------------------------- full
+    def save_full(self, name: str, state: Any, epoch: int, best_miou: float,
+                  best_loss: float, stopper_state: Dict[str, Any]) -> Path:
+        params = dict(state.model.named_parameters())
+        sd = state.model.state_dict()
+        tree = {
+            "params": {k: v for k, v in sd.items() if k in params},
+            "batch_stats": {k: v for k, v in sd.items() if k not in params},
+            "opt_state": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "micro_step": int(state.micro_step),
+            "accum_grads": state.accum_grads,
+            "ema_variables": state.ema.state_dict(),
+            "ema_updates": int(state.ema.updates),
+        }
+        path = self.path(name)
+        _save(_cpu(tree), path)
+        meta = {
+            "epoch": int(epoch),
+            "best_miou": float(best_miou),
+            "best_loss": float(best_loss),
+            "early_stop_best_fitness": float(stopper_state["best_fitness"]),
+            "early_stop_best_epoch": int(stopper_state["best_epoch"]),
+        }
+        (self.directory / f"{name}.meta.json").write_text(json.dumps(meta))
+        return path
+
+    def restore_full(self, name: str, state: Any) -> Optional[Dict[str, Any]]:
+        """Restore into `state` (its model, optimizer, EMA and counters, in
+        place); None if the checkpoint is absent."""
+        path = self.path(name)
+        if not path.exists():
+            return None
+        tree = _load(path)
+        state.model.load_state_dict({**tree["params"], **tree["batch_stats"]},
+                                    strict=True)
+        state.optimizer.load_state_dict(tree["opt_state"])
+        state.step = int(tree["step"])
+        state.micro_step = int(tree["micro_step"])
+        state.load_accum_grads(tree["accum_grads"])
+        state.ema.load_state_dict(tree["ema_variables"], tree["ema_updates"])
+        meta_path = self.directory / f"{name}.meta.json"
+        meta = json.loads(meta_path.read_text()) if meta_path.exists() else dict(_NO_META)
+        return {"state": state, **meta}
+
+    # ------------------------------------------------------------ variables
+    def save_variables(self, name: str, variables: Dict[str, torch.Tensor]) -> Path:
+        path = self.path(name)
+        _save(_cpu(dict(variables)), path)
+        return path
+
+    def restore_variables(self, name: str) -> Dict[str, torch.Tensor]:
+        path = self.path(name)
+        if not path.exists():
+            raise ModelLoadError(f"Checkpoint not found: {path}")
+        return _load(path)
+
+
+def load_any_checkpoint(path: Union[str, Path], model: Any = None
+                        ) -> Dict[str, torch.Tensor]:
+    """A model state dict from a `.pth` (a state dict, a full training
+    checkpoint of `save_full`, whose raw params and BN buffers it takes,
+    or a reference training checkpoint with `model_state`/`ema_state`) or
+    from a JAX variables `.npz` (through `utils.convert`, which needs
+    `model` for its cfg table). An orbax directory raises NotImplementedError."""
+    path = Path(path)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{path} is a directory: orbax checkpoints need orbax and tensorstore, "
+            f"which the port does not use; convert it with the JAX package's "
+            f"cli/convert_checkpoint.py to a .pth or .npz")
+    if path.suffix in (".pth", ".pt"):
+        blob = _load(path)
+        if isinstance(blob, dict) and "params" in blob and "opt_state" in blob:
+            return {**blob["params"], **blob["batch_stats"]}
+        if isinstance(blob, dict) and "model_state" in blob:
+            blob = blob.get("ema_state") or blob["model_state"]
+        if not isinstance(blob, dict):
+            raise ModelLoadError(f"Unrecognized checkpoint format: {path}")
+        return blob
+    if path.suffix == ".npz":
+        from cabinet_tpu_torch.utils.convert import state_dict_from_jax
+
+        if model is None:
+            raise ModelLoadError(f"{path}: a JAX .npz needs the model's cfg table")
+        with np.load(path) as data:
+            return state_dict_from_jax({k: data[k] for k in data.files}, model.cfgs)
+    raise ModelLoadError(f"Unrecognized checkpoint: {path}")

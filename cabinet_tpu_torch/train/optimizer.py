@@ -1,0 +1,148 @@
+"""SGD with momentum over 4 parameter groups, linear warmup + poly decay,
+and clipping by the global norm (counterpart of the part of
+`cabinet_tpu.train.optimizer` that CABiNet's trainer uses).
+
+The numbers are the JAX package's (reference src/utils/optimizer.py:34-156):
+  - lr(it) = warmup_start + (it/warmup) * (lr0 - warmup_start) below
+    `warmup`, else lr0 * r^power with r = (max_iter - it)/(max_iter - warmup)
+    clamped to [0, 1], so steps past max_iter give lr 0; computed in f32;
+  - `it` counts optimizer steps, not micro-batches;
+  - a parameter gets weight decay iff it is a conv kernel (the 4-D weight
+    of an `nn.Conv2d`; BN affine, biases, the SE `nn.Linear` weights and
+    the CAB `gamma` get none), and x`lr_multiplier` iff its top-level module
+    is a decoder module (`ab`, `ffm`, `conv_out`);
+  - torch SGD's update order, which is optax's chain: g += wd*p,
+    buf = mu*buf + g, p -= lr*buf;
+  - clipping in optax's form: g * max/|g| is (g / |g|) * max, applied when
+    |g| >= max, with no epsilon (`torch.nn.utils.clip_grad_norm_` divides by
+    |g| + 1e-6).
+
+`warmup_cosine_schedule` and `build_sgd` belong to YOLO-sem and wait for it
+(ROADMAP Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, List, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+DECODER_MODULES = ("ffm", "conv_out", "ab")  # cabinet_tpu/models/cabinet.py:32
+
+WD = "wd"
+NOWD = "nowd"
+WD_X = "wd_x10"
+NOWD_X = "nowd_x10"
+GROUPS = (WD, NOWD, WD_X, NOWD_X)
+
+
+def warmup_poly_schedule(lr0: float, max_iter: int, power: float = 0.9,
+                         warmup_steps: int = 0, warmup_start_lr: float = 1e-5
+                         ) -> Callable[[int], float]:
+    """count -> lr as an f32 value (reference optimizer.py:124-138), in the
+    JAX package's form."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(count)
+        if warmup_steps > 0 and c < warmup_steps:
+            return float(f32(warmup_start_lr)
+                         + (c / f32(max(warmup_steps, 1))) * f32(lr0 - warmup_start_lr))
+        remaining = np.clip((f32(max_iter) - c) / f32(max(float(max_iter) - warmup_steps, 1.0)),
+                            f32(0.0), f32(1.0))
+        return float(f32(lr0) * remaining ** f32(power))
+
+    return schedule
+
+
+def param_labels(model: nn.Module,
+                 decoder_modules: Sequence[str] = DECODER_MODULES) -> Dict[str, str]:
+    """{parameter name: group}, as `cabinet_tpu.train.optimizer.param_labels`
+    labels the same parameters."""
+    conv_kernels = {f"{name}.weight" for name, m in model.named_modules()
+                    if isinstance(m, nn.Conv2d)}
+    labels = {}
+    for name, p in model.named_parameters():
+        kernel = name in conv_kernels and p.dim() == 4
+        if name.split(".")[0] in decoder_modules:
+            labels[name] = WD_X if kernel else NOWD_X
+        else:
+            labels[name] = WD if kernel else NOWD
+    return labels
+
+
+def param_groups(model: nn.Module, wd: float, lr_multiplier: float = 10.0,
+                 decoder_modules: Sequence[str] = DECODER_MODULES) -> List[dict]:
+    """The 4 groups, each with its `weight_decay` and `lr_scale`, in
+    `GROUPS` order; a group with no parameter is left out."""
+    labels = param_labels(model, decoder_modules)
+    settings = {WD: (wd, 1.0), NOWD: (0.0, 1.0), WD_X: (wd, lr_multiplier),
+                NOWD_X: (0.0, lr_multiplier)}
+    groups = []
+    for g in GROUPS:
+        params = [p for n, p in model.named_parameters() if labels[n] == g]
+        if params:
+            groups.append({"params": params, "name": g, "weight_decay": settings[g][0],
+                           "lr_scale": settings[g][1], "lr": 0.0})
+    return groups
+
+
+class GroupedSGD:
+    """`torch.optim.SGD` (momentum, dampening 0, no Nesterov) over the 4
+    groups, with the lr of each group set from the optimizer-step count
+    before every step, and optax's clipping of the global norm."""
+
+    def __init__(self, model: nn.Module, lr0: float, max_iter: int,
+                 momentum: float = 0.9, wd: float = 5e-4, power: float = 0.9,
+                 warmup_steps: int = 0, warmup_start_lr: float = 1e-5,
+                 lr_multiplier: float = 10.0, max_grad_norm=None,
+                 decoder_modules: Sequence[str] = DECODER_MODULES):
+        self.schedule = warmup_poly_schedule(lr0, max_iter, power, warmup_steps,
+                                             warmup_start_lr)
+        self.max_grad_norm = float(max_grad_norm) if max_grad_norm else None
+        self.sgd = torch.optim.SGD(
+            param_groups(model, wd, lr_multiplier, decoder_modules), lr=0.0,
+            momentum=momentum, dampening=0.0, nesterov=False)
+
+    def set_lr(self, count: int) -> None:
+        lr = np.float32(self.schedule(count))
+        for g in self.sgd.param_groups:
+            g["lr"] = float(lr * np.float32(g["lr_scale"]))
+
+    def step(self, count: int) -> None:
+        """One update from the gradients in `.grad`, at optimizer step
+        `count` (the count before this step, as optax's)."""
+        if self.max_grad_norm is not None:
+            clip_by_global_norm(self.parameters(), self.max_grad_norm)
+        self.set_lr(count)
+        self.sgd.step()
+
+    def parameters(self) -> List[torch.Tensor]:
+        return [p for g in self.sgd.param_groups for p in g["params"]]
+
+    def state_dict(self) -> dict:
+        return self.sgd.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.sgd.load_state_dict(state)
+
+
+@torch.no_grad()
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares) over every tensor, in f32 (`optax.global_norm`)."""
+    sq = [t.float().square().sum() for t in tensors]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Clip the `.grad` of `params` in optax's form; returns the norm. No
+    host sync: the clipped and unclipped values are selected on the device."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+    return norm

@@ -1,0 +1,179 @@
+"""The training step: dual-head OHEM loss, gradient accumulation, clipping,
+grouped SGD and EMA (counterpart of `cabinet_tpu.train.trainer`, one
+device).
+
+As in the JAX package (reference src/scripts/train.py:411-480):
+  - loss = OHEM(final) + OHEM(aux), each micro-batch's loss
+    scaled by 1/accum_steps before its backward;
+  - the gradients of `accum_steps` micro-batches sum in `.grad` (the JAX
+    TrainState's `accum_grads`); the optimizer steps once per window, and
+    `make_flush_step` applies a trailing partial window (a no-op on an
+    empty one);
+  - the global-norm clipping acts on the summed gradients at step time;
+  - the EMA advances once per real optimizer step, from the parameters
+    after it and the BatchNorm statistics of the micro-step that took it.
+
+`compute_dtype=torch.bfloat16` is bf16 autocast over f32 master parameters
+with no loss scaler, the counterpart of JAX's bf16 matmuls over f32 params
+(no GradScaler: bf16 has f32's exponent range).
+
+The step always runs the CAB's einsum attention, the function that the JAX
+wrapper computes off the TPU and which is differentiable: the attention
+kernel K1 has no backward (`ops/_build.refuse_grad` raises under autograd).
+The step sets that mode for its forward and puts the model's own back
+after it, so the val loss and the evaluations still run K1 when the model
+was built with `attention="kernel"`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from cabinet_tpu_torch.train.ema import ModelEMA
+from cabinet_tpu_torch.train.losses import ohem_cross_entropy
+from cabinet_tpu_torch.train.optimizer import GroupedSGD
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: GroupedSGD
+    ema: ModelEMA
+    step: int = 0          # optimizer steps taken (reference optim.it)
+    micro_step: int = 0    # position within the accumulation window
+
+    @property
+    def accum_grads(self) -> Dict[str, torch.Tensor]:
+        """The running sum of the window's gradients (zeros between
+        windows), by parameter name."""
+        return {n: (p.grad.detach() if p.grad is not None else torch.zeros_like(p))
+                for n, p in self.model.named_parameters()}
+
+    def load_accum_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        for n, p in self.model.named_parameters():
+            p.grad = grads[n].to(p.device).clone() if self.micro_step > 0 else None
+
+    @property
+    def ema_variables(self) -> Dict[str, torch.Tensor]:
+        return self.ema.state_dict()
+
+
+def create_train_state(model: nn.Module, optimizer: GroupedSGD,
+                       ema_decay: float = 0.9999, ema_tau: float = 2000.0) -> TrainState:
+    return TrainState(model, optimizer, ModelEMA(model, ema_decay, ema_tau))
+
+
+def _autocast(device: torch.device, compute_dtype: torch.dtype):
+    if compute_dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=compute_dtype)
+
+
+def _forward(model: nn.Module, images: torch.Tensor, compute_dtype: torch.dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final, aux) NCHW logits of NHWC images."""
+    x = images.permute(0, 3, 1, 2)
+    with _autocast(x.device, compute_dtype):
+        return model(x)
+
+
+@contextlib.contextmanager
+def einsum_attention(model: nn.Module):
+    """Run the CAB's global attention on its einsum path inside the block."""
+    attns = [m for m in model.modules() if hasattr(m, "attention")
+             and hasattr(m, "project_out")]
+    saved = [m.attention for m in attns]
+    for m in attns:
+        m.attention = "einsum"
+    try:
+        yield
+    finally:
+        for m, a in zip(attns, saved):
+            m.attention = a
+
+
+def _apply_update(state: TrainState) -> None:
+    for p in state.optimizer.parameters():
+        if p.grad is None:  # a parameter off the graph still decays, as in optax
+            p.grad = torch.zeros_like(p)
+    state.optimizer.step(state.step)
+    state.ema.update(state.model)
+    state.step += 1
+    state.micro_step = 0
+    state.optimizer.sgd.zero_grad(set_to_none=True)
+
+
+def make_train_step(
+    n_min: int, thresh: float = 0.7, ignore_label: int = 255,
+    class_weights=None, accum_steps: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
+    """`train_step(state, images NHWC, labels) -> (state, loss)`: one
+    micro-step on `state` (updated in place and returned), the loss of the
+    micro-batch unscaled, a 0-dim tensor (no host sync). The loss is
+    CABiNet's recipe, OHEM (bisect) on the final and the aux head; the JAX
+    step's `loss_type="ce"` and `aux_weight` serve YOLO-sem and wait for it
+    (ROADMAP Queue 1 item 6)."""
+    cw = None if class_weights is None else torch.as_tensor(class_weights,
+                                                           dtype=torch.float32)
+
+    def seg_loss(logits, labels):
+        w = None if cw is None else cw.to(logits.device)
+        return ohem_cross_entropy(logits, labels, n_min, thresh, ignore_label, w,
+                                  method="bisect")
+
+    def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        model = state.model
+        model.train()
+        with einsum_attention(model):
+            final, aux = _forward(model, images, compute_dtype)
+        loss = (seg_loss(final, labels) + seg_loss(aux, labels)) / accum_steps
+        loss.backward()
+        state.micro_step += 1
+        if state.micro_step >= accum_steps:
+            _apply_update(state)
+        return state, loss.detach() * accum_steps
+
+    return train_step
+
+
+def make_flush_step() -> Callable[[TrainState], TrainState]:
+    """End-of-epoch flush of a trailing partial window (reference
+    train.py:479-480); a no-op when the window is empty."""
+
+    def flush(state: TrainState) -> TrainState:
+        if state.micro_step > 0:
+            _apply_update(state)
+        return state
+
+    return flush
+
+
+def make_eval_loss_step(
+    model: nn.Module, n_min: int, thresh: float = 0.7, ignore_label: int = 255,
+    class_weights=None, compute_dtype: torch.dtype = torch.float32,
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Validation loss of `model`'s raw weights in eval mode, full
+    resolution (reference train.py:443-456): OHEM (bisect) on both heads,
+    under no_grad, with the model's own attention (K1 when it was built
+    with `attention="kernel"`)."""
+    cw = None if class_weights is None else torch.as_tensor(class_weights,
+                                                           dtype=torch.float32)
+
+    @torch.no_grad()
+    def eval_loss(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        final, aux = _forward(model, images, compute_dtype)
+        w = None if cw is None else cw.to(final.device)
+        return (ohem_cross_entropy(final, labels, n_min, thresh, ignore_label, w,
+                                   method="bisect")
+                + ohem_cross_entropy(aux, labels, n_min, thresh, ignore_label, w,
+                                     method="bisect"))
+
+    return eval_loss

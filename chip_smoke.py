@@ -52,7 +52,25 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               plain path's, near ties allowed; with main's seconds per
               frame, the share of its loop spent waiting on the loader, and
               the PNG reader's ms per frame and per mask
-  8. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  8. train_step  the port's trainer on CABiNet-Large, 19 classes (the full
+              published table): one optimizer step (accum_steps=2) in f32
+              on the card against the same step on the CPU, 512^2, batch 2;
+              then batch 4 at 1024^2 in bf16 with attention="kernel", 30
+              steps on one fixed batch: the loss must fall and K1 must not
+              launch in the steps (the val loss launches it); ms per step,
+              images/s, peak memory, and the steps with torch's own
+              BatchNorm in turns with the port's
+  9. train_main  `cli/train.py:main` as a user runs it, dataset=cityscapes
+              over a split of 8 train and 2 val 2048x1024 frames this
+              script writes, configs/train.yaml as it is apart from epochs,
+              warmup, loader threads, log_iter and runtime.use_pallas=true
+              (bf16, batch 4, crop 1024, six scales with flip at the end):
+              metrics.jsonl, the checkpoints, K1 in the evaluations and
+              not in the steps, a resume from step 4 to 6, and the final
+              EMA weights scored by evaluate main; with main's seconds, the
+              loop's seconds per optimizer step, its loader-wait share and
+              the host ms per augmented frame
+  10. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -885,10 +903,11 @@ def optional_packages() -> dict:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-def write_city_split(np, root: Path, n_frames: int, h: int, w: int, seed: int = 31):
-    """A Cityscapes-layout val split of `n_frames` h x w frames:
-    leftImg8bit/val/<city>/*_leftImg8bit.png and
-    gtFine/val/<city>/*_gtFine_labelIds.png, written with the port's
+def write_city_split(np, root: Path, n_frames: int, h: int, w: int, seed: int = 31,
+                     split: str = "val"):
+    """A Cityscapes-layout split of `n_frames` h x w frames:
+    leftImg8bit/<split>/<city>/*_leftImg8bit.png and
+    gtFine/<split>/<city>/*_gtFine_labelIds.png, written with the port's
     save_png. Each frame is the fixture's palette task (`synthetic_palette`,
     128-pixel blocks) stored so that Cityscapes' normalisation gives back
     the palette values plus noise; its labels are CITY_RAW_IDS, with
@@ -902,16 +921,16 @@ def write_city_split(np, root: Path, n_frames: int, h: int, w: int, seed: int = 
     raw_ids = np.asarray(CITY_RAW_IDS, np.uint8)
     for i in range(n_frames):
         city = ("frankfurt", "lindau", "munster")[i % 3]
-        (root / "leftImg8bit" / "val" / city).mkdir(parents=True, exist_ok=True)
-        (root / "gtFine" / "val" / city).mkdir(parents=True, exist_ok=True)
+        (root / "leftImg8bit" / split / city).mkdir(parents=True, exist_ok=True)
+        (root / "gtFine" / split / city).mkdir(parents=True, exist_ok=True)
         image, labels = synthetic_palette(np, rng, h, w, 128)
         u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
         raw = raw_ids[labels]
         raw[:CITY_IGNORE_ROWS] = 0
         base = f"{city}_{i:06d}_000019"
-        save_png(root / "leftImg8bit" / "val" / city / f"{base}_leftImg8bit.png", u8,
+        save_png(root / "leftImg8bit" / split / city / f"{base}_leftImg8bit.png", u8,
                  compress_level=1)
-        save_png(root / "gtFine" / "val" / city / f"{base}_gtFine_labelIds.png", raw,
+        save_png(root / "gtFine" / split / city / f"{base}_gtFine_labelIds.png", raw,
                  compress_level=1)
 
 
@@ -969,26 +988,34 @@ def png_reader_ms(np, root: Path, reps: int = 3) -> dict:
 
 
 def run_main(argv):
-    """`cli/evaluate.py:main(argv)` in this process; its output is shown
-    with a prefix (so that no line of it looks like this script's result
-    lines) and its JSON line parsed. Returns (result, JSON line, host s)."""
-    import contextlib
-    import io
-
+    """`cli/evaluate.py:main(argv)` in this process (`run_cli`), its JSON
+    line parsed. Returns (result, JSON line, host s)."""
     from cabinet_tpu_torch.cli.evaluate import main as evaluate_main
 
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        res = evaluate_main(argv)
-    seconds = time.perf_counter() - t0
-    lines = buf.getvalue().strip().splitlines()
-    for ln in lines:
-        print(f"  main| {ln}")
+    res, seconds, lines = run_cli(evaluate_main, argv, "main")
     line = json.loads(lines[-1])
     check(set(line) == {"mIoU", "accuracy", "iou_per_class"}, f"main's JSON line {line}")
     check(line["mIoU"] == res["mIoU"], "main's JSON line is not its result")
     return res, line, seconds
+
+
+def run_cli(main_fn, argv, tag: str, keep: int = 0):
+    """main_fn(argv) in this process with its standard output caught and
+    shown with a prefix (so that no line of it looks like this script's
+    result lines), the last `keep` lines only when keep > 0. Returns
+    (result, host s, the output's lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main_fn(argv)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines[-keep:] if keep else lines:
+        print(f"  {tag}| {ln}")
+    return res, seconds, lines
 
 
 def plain_eval(torch, dtype, scales, flip, crop):
@@ -1107,6 +1134,335 @@ def run_evaluate_main(torch, paths, tmp: Path, n_frames: int = EVAL_MAIN_FRAMES,
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the train step
+# ---------------------------------------------------------------------------
+
+N_CLASSES_TRAIN = 19  # Cityscapes, the published CABiNet-Large cell
+# Card against CPU, f32 with TF32 off. The loss within 1e-4 of |cpu|. Each
+# tensor of params, BN statistics and EMA within 0.1 of the CPU step's own
+# change of it, plus 4 f32 ulps of its magnitude, plus 2e-3 of the step's
+# largest change of its kind (a gradient that nearly cancels, or is zero in
+# exact arithmetic); a running mean plus 1e-4 of its channel's scale instead
+# of the ulps (`updates_err`). And the update of each kind as a whole,
+# |card - cpu|_2 / |cpu - start|_2, within 2e-2. cuDNN and the CPU add in
+# other orders, and at random init the backward through 15 blocks of
+# train-mode BN, each subtracting its batch means from the gradient,
+# amplifies those differences: on the H100 the whole update agreed to
+# 2.5e-3 and an early depthwise kernel (/4 resolution) to 3.3% of its change.
+BOUND_TRAIN_LOSS = 1e-4
+BOUND_TRAIN_UPDATE = 0.1
+BOUND_TRAIN_NORM = 2e-2
+TRAIN_ULPS = 2.0 ** -21
+BOUND_BN_MEAN = 1e-4
+TRAIN_NOISE = 2e-3
+
+
+def seeded_large(torch, n_classes: int, attention: str = "einsum", seed: int = 0):
+    """Seeded CABiNet-Large (the full published table) with its zero gamma
+    set to 0.5 and its zero project_out drawn from N(0, 0.05^2), so that
+    gradients reach the global attention."""
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    torch.manual_seed(seed)
+    model = CABiNet(n_classes, "large", attention=attention)
+    with torch.no_grad():
+        model.ab.a2block.gamma.fill_(0.5)
+        torch.nn.init.normal_(model.ab.a2block.global_attn.project_out.weight, 0, 0.05)
+    return model
+
+
+def palette_batch(torch, np, n: int, size: int, seed: int):
+    """n palette images (5 learnable classes of the 19) and their labels."""
+    rng = np.random.default_rng(seed)
+    pairs = [synthetic_palette(np, rng, size, size, 64) for _ in range(n)]
+    return (torch.from_numpy(np.stack([p[0] for p in pairs])),
+            torch.from_numpy(np.stack([p[1] for p in pairs])))
+
+
+def train_one_update(torch, sd, batches, device, accum: int):
+    """One optimizer step (accum micro-batches) of the port's trainer from
+    state dict `sd` on `device`, f32: (losses, variables, EMA variables)."""
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+
+    model = seeded_large(torch, N_CLASSES_TRAIN)
+    model.load_state_dict(sd, strict=True)
+    model.to(device)
+    opt = GroupedSGD(model, lr0=0.05, max_iter=10, momentum=0.9, wd=5e-4,
+                     warmup_steps=0, max_grad_norm=1.0)
+    state = T.create_train_state(model, opt, 0.9, 2.0)
+    x0, y0 = batches[0]
+    step = T.make_train_step(n_min=x0.shape[0] * x0.shape[1] * x0.shape[2] // 16,
+                             accum_steps=accum)
+    losses = [float(step(state, x.to(device), y.to(device))[1]) for x, y in batches]
+    check(state.step == 1 and state.micro_step == 0, f"{device}: step {state.step}")
+    return (losses, {k: v.cpu() for k, v in model.state_dict().items()},
+            {k: v.cpu() for k, v in state.ema.shadow.items()})
+
+
+def updates_err(torch, got, ref, start):
+    """{kind: (worst error over its bound, tensor, error, change)} over the
+    float tensors, by kind: parameters, running means, running variances.
+    Each tensor's bound is BOUND_TRAIN_UPDATE of its own change in the
+    reference step, plus TRAIN_ULPS of its magnitude, plus TRAIN_NOISE of the
+    largest change of its kind in the step: a tensor whose gradient nearly
+    cancels, or is zero in exact arithmetic (the bias of a BN that a conv
+    and a train-mode BN follow), moves by rounding alone. Also the update
+    of all tensors of the kind together, |got - ref|_2 / |ref - start|_2. A running mean's change can cancel to
+    nothing (a channel whose batch mean is ~0), so its bound adds
+    BOUND_BN_MEAN of the channel's scale sqrt(running_var) instead."""
+    def kind_of(k):
+        return k.rsplit(".", 1)[-1] if k.endswith(("running_mean", "running_var")) else "param"
+
+    floats = [k for k, r in ref.items() if torch.is_floating_point(r)]
+    change = {k: float((ref[k] - start[k]).abs().max()) for k in floats}
+    largest = {}
+    for k in floats:
+        largest[kind_of(k)] = max(largest.get(kind_of(k), 0.0), change[k])
+    worst, sq = {}, {}
+    for k in floats:
+        r, kind, d = ref[k], kind_of(k), change[k]
+        num, den = sq.get(kind, (0.0, 0.0))
+        sq[kind] = (num + float(((got[k] - r).double() ** 2).sum()),
+                    den + float(((r - start[k]).double() ** 2).sum()))
+        err = float((got[k] - r).abs().max())
+        bound = BOUND_TRAIN_UPDATE * d + TRAIN_NOISE * largest[kind]
+        if kind == "running_mean":
+            bound += BOUND_BN_MEAN * float(ref[k[:-len("mean")] + "var"].sqrt().max())
+        else:
+            bound += TRAIN_ULPS * float(r.abs().max())
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else float("inf"))
+        if ratio >= worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (ratio, k, err, d)
+    for kind, (num, den) in sq.items():
+        worst[kind] += ((num / den) ** 0.5 if den > 0 else 0.0,)
+    return worst
+
+
+def run_train_card_vs_cpu(torch, size: int = 512, batch: int = 2):
+    """Phase 8a: one optimizer step (accum_steps=2) of CABiNet-Large, 19
+    classes, f32, on the card and on the CPU from the same weights and
+    micro-batches, held against each other."""
+    import numpy as np
+
+    model = seeded_large(torch, N_CLASSES_TRAIN)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = [palette_batch(torch, np, batch, size, seed) for seed in (41, 42)]
+    t0 = time.perf_counter()
+    cpu = train_one_update(torch, sd, batches, "cpu", 2)
+    cpu_s = time.perf_counter() - t0
+    card = train_one_update(torch, sd, batches, DEVICE, 2)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    var_err = updates_err(torch, card[1], cpu[1], sd)
+    ema_err = updates_err(torch, card[2], cpu[2], sd)
+    say("train_step", part="card_vs_cpu", size=size, batch=batch, accum=2,
+        losses_card=card[0], losses_cpu=cpu[0], loss_rel_err=loss_err,
+        variables_err_over_bound=var_err, ema_err_over_bound=ema_err, cpu_seconds=cpu_s)
+    check(all(np.isfinite(card[0])), f"card losses {card[0]}")
+    check(loss_err <= BOUND_TRAIN_LOSS, f"train loss card/cpu rel err {loss_err}")
+    for what, worst in (("params/BN", var_err), ("EMA", ema_err)):
+        for kind, (ratio, key, err, d, norm) in worst.items():
+            check(ratio <= 1.0, f"{what} after the step: {key} err {err} (change {d}) "
+                  f"at {ratio} x the bound")
+            check(norm <= BOUND_TRAIN_NORM, f"{what} after the step: the {kind} update "
+                  f"differs by {norm} of its norm")
+    moved = [k for k in cpu[1] if k.endswith("running_var")
+             and not torch.equal(cpu[1][k], sd[k])]
+    check(len(moved) > 0, "train mode did not update the BN statistics")
+
+
+def run_train_full_width(torch, steps: int = 30, batch: int = 4, size: int = 1024):
+    """Phase 8b: CABiNet-Large, 19 classes, batch 4 at 1024^2, bf16 autocast,
+    attention="kernel" (runtime.use_pallas=true), warmup 0, lr0 5e-3: `steps`
+    steps on one fixed batch. The loss must fall, and K1 must not launch in
+    the steps (the step runs the einsum attention; K1 has no backward); the
+    val loss on the same weights launches it. Then the steps timed with the
+    port's BatchNorm and with torch's own (unbiased running variance), in
+    turns."""
+    import numpy as np
+    from torch import nn
+
+    from cabinet_tpu_torch.models.layers import BatchNorm2d
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+
+    model = seeded_large(torch, N_CLASSES_TRAIN, attention="kernel").to(DEVICE)
+    opt = GroupedSGD(model, lr0=5e-3, max_iter=steps, momentum=0.9, wd=5e-4,
+                     warmup_steps=0, max_grad_norm=1.0)
+    state = T.create_train_state(model, opt)
+    x, y = palette_batch(torch, np, batch, size, 43)
+    x, y = x.to(DEVICE), y.to(DEVICE)
+    n_min = batch * size * size // 16
+    step = T.make_train_step(n_min=n_min, compute_dtype=torch.bfloat16)
+    losses = []
+    warm = 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(steps):
+        if i == warm:
+            start.record()
+        losses.append(step(state, x, y)[1])
+        if i == steps - 1:
+            end.record()
+    torch.cuda.synchronize()
+    after = kernel_counts()
+    ms = start.elapsed_time(end) / (steps - warm)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    in_steps = {k: after[k] - before[k] for k in ("attention", "attention_f32")}
+    val = float(T.make_eval_loss_step(model, n_min, compute_dtype=torch.bfloat16)(x, y))
+    k1_eval = kernel_counts()["attention"] - after["attention"]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+
+    def timed(n: int = 5) -> float:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        step(state, x, y)
+        s.record()
+        for _ in range(n):
+            step(state, x, y)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / n
+
+    ours = BatchNorm2d.forward
+    bn_ms = {"port": [], "torch": []}
+    try:
+        for form in ("port", "torch", "torch", "port"):
+            BatchNorm2d.forward = ours if form == "port" else nn.BatchNorm2d.forward
+            bn_ms[form].append(timed())
+    finally:
+        BatchNorm2d.forward = ours
+    say("train_step", part="full_width", batch=batch, size=size, steps=steps,
+        dtype="bfloat16", loss_first5=first, loss_last5=last, losses=losses,
+        ms_per_step=ms, images_per_s=batch * 1e3 / ms, peak_allocated_gib=peak_gib,
+        k1_launches_in_steps=in_steps, val_loss=val, k1_launches_val_loss=k1_eval,
+        bn_ms_per_step=bn_ms)
+    check(all(np.isfinite(losses)) and np.isfinite(val), f"losses {losses}, val {val}")
+    check(last < first, f"the loss did not fall: first 5 {first}, last 5 {last}")
+    check(in_steps == {"attention": 0, "attention_f32": 0},
+          f"K1 launched inside the train steps: {in_steps}")
+    check(k1_eval > 0, "the val loss on attention='kernel' did not launch K1")
+    return {"ms_per_step": ms, "images_per_s": batch * 1e3 / ms,
+            "peak_allocated_gib": peak_gib, "bn_ms_per_step": bn_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: cli/train.py main over a split read from disk
+# ---------------------------------------------------------------------------
+
+TRAIN_MAIN_FRAMES, TRAIN_MAIN_VAL_FRAMES = 8, 2
+
+
+def augment_ms(np, root: Path, crop: int, n: int = 4) -> float:
+    """Host ms per augmented train sample (decode, the street recipe,
+    normalisation) of the split's frames, one thread."""
+    from cabinet_tpu_torch.data.datasets import CityScapes
+
+    ds = CityScapes(255, str(root), [crop, crop], mode="train")
+    t0 = time.perf_counter()
+    for i in range(n):
+        img, lb = ds[i % len(ds)]
+        check(img.shape == (crop, crop, 3) and lb.shape == (crop, crop),
+              f"augmented sample {img.shape} {lb.shape}")
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def run_train_main(torch, paths, tmp: Path, n_train: int = TRAIN_MAIN_FRAMES,
+                   n_val: int = TRAIN_MAIN_VAL_FRAMES, h: int = FRAME_H,
+                   w: int = FRAME_W, crop: int = EVAL_MAIN_CROP):
+    """Phase 9: `cli/train.py:main` as a user runs it, with dataset=cityscapes
+    on a split this script writes, configs/train.yaml as it is apart from
+    epochs=2, warmup_steps=2, the loader threads (8), log_iter=1 (2 batches
+    an epoch, under the default 20) and runtime.use_pallas=true; then a
+    resume to epoch 3, and the final EMA weights scored by evaluate main."""
+    import math
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.train import main as train_main
+    from cabinet_tpu_torch.train import trainer as trainer_mod
+
+    root, exp = tmp / "cityscapes", tmp / "experiment"
+    t0 = time.perf_counter()
+    write_city_split(np, root, n_train, h, w, seed=51, split="train")
+    write_city_split(np, root, n_val, h, w, seed=52, split="val")
+    say("train_main", part="split", train=n_train, val=n_val, size=f"{w}x{h}",
+        write_seconds=time.perf_counter() - t0)
+    argv = ["dataset=cityscapes", f"dataset.dataset_path={root}",
+            "training_config.epochs=2", "training_config.warmup_steps=2",
+            "training_config.num_workers=8", "validation_config.num_workers=8",
+            "training_config.log_iter=1", f"training_config.experiments_path={exp}",
+            "runtime.use_pallas=true"]
+    if crop != EVAL_MAIN_CROP:
+        argv.append(f"dataset.cropsize=[{crop},{crop}]")
+
+    inside = dict.fromkeys(_counters(), 0)
+    make_step = trainer_mod.make_train_step
+
+    def counting(*args, **kwargs):  # launches inside the train steps alone
+        step = make_step(*args, **kwargs)
+
+        def counted(state, images, labels):
+            before = kernel_counts()
+            out = step(state, images, labels)
+            for k, n in kernel_counts().items():
+                inside[k] += n - before[k]
+            return out
+        return counted
+
+    trainer_mod.make_train_step = counting
+    try:
+        res, main_s, _ = paths.drive("train_main", run_cli, train_main,
+                                     argv + ["--device", DEVICE], "train", 4)
+        counts = dict(paths.per_path["train_main"])
+        res2, resume_s, _ = paths.drive("train_main_resume", run_cli, train_main,
+                                        argv + ["training_config.resume=true",
+                                                "training_config.epochs=3", "--device", DEVICE],
+                                        "train", 4)
+    finally:
+        trainer_mod.make_train_step = make_step
+    lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()]
+    say("train_main", part="metrics", lines=lines)
+    check(len(lines) == 5, f"metrics.jsonl has {len(lines)} lines, expected 5")
+    check(lines[0].get("start_epoch") == 0 and lines[3].get("start_epoch") == 2,
+          f"run markers {lines[0]}, {lines[3]}")
+    for ln, epoch, step in ((lines[1], 0, 2), (lines[2], 1, 4), (lines[4], 2, 6)):
+        check(ln["epoch"] == epoch and ln["step"] == step, f"epoch line {ln}")
+        check(all(isinstance(ln[k], float) and math.isfinite(ln[k])
+                  for k in ("train_loss", "val_loss", "mIoU")), f"epoch line {ln}")
+    for f in ("checkpoint_last.pth", "cabinet_best.pth", "cabinet.pth", "config.yaml"):
+        check((exp / f).is_file(), f"train main wrote no {f}")
+    check(counts["attention"] > 0, f"train main: K1 never launched {counts}")
+    check(inside["attention"] == 0 and inside["attention_f32"] == 0,
+          f"K1 launched inside the train steps: {inside}")
+    check(all(math.isfinite(r["final"]["mIoU"]) for r in (res, res2)),
+          "final mIoU not finite")
+    timing = res["timing"]
+    check(timing["optimizer_steps"] == 4 and res2["timing"]["optimizer_steps"] == 2,
+          f"optimizer steps {timing['optimizer_steps']}, {res2['timing']['optimizer_steps']}")
+
+    scored, _, eval_s = paths.drive("train_main_evaluate", run_main, [
+        "dataset=cityscapes", f"dataset.dataset_path={root}",
+        f"checkpoint_path={exp / 'cabinet.pth'}", "runtime.compute_dtype=bfloat16",
+        "runtime.use_pallas=true", "--device", DEVICE])
+    check(0.0 <= scored["mIoU"] <= 1.0 and scored["timing"]["frames"] == n_val,
+          f"evaluate main on the trained weights: {scored['mIoU']}")
+    measured = {
+        "main_seconds": main_s, "resume_main_seconds": resume_s,
+        "loop_seconds_per_optimizer_step": timing["train_seconds"] / timing["optimizer_steps"],
+        "loader_wait_share": timing["loader_wait_seconds"] / timing["train_seconds"],
+        "loader_wait_seconds": timing["loader_wait_seconds"],
+        "eval_seconds": timing["eval_seconds"], "final_eval_seconds": timing["final_eval_seconds"],
+        "host_ms_per_augmented_frame": augment_ms(np, root, crop),
+        "launches_in_steps": inside, "launches": counts, "final_mIoU": res["final"]["mIoU"],
+        "evaluate_main_mIoU": scored["mIoU"], "evaluate_main_seconds": eval_s}
+    say("train_main", **measured)
+    return measured
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1189,6 +1545,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         measured = run_evaluate_main(torch, paths, Path(tmp))
     say("evaluate_main", card=smi, **measured)
+
+    run_train_card_vs_cpu(torch)
+    full = paths.drive("train_step_full_width", run_train_full_width, torch)
+    say("train_step", card=smi, **full)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = run_train_main(torch, paths, Path(tmp))
+    say("train_main", card=smi, main_seconds=trained["main_seconds"],
+        loop_seconds_per_optimizer_step=trained["loop_seconds_per_optimizer_step"],
+        loader_wait_share=trained["loader_wait_share"],
+        host_ms_per_augmented_frame=trained["host_ms_per_augmented_frame"])
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")

@@ -1,0 +1,148 @@
+"""The port's training CLI (cabinet_tpu_torch.cli.train) on the CPU, as a
+user runs it: `main` over a tiny UAVid-layout tree and a tiny
+Cityscapes-layout tree for 2 epochs, then a resume for a third; and one run
+in a process where JAX, Flax, optax, orbax, PyYAML, rich and tqdm cannot be
+imported."""
+
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from cabinet_tpu_torch.cli.common import CONFIG_DIR
+from cabinet_tpu_torch.core.config import compose
+
+REPO = Path(__file__).resolve().parent.parent
+TINY_MODEL = ["model=mobilenetv3_small",
+              "model.cfgs=[[3,1,16,1,0,2],[3,4.5,24,0,0,2],[5,4,40,1,1,2],[5,6,96,1,1,2]]"]
+CITY_IDS = np.array([0, 7, 8, 11, 12, 13, 21, 26], np.uint8)
+
+
+def make_uavid_tree(root, n=4, size=(40, 48), seed=0):
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "masks" / split).mkdir(parents=True)
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 255, (*size, 3), dtype=np.uint8)).save(
+                root / "images" / split / f"s{i}.png")
+            Image.fromarray(rng.integers(0, 8, size, dtype=np.uint8), "L").save(
+                root / "masks" / split / f"s{i}.png")
+    return root
+
+
+def make_city_tree(root, n=2, size=(32, 64), seed=1):
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        for city in ("aachen", "bremen"):
+            (root / "leftImg8bit" / split / city).mkdir(parents=True)
+            (root / "gtFine" / split / city).mkdir(parents=True)
+            for i in range(n):
+                base = f"{city}_{i:06d}_000019"
+                Image.fromarray(rng.integers(0, 255, (*size, 3), dtype=np.uint8)).save(
+                    root / "leftImg8bit" / split / city / f"{base}_leftImg8bit.png")
+                Image.fromarray(rng.choice(CITY_IDS, size), "L").save(
+                    root / "gtFine" / split / city / f"{base}_gtFine_labelIds.png")
+    return root
+
+
+def overrides(name, data, exp, crop=32, epochs=2):
+    return TINY_MODEL + [
+        f"dataset={name}", f"dataset.dataset_path={data}", f"dataset.cropsize=[{crop},{crop}]",
+        "training_config.batch_size=2", "training_config.num_workers=0",
+        f"training_config.epochs={epochs}", "training_config.warmup_steps=1",
+        "training_config.cls_pw=0.5", "training_config.patience=0", "training_config.log_iter=1",
+        f"training_config.experiments_path={exp}", "training_config.model_save_name=tiny",
+        "validation_config.batch_size=1", "validation_config.num_workers=0",
+        "validation_config.eval_scales=[1.0]", "validation_config.flip=false",
+        "runtime.compute_dtype=float32"]
+
+
+def _epochs(exp):
+    lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()]
+    return lines
+
+
+@pytest.mark.parametrize("name", ["uavid", "cityscapes"])
+def test_train_main_two_epochs_then_resume(tmp_path, name):
+    from cabinet_tpu_torch.cli.train import main
+
+    data = (make_uavid_tree if name == "uavid" else make_city_tree)(tmp_path / "data")
+    exp = tmp_path / "exp"
+    args = overrides(name, data, exp)
+    res = main(args + ["--device", "cpu"])
+    lines = _epochs(exp)
+    assert len(lines) == 3 and lines[0] == {"run_start": lines[0]["run_start"], "start_epoch": 0}
+    steps_per_epoch = 2  # 4 train frames, batch 2, accum 1
+    for e, ln in enumerate(lines[1:]):
+        assert ln["run"] == lines[0]["run_start"] and ln["epoch"] == e
+        assert ln["step"] == steps_per_epoch * (e + 1)
+        assert np.isfinite(ln["train_loss"]) and np.isfinite(ln["val_loss"])
+        assert 0.0 <= ln["mIoU"] <= 1.0
+    for f in ("checkpoint_last.pth", "checkpoint_last.meta.json", "tiny_best.pth",
+              "tiny.pth", "config.yaml"):
+        assert (exp / f).is_file(), f
+    assert np.isfinite(res["final"]["mIoU"]) and res["timing"]["optimizer_steps"] == 4
+    # config.yaml composes back to the tree that trained
+    saved = compose(exp, "config", [])
+    assert saved.to_dict() == compose(CONFIG_DIR, "train", args).to_dict(resolve=True)
+
+    res2 = main(args + ["training_config.resume=true", "training_config.epochs=3",
+                        "--device", "cpu"])
+    lines = _epochs(exp)
+    assert len(lines) == 5 and lines[3] == {"run_start": lines[3]["run_start"],
+                                            "start_epoch": 2}
+    assert lines[4]["epoch"] == 2 and lines[4]["step"] == 6
+    assert res2["timing"]["optimizer_steps"] == 2
+
+
+def test_train_main_refuses_what_is_not_ported(tmp_path):
+    from cabinet_tpu_torch.cli.train import main
+
+    data = make_uavid_tree(tmp_path / "data", n=2)
+    base = overrides("uavid", data, tmp_path / "exp")
+    for extra, item in (("runtime.pipeline=2", "Queue 1 item 7"),
+                        ("runtime.model_axis=2", "Queue 1 item 7"),
+                        ("runtime.spatial_axis=true", "Queue 1 item 7"),
+                        ("runtime.device_augs=true", "Queue 1 item 3"),
+                        ("runtime.device_geometric=true", "Queue 1 item 3"),
+                        ("runtime.remat=true", "item 2"),
+                        ("runtime.loader=grain", "Queue 1 item 8")):
+        with pytest.raises(NotImplementedError, match=item):
+            main(base + [extra, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        main(["--legacy-config", "old.json", "--device", "cpu"])
+
+
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "rich", "tqdm")
+
+_NO_JAX_RUN = textwrap.dedent("""
+    import json, sys
+    for m in {blocked!r}:
+        sys.modules[m] = None          # import m now raises ImportError
+    from cabinet_tpu_torch.cli.train import main
+    res = main(json.loads(sys.argv[1]) + ["--device", "cpu"])
+    bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+                 and m.split(".")[0] in {blocked!r})
+    assert not bad, bad
+    print("NO-JAX-TRAIN OK", res["timing"]["optimizer_steps"])
+""")
+
+
+def test_train_main_needs_no_jax_yaml_or_rich(tmp_path):
+    """With JAX, Flax, optax, orbax, PyYAML, rich and tqdm blocked (PIL is
+    allowed: the train recipe is PIL's), main trains 2 epochs."""
+    data = make_uavid_tree(tmp_path / "data")
+    args = overrides("uavid", data, tmp_path / "exp")
+    res = subprocess.run([sys.executable, "-c", _NO_JAX_RUN.format(blocked=_BLOCKED),
+                          json.dumps(args)], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "NO-JAX-TRAIN OK 4" in res.stdout
+    assert set(json.loads(res.stdout.strip().splitlines()[-2])) == {
+        "best_miou", "mIoU", "accuracy"}

@@ -486,3 +486,40 @@ def test_staged_evaluate_on_cuda_equals_the_serial_sum(gen):
     with pytest.raises(OSError, match="disk went away"):
         ev.evaluate(None, failing())
     assert not [t for t in threading.enumerate() if t.name == "MscEval-stage"]
+
+
+def test_kernel_wrappers_refuse_autograd_on_cuda(gen):
+    """On CUDA tensors too, each wrapper (K1, K2+K3, K4) raises under
+    autograd on an input that requires grad, before launching anything,
+    and launches under no_grad."""
+    from cabinet_tpu_torch.ops import early_stage as es
+
+    q, k, v = _qkv(gen, 1, 64, 32, 32)
+    bf = torch.bfloat16
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    folded = {"w1_sp": r(128, 256, dtype=bf), "w1_cp": r(256, 256, dtype=bf),
+              "b1": r(256), "w_se1": r(256, 64), "w_se2": r(64, 256),
+              "w3": r(9, 256, 256, dtype=bf), "b3": r(256), "wc": r(256, 16, dtype=bf),
+              "n_classes": 8}
+    calls = [
+        (attn.fused_global_attention, "launches",
+         lambda x: attn.fused_global_attention(x, k, v), q),
+        (dt.ffm_pointwise, "launches",
+         lambda x: dt.fused_ffm_head(x, r(1, 8, 8, 256, dtype=bf), folded),
+         r(1, 8, 8, 128, dtype=bf)),
+        (es.fused_stem_block0, "launches",
+         lambda x: es.fused_stem_block0(x, r(16, 27), r(16), r(3, 3, 16), r(16),
+                                        r(16, 16), r(16)), r(1, 8, 8, 3)),
+    ]
+    for fn, attr, call, x in calls:
+        before = getattr(fn, attr)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(x.clone().requires_grad_())
+        assert getattr(fn, attr) == before
+        with torch.no_grad():
+            out = call(x.clone().requires_grad_())
+        torch.cuda.synchronize()
+        assert getattr(fn, attr) == before + 1 and out.grad_fn is None

@@ -68,12 +68,12 @@ def _make_city_tree(root, splits, n=2, mask_mode="L", seed=1):
 def trees(tmp_path_factory):
     base = tmp_path_factory.mktemp("datasets")
     return {
-        "uavid": _make_folder_tree(base / "uavid", ".png", ("val", "test"), mask_mode="P",
-                                   sizes=[(H, W), (H + 4, W), (H, W + 6)]),
+        "uavid": _make_folder_tree(base / "uavid", ".png", ("val", "test", "train"),
+                                   mask_mode="P", sizes=[(H, W), (H + 4, W), (H, W + 6)]),
         "aeroscapes": _make_folder_tree(base / "aeroscapes", ".jpg", ("val",), seed=2),
         "vdd": _make_folder_tree(base / "vdd", ".jpg", ("val", "test"), mask_mode="P",
                                  seed=3),
-        "cityscapes": _make_city_tree(base / "cityscapes", ("val", "test")),
+        "cityscapes": _make_city_tree(base / "cityscapes", ("val", "test", "train")),
         "cityscapes_p": _make_city_tree(base / "cityscapes_p", ("val",), mask_mode="P"),
     }
 
@@ -81,33 +81,74 @@ def trees(tmp_path_factory):
 CASES = [("uavid", "uavid", "val"), ("uavid", "uavid", "test"),
          ("aeroscapes", "aeroscapes", "val"), ("vdd", "vdd", "val"),
          ("vdd", "vdd", "test"), ("cityscapes", "cityscapes", "val"),
-         ("cityscapes", "cityscapes", "test"), ("cityscapes", "cityscapes_p", "val")]
+         ("cityscapes", "cityscapes", "test"), ("cityscapes", "cityscapes_p", "val"),
+         ("uavid", "uavid", "train"), ("cityscapes", "cityscapes", "train")]
 
 
 @pytest.mark.parametrize("name,tree,mode", CASES, ids=[f"{t}-{m}" for _, t, m in CASES])
 def test_getitem_matches_jax(trees, name, tree, mode):
     """Image float32 bit for bit, label int64; the kwargs built from the
-    same config by both packages' DATASET_KWARGS_BUILDERS (the port's are
-    the JAX package's minus those only train mode reads)."""
-    cfg_args = ["checkpoint_path=x", f"dataset={name}",
-                f"dataset.dataset_path={trees[tree]}"]
+    same config by both packages' DATASET_KWARGS_BUILDERS are equal. Train
+    mode (16x16 crops; UAVid with mixup forced on, so that every sample
+    blends two) at epochs 0 and 1, which draw different samples."""
+    cfg_args = [f"dataset={name}", f"dataset.dataset_path={trees[tree]}"]
+    config = "evaluate"
+    if mode == "train":
+        config = "train"
+        cfg_args.append("dataset.cropsize=[16,16]")
+        if name == "uavid":
+            cfg_args.append("dataset.augmentation.mixup=1.0")
+    else:
+        cfg_args.append("checkpoint_path=x")
     kw = tds.DATASET_KWARGS_BUILDERS[name](
-        compose(jcommon.CONFIG_DIR, "evaluate", cfg_args), mode)
+        compose(jcommon.CONFIG_DIR, config, cfg_args), mode)
     jkw = jds.DATASET_KWARGS_BUILDERS[name](
-        jcompose(jcommon.CONFIG_DIR, "evaluate", cfg_args), mode)
-    assert kw == {k: jkw[k] for k in kw}
+        jcompose(jcommon.CONFIG_DIR, config, cfg_args), mode)
+    assert kw == jkw
     ours = tds.DATASET_REGISTRY[name](**kw)
     ref = jds.DATASET_REGISTRY[name](**jkw)
     assert [s for s in ours.samples] == [s for s in ref.samples]
     assert len(ours) == len(ref) > 0
-    for i in range(len(ref)):
-        (img, lb), (rimg, rlb) = ours[i], ref[i]
-        assert img.dtype == rimg.dtype == np.float32
-        assert lb.dtype == rlb.dtype == np.int64
-        np.testing.assert_array_equal(img, rimg)
-        np.testing.assert_array_equal(lb, rlb)
+    epochs = (0, 1) if mode == "train" else (0,)
+    firsts = []
+    for epoch in epochs:
+        if mode == "train":
+            ours.set_epoch(epoch)
+            ref.set_epoch(epoch)
+        for i in range(len(ref)):
+            (img, lb), (rimg, rlb) = ours[i], ref[i]
+            assert img.dtype == rimg.dtype == np.float32
+            assert lb.dtype == rlb.dtype == np.int64
+            np.testing.assert_array_equal(img, rimg)
+            np.testing.assert_array_equal(lb, rlb)
+        firsts.append(ours[0][0])
+        if mode == "train":
+            assert img.shape == (16, 16, 3) and lb.shape == (16, 16)
+    if mode == "train":
+        assert not np.array_equal(firsts[0], firsts[1])
+        assert ours.mixup_p == (1.0 if name == "uavid" else 0.0)
     if name == "cityscapes":
         assert set(np.unique(lb)) <= set(range(19)) | {255}
+
+
+@pytest.mark.parametrize("cls_pw", [0.0, 0.5, 1.2])
+def test_class_weights_match_jax(trees, cls_pw):
+    """get_class_pixel_counts over the augmented train samples and the ENet
+    weights of compute_class_weights equal the JAX package's."""
+    from cabinet_tpu.data import class_weights as jcw
+    from cabinet_tpu_torch.data import class_weights as tcw
+
+    ours = tds.CityScapes(255, str(trees["cityscapes"]), [16, 16], mode="train")
+    ref = jds.CityScapes(255, str(trees["cityscapes"]), [16, 16], mode="train")
+    counts = tcw.get_class_pixel_counts(ours, 19, 255)
+    ref_counts = jcw.get_class_pixel_counts(ref, 19, 255)
+    np.testing.assert_array_equal(counts, ref_counts)
+    assert counts.sum() > 0
+    w, rw = tcw.compute_class_weights(counts, cls_pw), jcw.compute_class_weights(ref_counts, cls_pw)
+    assert w.dtype == rw.dtype == np.float32
+    np.testing.assert_array_equal(w, rw)
+    np.testing.assert_array_equal(tcw.get_class_pixel_counts(ours, 19, 255, max_samples=1),
+                                  jcw.get_class_pixel_counts(ref, 19, 255, max_samples=1))
 
 
 def test_stats_and_flags_match_jax():
@@ -194,9 +235,20 @@ def test_error_paths_match_jax(trees, tmp_path):
     _raises_both(lambda: tds.UAVid(255, str(trees["uavid"]), [16, 16], mode="eval"),
                  lambda: jds.UAVid(255, str(trees["uavid"]), [16, 16], mode="eval"),
                  ValueError, ValueError)
-    # train mode waits for training
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tds.UAVid(255, str(trees["uavid"]), [16, 16], mode="train")
+    # the device augmentation pipeline waits for its item
+    root = str(trees["uavid"])
+    for kwargs in (dict(photometric="device"), dict(photometric="device", geometric="device"),
+                   dict(decode_cache=str(tmp_path / "cache"))):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            tds.UAVid(255, root, [16, 16], mode="train", **kwargs)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            tds.CityScapes(255, str(trees["cityscapes"]), [16, 16], mode="train", **kwargs)
+    # where the JAX package refuses a combination, so does the port
+    for kwargs in (dict(geometric="device"), dict(reduced_decode=True),
+                   dict(photometric="gpu")):
+        _raises_both(lambda: tds.UAVid(255, root, [16, 16], mode="train", **kwargs),
+                     lambda: jds.UAVid(255, root, [16, 16], mode="train", **kwargs),
+                     ValueError, ValueError)
 
 
 @pytest.mark.parametrize("name,batch,ok", [("uavid", 2, False), ("uavid", 1, True),

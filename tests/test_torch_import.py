@@ -23,7 +23,13 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cabinet_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 18, names
+assert len(names) >= 42, names
+required = {"cabinet_tpu_torch." + m for m in (
+    "cli.train", "cli.common", "core.logging", "core.config", "core.yaml_subset",
+    "data.transforms", "data.class_weights", "data.datasets", "train",
+    "train.losses", "train.optimizer", "train.ema", "train.early_stopping",
+    "train.trainer", "train.checkpoint")}
+assert required <= set(names), sorted(required - set(names))
 """
 
 
@@ -57,7 +63,7 @@ def test_no_kernel_build_at_import():
 
 @pytest.mark.parametrize("entry", ["segmenter", "fused_tail", "fused_apply",
                                    "msc_eval", "eval_forward", "evaluate_main",
-                                   "resolve_device"])
+                                   "resolve_device", "train_main", "train_and_evaluate"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without device="cpu" the entry points ask for CUDA, and raise where
     there is none instead of running on the CPU."""
@@ -65,7 +71,11 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         pytest.skip("a CUDA device is present; the default runs there")
     from cabinet_tpu_torch.cli.evaluate import main as evaluate_main
     from cabinet_tpu_torch.cli.evaluate import make_eval_forward
+    from cabinet_tpu_torch.cli.common import CONFIG_DIR
     from cabinet_tpu_torch.cli.infer import Segmenter
+    from cabinet_tpu_torch.cli.train import main as train_main
+    from cabinet_tpu_torch.cli.train import train_and_evaluate
+    from cabinet_tpu_torch.core.config import compose
     from cabinet_tpu_torch.core.device import resolve_device
     from cabinet_tpu_torch.eval.evaluator import MscEval
     from cabinet_tpu_torch.models.cabinet import CABiNet
@@ -85,5 +95,10 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         elif entry == "evaluate_main":
             evaluate_main([f"checkpoint_path={tmp_path / 'unused.pth'}",
                            f"dataset.dataset_path={tmp_path}"])
+        elif entry == "train_main":
+            train_main([f"dataset.dataset_path={tmp_path}"])
+        elif entry == "train_and_evaluate":
+            train_and_evaluate(compose(CONFIG_DIR, "train",
+                                       [f"dataset.dataset_path={tmp_path}"]))
         else:
             resolve_device()

@@ -80,3 +80,62 @@ def load_large_fixture():
         tuple(k.split("/")): v.astype(np.float32) if v.dtype == np.float16 else v
         for k, v in flat.items()})
     return flat, nested
+
+
+def jax_tree_from_state_dict(sd, cfgs):
+    """The inverse of the weight bridge: the port's state dict (tensors or
+    arrays) -> nested JAX variables {"params", "batch_stats"} of numpy
+    arrays, through the port's copy of the key table."""
+    from cabinet_tpu_torch.utils.convert import BN, CONV, LINEAR, cabinet_mapping
+
+    tree = {"params": {}, "batch_stats": {}}
+
+    def put(coll, path, value):
+        node = tree[coll]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.asarray(value.detach().cpu() if hasattr(value, "detach")
+                                    else value)
+
+    for torch_key, flax_path, kind in cabinet_mapping(cfgs):
+        if kind == BN:
+            if f"{torch_key}.weight" in sd:
+                put("params", flax_path + ("scale",), sd[f"{torch_key}.weight"])
+                put("params", flax_path + ("bias",), sd[f"{torch_key}.bias"])
+            if f"{torch_key}.running_mean" in sd:
+                put("batch_stats", flax_path + ("mean",), sd[f"{torch_key}.running_mean"])
+                put("batch_stats", flax_path + ("var",), sd[f"{torch_key}.running_var"])
+            continue
+        t = sd[torch_key]
+        t = t.detach().cpu() if hasattr(t, "detach") else torch.from_numpy(np.asarray(t))
+        if kind == CONV:
+            t = t.permute(2, 3, 1, 0)
+        elif kind == LINEAR:
+            t = t.t()
+        put("params", flax_path, t.contiguous())
+    return tree
+
+
+def assert_updates_close(got, ref, start, rel, ulps=2.0 ** -21):
+    """Every float tensor of `got` within rel * max|ref - start| + ulps *
+    max|ref| of `ref` (state dicts keyed alike). The second term is a few
+    f32 ulps of the tensor's magnitude (2^-21 is 4 ulps at 2^-23 each): a
+    parameter moved by much less than its magnitude is rounded at every
+    step, and a tensor whose update is zero in exact arithmetic (the bias of
+    a BN that a 1x1 conv and a train-mode BN follow) moves by rounding alone.
+    Returns the largest ratio of error to bound."""
+    worst, where = 0.0, None
+    for k, r in ref.items():
+        r = torch.as_tensor(r)
+        if not torch.is_floating_point(r):
+            continue
+        r = r.float()
+        g = torch.as_tensor(got[k]).float()
+        d = (r - torch.as_tensor(start[k]).float()).abs().max().item()
+        err = (g - r).abs().max().item()
+        bound = rel * d + ulps * r.abs().max().item()
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else float("inf"))
+        if ratio > worst:
+            worst, where = ratio, (k, err, d)
+    assert worst <= 1.0, f"{where}: error {worst:.3g} x its bound"
+    return worst
