@@ -62,15 +62,32 @@ def compute_dtype_of(cfg: Config) -> torch.dtype:
     return _DTYPES[name]
 
 
+def remat_of(cfg: Config) -> Any:
+    """`runtime.remat`: false | true (every backbone block) | int N (the first
+    N blocks). A bool() here would turn N into every block."""
+    v = cfg.select("runtime.remat", False)
+    if isinstance(v, (bool, int)):
+        return v
+    s = str(v).strip().lower()
+    if s in ("true", "false"):
+        return s == "true"
+    try:
+        return int(s)
+    except ValueError:
+        raise ConfigurationError(
+            f"runtime.remat must be true|false|<int N>, got {v!r}") from None
+
+
 def build_model(cfg: Config, n_classes: int):
     """CABiNet from `model.mode` and `model.cfgs`; `runtime.use_pallas`
-    picks the attention kernel K1 for the CAB, else its einsum path."""
+    picks the attention kernel K1 for the CAB, else its einsum path;
+    `runtime.remat` the backbone blocks rematerialised in training."""
     from cabinet_tpu_torch.models.cabinet import CABiNet
 
     return CABiNet(n_classes, mode=cfg.model.mode,
                    cfgs=[list(row) for row in cfg.model.cfgs],
                    attention="kernel" if bool(cfg.select("runtime.use_pallas", False))
-                   else "einsum")
+                   else "einsum", remat=remat_of(cfg))
 
 
 def build_datasets(cfg: Config, modes: Sequence[str]) -> List[Any]:

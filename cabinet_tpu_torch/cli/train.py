@@ -25,11 +25,19 @@ step runs the CAB's einsum attention). Each evaluation runs the model's
 forward (no fused tail) on a copy of the EMA weights, cast to the compute
 dtype: the f32 master weights are never cast.
 
+Device augmentation (`DeviceAugment`): with `runtime.device_augs=true` the
+train loader ships the host recipe's geometric crops raw, and the
+photometric chain (and the aerial mixup) runs on the training device; with
+`runtime.device_geometric=true|shared` the loader ships u8 canvases and the
+warp runs there too (`shared`: one rotation and scale a batch). The chain
+is the dataset's `RECIPE`'s, aerial or street. `runtime.reduced_decode` and
+`runtime.decode_cache` act on the canvas path. `runtime.remat=true|N`
+rematerialises backbone blocks in the backward.
+
 Not ported, each raising with the ROADMAP item it waits for:
 `runtime.pipeline`, `runtime.model_axis > 1`, `runtime.spatial_axis`,
-multi-process training (Queue 1 item 7), `runtime.device_augs` and
-`runtime.device_geometric` (item 3), `runtime.loader=grain` and
-`--legacy-config` (item 8), `runtime.remat` (item 2's leftovers).
+multi-process training (Queue 1 item 7), `runtime.loader=grain` and
+`--legacy-config` (item 8).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import math
 import os
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ import torch
 from cabinet_tpu_torch.cli import common
 from cabinet_tpu_torch.core.config import Config, save_config, to_yaml
 from cabinet_tpu_torch.core.device import resolve_device
+from cabinet_tpu_torch.core.exceptions import ConfigurationError
 from cabinet_tpu_torch.core.logging import is_primary_process, setup_logger
 
 
@@ -64,16 +73,98 @@ def refuse_unported(cfg: Config) -> None:
          or (torch.distributed.is_available() and torch.distributed.is_initialized()
              and torch.distributed.get_world_size() > 1),
          "multi-process training", "Queue 1 item 7"),
-        (bool(cfg.select("runtime.device_augs", False)),
-         "runtime.device_augs (device photometric augmentation)", "Queue 1 item 3"),
-        (bool(cfg.select("runtime.device_geometric", False)),
-         "runtime.device_geometric (device geometric augmentation)", "Queue 1 item 3"),
-        (str(cfg.select("runtime.remat", False)).lower() not in ("false", "0", "none"),
-         "runtime.remat (rematerialised backbone blocks)", "Queue 1 item 2's leftovers"),
     ]
     for on, what, item in checks:
         if on:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class DeviceAugment:
+    """The train recipe's device side for `ds_train`'s batches: the warp
+    (`runtime.device_geometric`) and the photometric chain of its `RECIPE`,
+    then the normalisation, on `device`.
+
+    The draws for a batch come from `(runtime.seed + 1, step, micro_step)`:
+    every per-sample parameter from a numpy Generator on the host, the
+    noise from a torch Generator on `device`. So a resume redraws what the
+    uninterrupted run drew, no draw waits on the device, and two
+    micro-batches of one accumulation window draw apart (the JAX package
+    keys on the step alone)."""
+
+    def __init__(self, cfg: Config, ds_train: Any, device: torch.device,
+                 crop_hw: Tuple[int, int]):
+        self.geometric = getattr(ds_train, "geometric", "host") == "device"
+        self.shared = str(cfg.select("runtime.device_geometric", False)).lower() == "shared"
+        self.street = getattr(ds_train, "RECIPE", "aerial") == "street"
+        self.aug = dict(ds_train.aug)
+        self.mean, self.std = ds_train.MEAN, ds_train.STD
+        self.crop_hw = crop_hw
+        self.ignore_label = int(cfg.dataset.ignore_idx)
+        self.seed = int(cfg.runtime.seed) + 1
+        self.device = device
+        self.noise = torch.Generator(device=device)
+
+    def draws(self, step: int, micro_step: int) -> np.random.Generator:
+        """The host Generator of a batch; seeds the noise Generator too."""
+        key = [self.seed, int(step), int(micro_step)]
+        self.noise.manual_seed(int(np.random.SeedSequence(key).generate_state(1)[0]))
+        return np.random.default_rng(key)
+
+    def __call__(self, batch, step: int, micro_step: int):
+        """(normalised images (B, Hc, Wc, 3) f32, labels int64) on the
+        device, from a loader batch: (canvas u8, label canvas u8, (h, w)) or
+        (raw images, labels)."""
+        from cabinet_tpu_torch.ops import geometric as G
+        from cabinet_tpu_torch.ops import photometric as P
+
+        rng = self.draws(step, micro_step)
+        staged = [torch.from_numpy(a).to(self.device, non_blocking=True) for a in batch[:2]]
+        if self.geometric:
+            images, labels = G.geometric_pipeline(*staged, batch[2], rng, self.aug,
+                                                  self.crop_hw, self.ignore_label,
+                                                  shared_linear=self.shared)
+        else:
+            images, labels = staged
+        B, H, W = images.shape[:3]
+        if self.street:
+            params, chain = (P.sample_street_photometric(rng, B, H, W),
+                             P.street_photometric_pipeline)
+        else:
+            params, chain = P.sample_photometric(rng, B, H, W, self.aug), P.photometric_pipeline
+        z = torch.randn(images.shape, generator=self.noise, device=self.device)
+        return chain(images, labels, P.params_to_device(params, self.device), z,
+                     self.mean, self.std)
+
+
+class _DeviceClock:
+    """Seconds of device work between start() and stop(): CUDA events on a
+    CUDA device (summed in seconds(), after the caller's synchronize), the
+    host clock on the CPU, whose ops are synchronous."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.events: List[Any] = []
+        self.total = 0.0
+
+    def start(self) -> Any:
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def stop(self, started: Any) -> None:
+        if not self.cuda:
+            self.total += time.perf_counter() - started
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((started, ev))
+
+    def seconds(self) -> float:
+        self.total += sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+        self.events = []
+        return self.total
 
 
 def _metrics_line(path: Path, record: Dict[str, Any]) -> None:
@@ -85,9 +176,10 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                        ) -> Dict[str, Any]:
     """Train `cfg` on one device and return {"best_miou", "final" (the
     final multi-scale eval's result), "timing"}. `timing` holds the
-    training loops' seconds and the part of them spent waiting on the train
-    loader, the micro-steps and optimizer steps this call took, and the
-    seconds of the val losses and evaluations."""
+    training loops' seconds, the part of them spent waiting on the train
+    loader and the seconds of device augmentation in them, the micro-steps
+    and optimizer steps this call took, and the seconds of the val losses
+    and evaluations."""
     from cabinet_tpu_torch.cli.evaluate import make_eval_forward
     from cabinet_tpu_torch.core.constants import OHEM_DIVISOR
     from cabinet_tpu_torch.data.class_weights import (
@@ -106,6 +198,12 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         make_train_step,
     )
 
+    if (bool(cfg.select("runtime.device_geometric", False))
+            and bool(cfg.select("runtime.spatial_axis", False))):
+        raise ConfigurationError(
+            "runtime.device_geometric shards the batch; it cannot combine "
+            "with runtime.spatial_axis (the warp gathers across the full "
+            "image height). Use the host pipeline for spatial partitioning.")
     refuse_unported(cfg)
     device = resolve_device(device)
     tc, vc = cfg.training_config, cfg.validation_config
@@ -204,6 +302,10 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         return (torch.from_numpy(images).to(device, non_blocking=True),
                 torch.from_numpy(labels).to(device, non_blocking=True))
 
+    augment = (DeviceAugment(cfg, ds_train, device, (crop_h, crop_w))
+               if getattr(ds_train, "photometric", "host") == "device" else None)
+    aug_clock = _DeviceClock(device)
+
     # metrics.jsonl: resumed runs append to the same file, so every run opens
     # with a marker line and tags its epoch lines with its id.
     write_metrics = is_primary_process()
@@ -212,8 +314,9 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     if write_metrics:
         _metrics_line(metrics_path, {"run_start": run_id, "start_epoch": start_epoch})
 
-    timing = {"train_seconds": 0.0, "loader_wait_seconds": 0.0, "micro_steps": 0,
-              "optimizer_steps": 0, "eval_seconds": 0.0}
+    timing = {"train_seconds": 0.0, "loader_wait_seconds": 0.0,
+              "device_aug_seconds": 0.0, "micro_steps": 0, "optimizer_steps": 0,
+              "eval_seconds": 0.0}
     step0 = state.step
     results: Dict[str, Any] = {"best_miou": best_miou}
     try:
@@ -229,7 +332,13 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                 timing["loader_wait_seconds"] += time.perf_counter() - tw
                 if batch is None:
                     break
-                state, last_loss = train_step(state, *to_device(*batch))
+                if augment is None:
+                    images, labels = to_device(*batch)
+                else:
+                    started = aug_clock.start()
+                    images, labels = augment(batch, state.step, state.micro_step)
+                    aug_clock.stop(started)
+                state, last_loss = train_step(state, images, labels)
                 i += 1
                 if i % int(tc.log_iter) == 0:
                     losses.append(float(last_loss))
@@ -240,6 +349,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             timing["train_seconds"] += time.perf_counter() - tl
+            timing["device_aug_seconds"] = aug_clock.seconds()
 
             te = time.perf_counter()
             val_losses = [float(eval_loss_step(*to_device(im, lb))) for im, lb in dl_val]

@@ -19,16 +19,32 @@ label of the larger share, uavid.py:253-271), or Cityscapes' street one
 (flip -> discrete scale -> crop(pad) -> colour jitter -> grayscale ->
 gamma -> noise -> cutout). Randomness comes from
 `default_rng([seed, epoch, idx])`, so equal seeds and epochs give equal
-samples, bit for bit those of the JAX package. The device pipeline
-(`photometric="device"`, `geometric="device"`, `reduced_decode`,
-`decode_cache`) raises: it waits for ROADMAP Queue 1 item 3.
+samples, bit for bit those of the JAX package.
+
+The device pipeline (train mode; `cli.train` runs the rest on the device
+through `ops.photometric` and `ops.geometric`):
+  - `photometric="device"`: the host keeps the recipe's geometric ops and
+    returns raw [0, 1] images, with no mixup;
+  - `geometric="device"` (needs `photometric="device"`): the host only
+    decodes, `ResizeIfLarger(fast=True)`s to the canvas and copies into a
+    fixed S x S canvas, S = 2 max(cropsize) (the street recipe:
+    max(2 max(cropsize), native), since it never resizes), and returns
+    (u8 (S, S, 3), u8 (S, S) ignore-filled outside the frame, int32 (h, w));
+  - `reduced_decode`: JPEG frames decode reduced in the DCT on that path;
+  - `decode_cache`: a directory where each canvas triple is kept as an
+    `.npz` (written atomically, keyed as the JAX package keys it), so warm
+    epochs skip the decode.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import os.path as osp
+import threading
 import warnings
+import zipfile
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,9 +81,8 @@ def _check_mode(mode: str) -> None:
 
 
 def _check_pipeline(mode: str, ignore_lb: int, photometric: str, geometric: str,
-                    reduced_decode: bool, decode_cache: Optional[str]) -> None:
-    """The JAX package's checks of the pipeline knobs, then a raise for the
-    device pipeline, which is not ported."""
+                    reduced_decode: bool) -> None:
+    """The JAX package's checks of the pipeline knobs."""
     if photometric not in ("host", "device"):
         raise ValueError(f"photometric must be host|device, got {photometric}")
     if geometric not in ("host", "device"):
@@ -83,17 +98,6 @@ def _check_pipeline(mode: str, ignore_lb: int, photometric: str, geometric: str,
             "reduced_decode requires geometric='device' "
             "(runtime.device_geometric): the exact-recipe host path "
             "keeps full-resolution reference decode semantics")
-    if mode == "train":
-        for name, on in (("photometric='device'", photometric == "device"),
-                         ("geometric='device'", geometric == "device"),
-                         ("reduced_decode", reduced_decode),
-                         ("decode_cache", bool(decode_cache))):
-            if on:
-                raise NotImplementedError(
-                    f"{name} belongs to the device augmentation pipeline, not "
-                    f"ported yet (ROADMAP Queue 1 item 3); train with the host "
-                    f"recipe (runtime.device_augs=false, "
-                    f"runtime.device_geometric=false)")
 
 
 class FolderSegDataset:
@@ -106,6 +110,7 @@ class FolderSegDataset:
     IMG_EXT = ".png"
     SPLITS = ("train", "val", "test")
     UNIFORM_RESOLUTION = False  # True => val/test may batch >1
+    RECIPE = "aerial"  # picks the device photometric chain in cli.train
 
     def __init__(
         self,
@@ -126,8 +131,7 @@ class FolderSegDataset:
             raise DatasetError(f"{self.NAME} has no '{mode}' split")
         if not osp.exists(rootpth):
             raise FileNotFoundError(f"Dataset root does not exist: {rootpth}")
-        _check_pipeline(mode, ignore_lb, photometric, geometric, reduced_decode,
-                        decode_cache)
+        _check_pipeline(mode, ignore_lb, photometric, geometric, reduced_decode)
         self.mode = mode
         self.ignore_lb = ignore_lb
         self.rootpth = rootpth
@@ -136,9 +140,35 @@ class FolderSegDataset:
         self.seed = seed
         self.epoch = 0
         self.decoder = decode.check_decoder(decoder)
+        self._set_pipeline(mode, photometric, geometric, reduced_decode, decode_cache)
         self.samples = self._pairs(rootpth, mode)
-        self.trans_train = self._build_train_transforms() if mode == "train" else None
-        self.mixup_p = float(self.aug["mixup"]) if mode == "train" else 0.0
+        self._set_transforms(mode)
+        self.mixup_p = (float(self.aug["mixup"])
+                        if mode == "train" and photometric == "host" else 0.0)
+
+    def _set_pipeline(self, mode: str, photometric: str, geometric: str,
+                      reduced_decode: bool, decode_cache: Optional[str]) -> None:
+        self.photometric = photometric
+        self.geometric = geometric if mode == "train" else "host"
+        # val/test keep the exact protocol: reduced decode is train-only
+        self.reduced_decode = bool(reduced_decode) and self.geometric == "device"
+        self._cache_dir = None
+        if decode_cache and self.geometric == "device":
+            self._cache_dir = Path(decode_cache) / f"{self.NAME}_{mode}"
+            self._cache_dir.mkdir(parents=True, exist_ok=True)
+
+    def _set_transforms(self, mode: str) -> None:
+        """The train recipe on the host, or the canvas' resize alone."""
+        if self.geometric == "device":
+            from cabinet_tpu_torch.data import transforms as T
+
+            self.canvas = self._canvas_size()
+            self.trans_train = T.Compose([T.ResizeIfLarger(self.canvas, fast=True)])
+        else:
+            self.trans_train = self._build_train_transforms() if mode == "train" else None
+
+    def _canvas_size(self) -> int:
+        return 2 * max(self.cropsize)
 
     def _pairs(self, rootpth: str, mode: str) -> List[Tuple[str, str]]:
         img_dir = osp.join(rootpth, "images", mode)
@@ -170,7 +200,7 @@ class FolderSegDataset:
 
         degrees = float(self.aug["degrees"])
         scale = float(self.aug["scale"])
-        return T.Compose([
+        geometric = [
             T.ResizeIfLarger(max_size=2 * max(self.cropsize)),
             T.RandomHorizontalFlip(p=float(self.aug["fliplr"])),
             T.RandomVerticalFlip(p=float(self.aug["flipud"])),
@@ -180,6 +210,10 @@ class FolderSegDataset:
             T.RandomScale((1.0 - scale, 1.0 + scale), continuous=True),
             T.RandomCrop(size=self.cropsize, pad_if_needed=True,
                          ignore_label=self.ignore_lb),
+        ]
+        if self.photometric == "device":  # ops.photometric runs the rest
+            return T.Compose(geometric)
+        return T.Compose(geometric + [
             T.RandomHSV(hgain=float(self.aug["hsv_h"]), sgain=float(self.aug["hsv_s"]),
                         vgain=float(self.aug["hsv_v"])),
             T.RandomColorJitter(contrast=0.5),
@@ -197,9 +231,11 @@ class FolderSegDataset:
 
     def _normalize(self, img: Array) -> Array:
         """uint8 (H, W, 3) -> ((x / 255) - mean) / std in float32, the
-        expression `cabinet_tpu.native.normalize_u8_f32` is bit-equal to."""
-        m = np.asarray(self.MEAN, np.float32)
-        s = np.asarray(self.STD, np.float32)
+        expression `cabinet_tpu.native.normalize_u8_f32` is bit-equal to;
+        raw x / 255 for the device photometric chain, which normalises."""
+        raw = self.mode == "train" and self.photometric == "device"
+        m = np.asarray((0.0, 0.0, 0.0) if raw else self.MEAN, np.float32)
+        s = np.asarray((1.0, 1.0, 1.0) if raw else self.STD, np.float32)
         return (np.ascontiguousarray(img, np.uint8).astype(np.float32) / 255.0 - m) / s
 
     def _decode_label(self, label: Array) -> Array:
@@ -217,8 +253,81 @@ class FolderSegDataset:
             img, label = np.asarray(out["image"]), np.asarray(out["label"])
         return self._normalize(img), self._decode_label(label)
 
-    def __getitem__(self, idx: int) -> Tuple[Array, Array]:
+    def _canvas_label(self, label: Array) -> Array:
+        """The label for the u8 canvas (CityScapes maps raw ids here)."""
+        return np.asarray(label, dtype=np.uint8)
+
+    def _lut_sig(self) -> bytes:
+        """The part of the decode-cache key that a subclass's label mapping
+        adds (CityScapes' LUT)."""
+        return b""
+
+    def _cache_file(self, idx: int) -> Path:
+        """Where canvas triple `idx` is cached, keyed as the JAX package keys
+        it: both files' names, mtimes and sizes, the canvas, the ignore fill,
+        the reduced-decode flag and the label LUT; not the decoder, whose
+        backends are bit-equal."""
+        img_path, mask_path = self.samples[idx]
+        st_i, st_m = os.stat(img_path), os.stat(mask_path)
+        key = hashlib.sha1(repr((
+            osp.basename(img_path), st_i.st_mtime_ns, st_i.st_size,
+            osp.basename(mask_path), st_m.st_mtime_ns, st_m.st_size,
+            self.canvas, self.ignore_lb, self.reduced_decode,
+        )).encode() + self._lut_sig()).hexdigest()[:16]
+        return self._cache_dir / f"{idx:06d}_{key}.npz"
+
+    def _load_canvas(self, idx: int, rng: np.random.Generator
+                     ) -> Tuple[Array, Array, Array]:
+        """The canvas triple, from `decode_cache` where it holds a whole one
+        (the path reads no rng, so the cache is exact); a missing or broken
+        file is decoded and written again, atomically, since loader threads
+        may race on it."""
+        if self._cache_dir is None:
+            return self._decode_canvas(idx, rng)
+        f = self._cache_file(idx)
+        if f.exists():
+            try:
+                with np.load(f) as d:
+                    return d["ci"], d["cl"], d["hw"]
+            except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+                pass  # a partial or corrupt write: decode again
+        ci, cl, hw = self._decode_canvas(idx, rng)
+        tmp = f.with_name(f"{f.name}.tmp{os.getpid()}.{threading.get_ident()}")
+        try:
+            with open(tmp, "wb") as fh:
+                np.savez(fh, ci=ci, cl=cl, hw=hw)
+            os.replace(tmp, f)
+        except OSError:
+            tmp.unlink(missing_ok=True)  # disk full and the like: serve it uncached
+        return ci, cl, hw
+
+    def _decode_canvas(self, idx: int, rng: np.random.Generator
+                       ) -> Tuple[Array, Array, Array]:
+        from PIL import Image
+
+        img_path, mask_path = self.samples[idx]
+        img = decode.open_rgb(img_path, self.decoder,
+                              reduce_to=self.canvas if self.reduced_decode else 0)
+        label = decode.open_mask(mask_path, self.decoder)
+        out = self.trans_train({"image": Image.fromarray(img),
+                                "label": Image.fromarray(label)}, rng)
+        img, label = out["image"], out["label"]
+        if label.size != img.size:
+            # a reduced JPEG decode landed at or under the cap, so the resize
+            # left it; the label follows as the resize would have taken it
+            label = label.resize(img.size, Image.NEAREST)
+        arr = np.asarray(img, dtype=np.uint8)
+        h, w = arr.shape[:2]
+        ci = np.zeros((self.canvas, self.canvas, 3), np.uint8)
+        cl = np.full((self.canvas, self.canvas), self.ignore_lb, np.uint8)
+        ci[:h, :w] = arr
+        cl[:h, :w] = self._canvas_label(np.asarray(label))
+        return ci, cl, np.array([h, w], np.int32)
+
+    def __getitem__(self, idx: int) -> Tuple[Array, ...]:
         rng = self._rng_for(idx)
+        if self.geometric == "device":
+            return self._load_canvas(idx, rng)
         img, label = self._load_one(idx, rng)
         if self.mixup_p > 0 and rng.random() < self.mixup_p:
             other = int(rng.integers(0, len(self.samples)))
@@ -277,6 +386,7 @@ class CityScapes(FolderSegDataset):
     MEAN = (0.485, 0.456, 0.406)
     STD = (0.229, 0.224, 0.225)
     UNIFORM_RESOLUTION = True  # all 2048x1024
+    RECIPE = "street"
     SCALE_CHOICES = (0.75, 1.0, 1.25, 1.5, 1.75, 2.0)  # reference cityscapes.py:119
 
     def __init__(
@@ -296,30 +406,42 @@ class CityScapes(FolderSegDataset):
         _check_mode(mode)
         if not osp.exists(rootpth):
             raise FileNotFoundError(f"Dataset root does not exist: {rootpth}")
-        _check_pipeline(mode, ignore_lb, photometric, geometric, reduced_decode,
-                        decode_cache)
+        _check_pipeline(mode, ignore_lb, photometric, geometric, reduced_decode)
         self.mode = mode
         self.ignore_lb = ignore_lb
         self.rootpth = rootpth
         self.cropsize = tuple(int(c) for c in cropsize)
         self.seed = seed
         self.epoch = 0
+        # the device warp's street params: flip, a discrete scale, the crop
+        self.aug = {"fliplr": 0.5, "flipud": 0.0, "degrees": 0.0, "translate": 0.0,
+                    "scale_choices": self.SCALE_CHOICES, "mixup": 0.0}
         self.mixup_p = 0.0
         self.decoder = decode.check_decoder(decoder)
         classes = (load_labels_info(config_file) if config_file
                    else CITYSCAPES_CLASSES)
         self._lut = id_to_trainid_lut(classes, ignore_lb)
+        self._set_pipeline(mode, photometric, geometric, reduced_decode, decode_cache)
         self.samples = self._pairs(rootpth, mode)
-        self.trans_train = self._build_train_transforms() if mode == "train" else None
+        self._set_transforms(mode)
+
+    def _canvas_size(self) -> int:
+        # the street recipe never resizes: the canvas holds the native frame
+        # (Cityscapes is uniform; its first frame's header gives the size)
+        return max(2 * max(self.cropsize), max(decode.png_size(self.samples[0][0])))
 
     def _build_train_transforms(self):
         from cabinet_tpu_torch.data import transforms as T
 
-        return T.Compose([
+        geometric = [
             T.RandomHorizontalFlip(p=0.5),
             T.RandomScale(self.SCALE_CHOICES),
             T.RandomCrop(size=self.cropsize, pad_if_needed=True,
                          ignore_label=self.ignore_lb),
+        ]
+        if self.photometric == "device":  # ops.photometric runs the rest
+            return T.Compose(geometric)
+        return T.Compose(geometric + [
             T.RandomColorJitter(brightness=0.5, contrast=0.5, saturation=0.5),
             T.RandomGrayscale(p=0.2),
             T.RandomGamma(gamma_range=(0.8, 1.2), p=0.3),
@@ -353,6 +475,12 @@ class CityScapes(FolderSegDataset):
     def _decode_label(self, label: Array) -> Array:
         raw = np.asarray(label, dtype=np.int64)
         return self._lut[np.clip(raw, 0, 255)]
+
+    def _canvas_label(self, label: Array) -> Array:
+        return self._decode_label(label).astype(np.uint8)  # trainIds 0..18 and 255
+
+    def _lut_sig(self) -> bytes:
+        return np.ascontiguousarray(self._lut).tobytes()
 
 
 # ---------------------------------------------------------------------------

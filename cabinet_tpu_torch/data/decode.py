@@ -318,12 +318,38 @@ def _import_backend(decoder: str):
             f"cannot be imported here ({e}); PNG needs neither") from None
 
 
-def _backend_rgb(path: PathLike, decoder: str) -> np.ndarray:
+def _reduce_factor(longest: int, max_size: int) -> int:
+    """The largest power-of-2 JPEG DCT reduction r that cannot land below
+    `ResizeIfLarger(fast=True)`'s own output: that shrinks by k =
+    ceil(longest / max_size), so any r <= k keeps the longer side at or
+    above longest / k."""
+    if max_size <= 0 or longest <= max_size:
+        return 1
+    k = -(-longest // max_size)
+    for r in (8, 4, 2):
+        if r <= k:
+            return r
+    return 1
+
+
+def _backend_rgb(path: PathLike, decoder: str, reduce_to: int = 0) -> np.ndarray:
+    """reduce_to > 0: a JPEG decodes at 1/r of its size in the DCT
+    (`_reduce_factor`), through PIL's `draft` or cv2's IMREAD_REDUCED_COLOR_r,
+    which give the same pixels; the size is read from the header by PIL."""
     lib = _import_backend(decoder)
+    r = 1
+    if reduce_to:
+        Image = _import_backend("pil")
+        with Image.open(path) as probe:
+            if probe.format == "JPEG":
+                r = _reduce_factor(max(probe.size), reduce_to)
     if decoder == "pil":
         with lib.open(path) as im:
+            if r > 1:
+                im.draft("RGB", (im.size[0] // r, im.size[1] // r))
             return np.asarray(im.convert("RGB"))
-    bgr = lib.imread(str(path), lib.IMREAD_COLOR)
+    flag = getattr(lib, f"IMREAD_REDUCED_COLOR_{r}") if r > 1 else lib.IMREAD_COLOR
+    bgr = lib.imread(str(path), flag)
     if bgr is None or bgr.ndim != 3 or bgr.dtype != np.uint8:
         raise DatasetError(f"{path}: cv2 cannot decode this file")
     return lib.cvtColor(bgr, lib.COLOR_BGR2RGB)
@@ -340,12 +366,24 @@ def _backend_mask(path: PathLike, decoder: str) -> np.ndarray:
         return np.asarray(label if label.mode == "L" else label.convert("L"))
 
 
-def open_rgb(path: PathLike, decoder: str = "pil") -> np.ndarray:
-    """(H, W, 3) uint8 RGB, as `Image.open(path).convert("RGB")` gives it."""
+def open_rgb(path: PathLike, decoder: str = "pil", reduce_to: int = 0) -> np.ndarray:
+    """(H, W, 3) uint8 RGB, as `Image.open(path).convert("RGB")` gives it.
+    reduce_to > 0 (the device canvas only) decodes a JPEG reduced in the DCT
+    towards a longer side of reduce_to, never below what
+    `ResizeIfLarger(fast=True)` would give; other formats decode full size."""
     check_decoder(decoder)
     if _is_png(path):
         return png_rgb(read_png(path), path)
-    return _backend_rgb(path, decoder)
+    return _backend_rgb(path, decoder, reduce_to)
+
+
+def png_size(path: PathLike) -> tuple:
+    """(width, height) of a PNG from its IHDR chunk, no pixel decoded."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise DatasetError(f"{path}: not a PNG")
+    return struct.unpack(">II", head[16:24])
 
 
 def open_mask(path: PathLike, decoder: str = "pil") -> np.ndarray:

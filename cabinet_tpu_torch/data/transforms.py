@@ -13,9 +13,8 @@ PIL is imported here and nowhere else in the port: only train mode reads
 this module (evaluation and inference need no PIL). A sample is
 {"image": PIL RGB image, "label": PIL L image}.
 
-`ResizeIfLarger(fast=True)` belongs to the device canvas
-(runtime.device_geometric) and raises until that is ported (ROADMAP
-Queue 1 item 3).
+`ResizeIfLarger(fast=True)` is the device canvas' resize
+(runtime.device_geometric): PIL's integer box `reduce`.
 """
 
 from __future__ import annotations
@@ -40,14 +39,16 @@ class Compose:
 
 class ResizeIfLarger:
     """Cap the longer side at `max_size` (never upscale; reference
-    transform.py:29-62)."""
+    transform.py:29-62).
+
+    fast=True (the device canvas only) shrinks by PIL's integer box
+    `reduce(k)`, k = ceil(longest / max_size), and the label
+    NEAREST to the image's new size: it lands at or under the cap (3840 ->
+    1920, not 2048), which the device warp's random scale swamps."""
 
     def __init__(self, max_size: int, fast: bool = False):
-        if fast:
-            raise NotImplementedError(
-                "ResizeIfLarger(fast=True) belongs to the device canvas "
-                "(runtime.device_geometric), not ported yet (ROADMAP Queue 1 item 3)")
         self.max_size = int(max_size)
+        self.fast = bool(fast)
 
     def __call__(self, sample: Sample, rng: np.random.Generator) -> Sample:
         im, lb = sample["image"], sample["label"]
@@ -55,6 +56,9 @@ class ResizeIfLarger:
         longest = max(w, h)
         if longest <= self.max_size:
             return sample
+        if self.fast:
+            im = im.reduce(-(-longest // self.max_size))  # k = ceil(...) >= 2 here
+            return {"image": im, "label": lb.resize(im.size, Image.NEAREST)}
         s = self.max_size / longest
         new = (max(1, round(w * s)), max(1, round(h * s)))
         return {"image": im.resize(new, Image.BILINEAR),

@@ -16,7 +16,7 @@ Modules take and return NCHW; children follow the reference state-dict keys.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,11 +104,13 @@ class CABiNet(nn.Module):
     (B,n_classes,H,W). `attention` picks the CAB's global attention:
     "kernel" (the CUDA kernel K1; its plain version for CPU tensors), "plain"
     (K1's plain version on any device) or "einsum" (JAX's non-kernel path).
+    `remat` (False, True or N) rematerialises backbone blocks in the
+    backward (`MobileNetV3`).
     """
 
     def __init__(self, n_classes: int, mode: str = "large",
                  cfgs: Optional[Sequence[Sequence[float]]] = None,
-                 attention: str = "einsum"):
+                 attention: str = "einsum", remat: Any = False):
         super().__init__()
         if mode not in MODEL_CONFIG:
             raise ValueError(f"Invalid mode: {mode}. Must be 'large' or 'small'")
@@ -117,7 +119,7 @@ class CABiNet(nn.Module):
         self.cfgs = [list(r) for r in (cfgs if cfgs is not None
                                        else default_cfgs(mode))]
         self.sb = SpatialBranch()
-        self.mobile = MobileNetV3(self.cfgs, mode=mode)
+        self.mobile = MobileNetV3(self.cfgs, mode=mode, remat=remat)
         self.ab = AttentionBranch(self.mobile.out_channels, 256, 256, n_classes,
                                   attention=attention)
         self.ffm = FeatureFusionModule(128 + 256, 256)

@@ -6,14 +6,23 @@ variants with their SE placement, and `forward` returns the pre-pool feature
 map after the final 1x1 conv (960ch large / 576ch small). Children follow the
 reference state-dict keys: `features.0` is the stem, `features.{i+1}.conv.{j}`
 block i, `conv` the final 1x1.
+
+`remat` rematerialises inverted-residual blocks in the backward, as flax's
+`nn.remat` does in the JAX package: True every block, an int N the first N
+(the high-resolution blocks hold most of the activation bytes and the fewest
+FLOPs). A rematerialised block runs under `torch.utils.checkpoint`
+(non-reentrant) when gradients are on; its BatchNorm running statistics are
+updated once, by the forward, and put back after the recomputation.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import contextlib
+from typing import Any, List, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cabinet_tpu_torch.models.layers import (
     DepthwiseConv2D,
@@ -98,6 +107,21 @@ class InvertedResidual(nn.Module):
         return x + y if self.identity else y
 
 
+@contextlib.contextmanager
+def _running_stats_kept(module: nn.Module):
+    """Put the BatchNorm running statistics of `module` back as they were on
+    entry (new tensors: autograd may hold the ones the recomputation's
+    batch_norm saved)."""
+    bns = [m for m in module.modules() if isinstance(m, nn.BatchNorm2d)]
+    saved = [(m.running_mean.clone(), m.running_var.clone(), m.num_batches_tracked.clone())
+             for m in bns]
+    try:
+        yield
+    finally:
+        for m, (mean, var, count) in zip(bns, saved):
+            m.running_mean, m.running_var, m.num_batches_tracked = mean, var, count
+
+
 class MobileNetV3(nn.Module):
     """MobileNetV3 trunk. Input (B,3,H,W); output (B,960|576,h,w).
 
@@ -107,10 +131,11 @@ class MobileNetV3(nn.Module):
     """
 
     def __init__(self, cfgs: Sequence[Sequence[float]], mode: str = "large",
-                 width_mult: float = 1.0):
+                 width_mult: float = 1.0, remat: Any = False):
         super().__init__()
         if mode not in ("large", "small"):
             raise ValueError(f"mode must be 'large' or 'small', got '{mode}'")
+        self.remat = remat
         input_channel = make_divisible(16 * width_mult, 8)
         layers = [nn.Sequential(
             nn.Conv2d(3, input_channel, 3, 2, 1, bias=False),
@@ -129,11 +154,23 @@ class MobileNetV3(nn.Module):
             batch_norm(exp_size), HardSwish())
         self.out_channels = exp_size
 
+    def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Inverted-residual block i (features[i + 1]), rematerialised where
+        `remat` says so and gradients are on."""
+        blk = self.features[i + 1]
+        if not (self.remat is True or (self.remat and i < int(self.remat))):
+            return blk(x)
+        if not torch.is_grad_enabled():
+            return blk(x)
+        return checkpoint(blk, x, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _running_stats_kept(blk)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.tail(self.features[1](self.features[0](x)))
+        return self.tail(self._block(0, self.features[0](x)))
 
     def tail(self, x: torch.Tensor) -> torch.Tensor:
         """Forward from block_1 on, given block_0's output (B,16,H/2,W/2)."""
-        for blk in self.features[2:]:
-            x = blk(x)
+        for i in range(1, len(self.features) - 1):
+            x = self._block(i, x)
         return self.conv(x)

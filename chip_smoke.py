@@ -70,7 +70,22 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               EMA weights scored by evaluate main; with main's seconds, the
               loop's seconds per optimizer step, its loader-wait share and
               the host ms per augmented frame
-  10. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  10. device_augs  the device augmentation at full size (batch 4, canvas
+              2048, crop 1024): the exact and the shared warp, each with
+              the aerial and the street chain, on the card against the
+              same on the CPU from the same host-drawn params and noise,
+              and timed on the card beside its byte bound; then
+              `cli/train.py:main` twice over a Cityscapes split like phase
+              9's with runtime.device_geometric=true and a decode cache,
+              cold then warm, and once over a UAVid-layout split of
+              3840x2160 frames with runtime.device_geometric=shared and
+              runtime.remat=true (one eval scale): each run's loss finite
+              and falling, K1 in its evaluations and never in its steps,
+              the loop's seconds per step, loader-wait share and device
+              augmentation seconds, the host ms per canvas frame; and the
+              train step at batch 4, 1024^2, bf16 with remat false / 4 /
+              true: ms per step and peak memory
+  11. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -1463,6 +1478,290 @@ def run_train_main(torch, paths, tmp: Path, n_train: int = TRAIN_MAIN_FRAMES,
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: device augmentation, and train main on it
+# ---------------------------------------------------------------------------
+
+AUG_BATCH, AUG_CANVAS, AUG_CROP = 4, 2048, 1024
+CITY_MEAN, CITY_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+AERIAL_AUG = {"degrees": 10.0, "translate": 0.05, "scale": 0.3, "fliplr": 0.5,
+              "flipud": 0.2, "hsv_h": 0.01, "hsv_s": 0.4, "hsv_v": 0.3, "mixup": 0.1}
+STREET_AUG = {"fliplr": 0.5, "flipud": 0.0, "degrees": 0.0, "translate": 0.0,
+              "scale_choices": (0.75, 1.0, 1.25, 1.5, 1.75, 2.0), "mixup": 0.0}
+# Card against CPU: [0, 1] values within 1e-5 (so 1e-5 / min(std) after the
+# normalisation); labels equal on >= 99.9% of pixels and on every pixel whose
+# sampling coordinate lies more than 1e-3 px from a rounding tie.
+BOUND_AUG = 1e-5
+AUG_LABEL_SHARE, AUG_TIE = 0.999, 1e-3
+# the canvases' frames: UAVid's 3840x2160 box-reduced by 2, Cityscapes' native
+AERIAL_HW, STREET_HW = (1080, 1920), (1024, 2048)
+UAVID_FRAMES, UAVID_VAL_FRAMES, UAVID_H, UAVID_W = 8, 2, 2160, 3840
+AUG_MAIN_EPOCHS = 4
+
+
+def aug_canvases(np, recipe: str, seed: int = 61):
+    """A batch of u8 canvases as the datasets ship them: UAVid frames
+    box-reduced 3840x2160 -> 1920x1080 (aerial) or native 2048x1024
+    Cityscapes frames (street), palette content, labels 0-4 and 255 outside."""
+    rng = np.random.default_rng(seed)
+    h, w = AERIAL_HW if recipe == "aerial" else STREET_HW
+    ci = np.zeros((AUG_BATCH, AUG_CANVAS, AUG_CANVAS, 3), np.uint8)
+    cl = np.full((AUG_BATCH, AUG_CANVAS, AUG_CANVAS), 255, np.uint8)
+    for b in range(AUG_BATCH):
+        image, labels = synthetic_palette(np, rng, h, w, 120 if recipe == "aerial" else 128)
+        ci[b, :h, :w] = np.clip(np.rint(255 * image), 0, 255)
+        cl[b, :h, :w] = labels
+    return ci, cl, np.tile(np.array([[h, w]], np.int32), (AUG_BATCH, 1))
+
+
+def near_tie(*coords):
+    """Pixels where a coordinate lies within AUG_TIE px of a rounding tie."""
+    out = None
+    for c in coords:
+        c = c.double().cpu()
+        t = (c - c.floor() - 0.5).abs() < AUG_TIE
+        out = t if out is None else out | t
+    return out
+
+
+def check_device_aug_chain(torch, peaks, warp: str, recipe: str):
+    """Phase 10a: the warp (`exact` or `shared`) and the recipe's chain at
+    full size on the card and on the CPU, from the same params drawn on the
+    host and the same noise; then the card's ms per batch (CUDA events, the
+    params already on the card) beside the byte bound: the canvases' valid
+    regions read once, the noise read once, the normalised crops and int64
+    labels written once."""
+    import numpy as np
+
+    from cabinet_tpu_torch.ops import geometric as G
+    from cabinet_tpu_torch.ops import photometric as P
+
+    ci, cl, hw = aug_canvases(np, recipe)
+    crop = (AUG_CROP, AUG_CROP)
+    aug = AERIAL_AUG if recipe == "aerial" else STREET_AUG
+    rng = np.random.default_rng(62)
+    shared = warp == "shared"
+    geo = G.sample_geometric_params(rng, AUG_BATCH, aug, hw, shared_linear=shared)
+    if recipe == "aerial":
+        pho, chain = P.sample_photometric(rng, AUG_BATCH, *crop, aug), P.photometric_pipeline
+        mean, std = (0.480, 0.499, 0.457), (0.225, 0.208, 0.228)  # UAVid
+    else:
+        pho, chain = (P.sample_street_photometric(rng, AUG_BATCH, *crop),
+                      P.street_photometric_pipeline)
+        mean, std = CITY_MEAN, CITY_STD
+    z = torch.randn((AUG_BATCH, *crop, 3), generator=torch.Generator().manual_seed(63))
+    warp_fn = G.apply_geometric_shared if shared else G.apply_geometric
+
+    def run(tensors):
+        x, y = warp_fn(*tensors[:3], tensors[3], crop, 255)
+        return chain(x, y, tensors[4], tensors[5], mean, std)
+
+    def staged(dev):
+        return ([torch.from_numpy(a).to(dev) for a in (ci, cl, hw)]
+                + [P.params_to_device(geo, dev), P.params_to_device(pho, dev), z.to(dev)])
+
+    t0 = time.perf_counter()
+    cpu = run(staged("cpu"))
+    cpu_s = time.perf_counter() - t0
+    on_card = staged(DEVICE)
+    card = run(on_card)
+    torch.cuda.synchronize()
+    err = float((card[0].cpu() - cpu[0]).abs().max())
+    differ = card[1].cpu() != cpu[1]
+    tp = P.params_to_device(geo, "cpu")
+    if shared:
+        c = G.shared_coords(torch.from_numpy(hw), tp, crop, AUG_CANVAS)
+        ties = near_tie(c["xf"], c["yf"])
+    else:
+        c = G.geometric_coords(torch.from_numpy(hw), tp, crop)
+        ties = near_tie(c["xl"], c["yl"], c["xc"], c["yc"])
+    off_tie = int((differ & ~ties).sum())
+    share = 1.0 - float(differ.float().mean())
+    ms = time_ms(lambda: run(on_card), iters=10)
+    n_out = AUG_BATCH * AUG_CROP * AUG_CROP
+    n_bytes = 4 * float(np.prod(hw, axis=1).sum()) + n_out * (12 + 12 + 8)
+    bound_ms, bound_by = peaks.bound(n_bytes)
+    row = {"warp": warp, "recipe": recipe, "max_abs_err": err, "label_share": share,
+           "labels_off_tie_differing": off_tie, "ms": ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "cpu_seconds": cpu_s,
+           "ignore_share": float((card[1] == 255).float().mean())}
+    say("device_augs", part="chain", **row)
+    check(err <= BOUND_AUG / min(std), f"device augs {warp}/{recipe}: card vs CPU err {err}")
+    check(share >= AUG_LABEL_SHARE and off_tie == 0,
+          f"device augs {warp}/{recipe}: labels agree on {share}, {off_tie} off a tie")
+    check(bool(torch.isfinite(card[0]).all()), f"device augs {warp}/{recipe}: not finite")
+    return row
+
+
+def write_uavid_split(np, root: Path, n_frames: int, split: str, seed: int,
+                      h: int = UAVID_H, w: int = UAVID_W) -> None:
+    """A UAVid-layout split (images/<split>/*.png, masks/<split>/*.png) of
+    h x w palette frames stored so that UAVid's normalisation gives back the
+    palette values plus noise, labels 0-4, written with the port's save_png."""
+    from cabinet_tpu_torch.data.datasets import UAVid
+    from cabinet_tpu_torch.data.decode import save_png
+
+    mean = np.asarray(UAVid.MEAN, np.float32)
+    std = np.asarray(UAVid.STD, np.float32)
+    rng = np.random.default_rng(seed)
+    (root / "images" / split).mkdir(parents=True, exist_ok=True)
+    (root / "masks" / split).mkdir(parents=True, exist_ok=True)
+    for i in range(n_frames):
+        image, labels = synthetic_palette(np, rng, h, w, 120)
+        u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
+        save_png(root / "images" / split / f"seq{i:02d}_000100.png", u8, compress_level=1)
+        save_png(root / "masks" / split / f"seq{i:02d}_000100.png",
+                 labels.astype(np.uint8), compress_level=1)
+
+
+def canvas_ms(np, cls, root: Path, crop: int, cache=None, n: int = 4) -> float:
+    """Host ms per canvas triple (decode, the fast resize, the copy; or the
+    cache's read), one thread."""
+    ds = cls(255, str(root), [crop, crop], mode="train", photometric="device",
+             geometric="device", decode_cache=cache)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ci, cl, hw = ds[i % len(ds)]
+        check(ci.shape == (ds.canvas, ds.canvas, 3) and cl.shape == ci.shape[:2],
+              f"canvas triple {ci.shape} {cl.shape} {hw}")
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def counting_steps(trainer_mod, inside):
+    """make_train_step whose steps add their kernel launches to `inside`."""
+    make_step = trainer_mod.make_train_step
+
+    def counting(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(state, images, labels):
+            before = kernel_counts()
+            out = step(state, images, labels)
+            for k, n in kernel_counts().items():
+                inside[k] += n - before[k]
+            return out
+        return counted
+    return counting
+
+
+def aug_main_run(torch, paths, name: str, argv, exp: Path):
+    """One `cli/train.py:main` run with the device pipeline, driven as a
+    main path: its result, the loss falling over its epochs, K1 in its
+    evaluations and 0 in its steps, its timing."""
+    import math
+
+    from cabinet_tpu_torch.cli.train import main as train_main
+    from cabinet_tpu_torch.train import trainer as trainer_mod
+
+    inside = dict.fromkeys(_counters(), 0)
+    make_step = trainer_mod.make_train_step
+    trainer_mod.make_train_step = counting_steps(trainer_mod, inside)
+    try:
+        res, main_s, _ = paths.drive(name, run_cli, train_main, argv + [
+            f"training_config.experiments_path={exp}", "--device", DEVICE], "train", 3)
+    finally:
+        trainer_mod.make_train_step = make_step
+    counts = paths.per_path[name]
+    lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()
+             if '"epoch"' in ln]
+    losses = [ln["train_loss"] for ln in lines]
+    t = res["timing"]
+    out = {"main_seconds": main_s, "train_losses": losses,
+           "loop_seconds_per_optimizer_step": t["train_seconds"] / t["optimizer_steps"],
+           "loader_wait_share": t["loader_wait_seconds"] / t["train_seconds"],
+           "device_aug_seconds": t["device_aug_seconds"],
+           "device_aug_ms_per_batch": 1e3 * t["device_aug_seconds"] / t["micro_steps"],
+           "train_seconds": t["train_seconds"], "eval_seconds": t["eval_seconds"],
+           "final_eval_seconds": t["final_eval_seconds"], "final_mIoU": res["final"]["mIoU"],
+           "k1_launches": counts["attention"], "k1_launches_in_steps": inside["attention"]}
+    say("device_augs", part="train_main", run=name, **out)
+    check(len(losses) == AUG_MAIN_EPOCHS and all(math.isfinite(v) for v in losses),
+          f"{name}: train losses {losses}")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
+    check(counts["attention"] > 0, f"{name}: K1 never launched {counts}")
+    check(inside["attention"] == 0 and inside["attention_f32"] == 0,
+          f"{name}: K1 launched inside the train steps: {inside}")
+    check(t["device_aug_seconds"] > 0 and math.isfinite(res["final"]["mIoU"]),
+          f"{name}: timing {t}, final {res['final']['mIoU']}")
+    return out
+
+
+def remat_steps(torch, batch: int = 4, size: int = 1024, steps: int = 6):
+    """Phase 10c: the train step of CABiNet-Large (19 classes), bf16, at
+    batch 4 and 1024^2 with runtime.remat false, 4 and true: ms per step
+    (CUDA events over `steps` steps after 2) and peak allocated memory."""
+    import numpy as np
+
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+
+    model = seeded_large(torch, N_CLASSES_TRAIN).to(DEVICE)
+    state = T.create_train_state(model, GroupedSGD(model, lr0=5e-3, max_iter=100))
+    x, y = palette_batch(torch, np, batch, size, 44)
+    x, y = x.to(DEVICE), y.to(DEVICE)
+    step = T.make_train_step(n_min=batch * size * size // 16, compute_dtype=torch.bfloat16)
+    out = {}
+    for remat in (False, 4, True, False):
+        model.mobile.remat = remat
+        step(state, x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(state, x, y), iters=steps, warmup=1)
+        key = str(remat).lower()
+        out.setdefault(key, {"ms_per_step": [], "peak_allocated_gib": []})
+        out[key]["ms_per_step"].append(ms)
+        out[key]["peak_allocated_gib"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    model.mobile.remat = False
+    say("device_augs", part="remat", batch=batch, size=size, dtype="bfloat16", **out)
+    check(out["true"]["peak_allocated_gib"][0] < out["false"]["peak_allocated_gib"][0],
+          f"remat did not lower the peak memory: {out}")
+    return out
+
+
+def run_device_augs(torch, peaks, paths, tmp: Path):
+    """Phase 10: the chains at full size, the three train main runs, the
+    host's canvas times, and remat's step times."""
+    import numpy as np
+
+    from cabinet_tpu_torch.data.datasets import CityScapes, UAVid
+
+    chains = [check_device_aug_chain(torch, peaks, warp, recipe)
+              for warp in ("exact", "shared") for recipe in ("aerial", "street")]
+
+    city, uavid, cache = tmp / "cityscapes", tmp / "uavid", tmp / "decode_cache"
+    t0 = time.perf_counter()
+    write_city_split(np, city, TRAIN_MAIN_FRAMES, FRAME_H, FRAME_W, seed=51, split="train")
+    write_city_split(np, city, TRAIN_MAIN_VAL_FRAMES, FRAME_H, FRAME_W, seed=52, split="val")
+    write_uavid_split(np, uavid, UAVID_FRAMES, "train", 71)
+    write_uavid_split(np, uavid, UAVID_VAL_FRAMES, "val", 72)
+    say("device_augs", part="splits", write_seconds=time.perf_counter() - t0)
+    host = {"city_canvas_ms": canvas_ms(np, CityScapes, city, AUG_CROP),
+            "uavid_canvas_ms": canvas_ms(np, UAVid, uavid, AUG_CROP)}
+
+    common = [f"training_config.epochs={AUG_MAIN_EPOCHS}", "training_config.warmup_steps=2",
+              "training_config.num_workers=8", "validation_config.num_workers=8",
+              "training_config.log_iter=1", "runtime.use_pallas=true"]
+    if AUG_CROP != EVAL_MAIN_CROP:
+        common.append(f"dataset.cropsize=[{AUG_CROP},{AUG_CROP}]")
+    # cls_pw=0: the class-weight pass would read every frame before the
+    # loop, and so fill the cache before the cold run's first epoch
+    city_argv = ["dataset=cityscapes", f"dataset.dataset_path={city}",
+                 "runtime.device_geometric=true", f"+runtime.decode_cache={cache}",
+                 "training_config.cls_pw=0"] + common
+    runs = {"city_cold": aug_main_run(torch, paths, "aug_main_city_cold", city_argv,
+                                      tmp / "exp_city_cold"),
+            "city_warm": aug_main_run(torch, paths, "aug_main_city_warm", city_argv,
+                                      tmp / "exp_city_warm")}
+    host["city_cached_canvas_ms"] = canvas_ms(np, CityScapes, city, AUG_CROP, cache)
+    runs["uavid_shared_remat"] = aug_main_run(torch, paths, "aug_main_uavid_shared_remat", [
+        "dataset=uavid", f"dataset.dataset_path={uavid}", "runtime.device_geometric=shared",
+        "runtime.remat=true", "validation_config.eval_scales=[1.0]"] + common,
+        tmp / "exp_uavid")
+    say("device_augs", part="host", **host)
+    remat = remat_steps(torch)
+    return {"chains": chains, "runs": runs, "host": host, "remat": remat}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1555,6 +1854,15 @@ def main() -> int:
         loop_seconds_per_optimizer_step=trained["loop_seconds_per_optimizer_step"],
         loader_wait_share=trained["loader_wait_share"],
         host_ms_per_augmented_frame=trained["host_ms_per_augmented_frame"])
+    with tempfile.TemporaryDirectory() as tmp:
+        augs = run_device_augs(torch, peaks, paths, Path(tmp))
+    say("device_augs", card=smi,
+        chain_ms={f"{r['warp']}/{r['recipe']}": r["ms"] for r in augs["chains"]},
+        chain_bound_ms={f"{r['warp']}/{r['recipe']}": r["bound_ms"] for r in augs["chains"]},
+        **{f"{k}_loop_seconds_per_optimizer_step": v["loop_seconds_per_optimizer_step"]
+           for k, v in augs["runs"].items()},
+        **{f"{k}_loader_wait_share": v["loader_wait_share"] for k, v in augs["runs"].items()},
+        **augs["host"])
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")

@@ -1,8 +1,10 @@
 """The port's training CLI (cabinet_tpu_torch.cli.train) on the CPU, as a
 user runs it: `main` over a tiny UAVid-layout tree and a tiny
-Cityscapes-layout tree for 2 epochs, then a resume for a third; and one run
-in a process where JAX, Flax, optax, orbax, PyYAML, rich and tqdm cannot be
-imported."""
+Cityscapes-layout tree for 2 epochs, then a resume for a third; the same
+with the device augmentation (`runtime.device_geometric=true` on UAVid,
+the aerial chain with mixup; `=shared` on Cityscapes, the street chain),
+whose resume must equal the uninterrupted run; and one run in a process
+where JAX, Flax, optax, orbax, PyYAML, rich and tqdm cannot be imported."""
 
 import json
 import subprocess
@@ -12,10 +14,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from cabinet_tpu_torch.cli.common import CONFIG_DIR
 from cabinet_tpu_torch.core.config import compose
+from cabinet_tpu_torch.core.exceptions import ConfigurationError
 
 REPO = Path(__file__).resolve().parent.parent
 TINY_MODEL = ["model=mobilenetv3_small",
@@ -109,14 +113,98 @@ def test_train_main_refuses_what_is_not_ported(tmp_path):
     for extra, item in (("runtime.pipeline=2", "Queue 1 item 7"),
                         ("runtime.model_axis=2", "Queue 1 item 7"),
                         ("runtime.spatial_axis=true", "Queue 1 item 7"),
-                        ("runtime.device_augs=true", "Queue 1 item 3"),
-                        ("runtime.device_geometric=true", "Queue 1 item 3"),
-                        ("runtime.remat=true", "item 2"),
                         ("runtime.loader=grain", "Queue 1 item 8")):
         with pytest.raises(NotImplementedError, match=item):
             main(base + [extra, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         main(["--legacy-config", "old.json", "--device", "cpu"])
+    # the JAX package's refusals of the device pipeline's knobs
+    with pytest.raises(ConfigurationError, match="spatial_axis"):
+        main(base + ["runtime.device_geometric=true", "runtime.spatial_axis=true",
+                     "--device", "cpu"])
+    with pytest.raises(ConfigurationError, match="remat"):
+        main(base + ["runtime.remat=some", "--device", "cpu"])
+
+
+DEVICE_AUG = {"uavid": ["runtime.device_geometric=true", "dataset.augmentation.mixup=0.5"],
+              "cityscapes": ["runtime.device_geometric=shared", "runtime.remat=true"]}
+
+
+def _same(a, b, where="") -> None:
+    """Two checkpoint blobs hold equal values, tensors bit for bit."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _same(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{where}/{i}")
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), where
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("name", ["uavid", "cityscapes"])
+def test_train_main_device_augs_resume_equals_uninterrupted(tmp_path, name):
+    """main with the device pipeline for 2 epochs, then a resume to epoch 3,
+    ends where 3 epochs in one run end: the same draws, bit for bit (both
+    with max_iterations=6, so that they share the poly schedule)."""
+    from cabinet_tpu_torch.cli.train import main
+
+    data = (make_uavid_tree if name == "uavid" else make_city_tree)(tmp_path / "data")
+    runs = {}
+    for run in ("whole", "resumed"):
+        exp = tmp_path / run
+        args = overrides(name, data, exp) + DEVICE_AUG[name] + [
+            "training_config.max_iterations=6"]
+        if run == "whole":
+            res = main(args + ["training_config.epochs=3", "--device", "cpu"])
+        else:
+            main(args + ["--device", "cpu"])
+            res = main(args + ["training_config.resume=true", "training_config.epochs=3",
+                               "--device", "cpu"])
+        assert res["timing"]["device_aug_seconds"] > 0
+        lines = [ln for ln in _epochs(exp) if "epoch" in ln]
+        assert [ln["step"] for ln in lines] == [2, 4, 6]
+        assert all(np.isfinite(ln["train_loss"]) for ln in lines)
+        runs[run] = (lines[-1]["train_loss"],
+                     torch.load(exp / "checkpoint_last.pth", map_location="cpu",
+                                weights_only=False))
+    assert runs["whole"][0] == runs["resumed"][0]
+    _same(runs["whole"][1], runs["resumed"][1])
+
+
+def test_micro_batches_of_a_window_draw_apart(tmp_path, monkeypatch):
+    """At accum_steps=2 the augmentation of each micro-batch is keyed on
+    (seed + 1, step, micro_step): the two micro-batches of a window draw
+    different parameters from the same batch, and a key draws the same
+    ones again. main keys them so."""
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.cli import train as train_mod
+
+    data = make_uavid_tree(tmp_path / "data")
+    args = overrides("uavid", data, tmp_path / "exp") + DEVICE_AUG["uavid"] + [
+        "training_config.accum_steps=2"]
+    cfg = compose(CONFIG_DIR, "train", args)
+    ds = common.build_datasets(cfg, ["train"])[0]
+    batch = tuple(np.stack(f) for f in zip(ds[0], ds[1]))
+    aug = train_mod.DeviceAugment(cfg, ds, torch.device("cpu"), (32, 32))
+    a, b, again = aug(batch, 3, 0), aug(batch, 3, 1), aug(batch, 3, 0)
+    assert not torch.equal(a[0], b[0])
+    assert torch.equal(a[0], again[0]) and torch.equal(a[1], again[1])
+
+    keys = []
+    draws = train_mod.DeviceAugment.draws
+
+    def spy(self, step, micro_step):
+        keys.append((step, micro_step))
+        return draws(self, step, micro_step)
+
+    monkeypatch.setattr(train_mod.DeviceAugment, "draws", spy)
+    train_mod.main(args + ["training_config.epochs=1", "--device", "cpu"])
+    assert keys == [(0, 0), (0, 1)]
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "rich", "tqdm")

@@ -523,3 +523,153 @@ def test_kernel_wrappers_refuse_autograd_on_cuda(gen):
             out = call(x.clone().requires_grad_())
         torch.cuda.synchronize()
         assert getattr(fn, attr) == before + 1 and out.grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# device augmentation (ops/geometric.py, ops/photometric.py) and remat
+# ---------------------------------------------------------------------------
+
+AUG_ATOL = 1e-5      # [0, 1] values; / min(std) after the normalisation
+LABEL_SHARE = 0.999  # labels off a rounding tie agree exactly
+
+
+def _aug_batch(B=4, S=256, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hw = np.array([[S, S], [S // 2 + 3, S - 5], [S - 9, S // 2 + 1], [S, S - 17]],
+                  np.int32)[:B]
+    ci = np.zeros((B, S, S, 3), np.uint8)
+    cl = np.full((B, S, S), 255, np.uint8)
+    for b, (h, w) in enumerate(hw):
+        ci[b, :h, :w] = rng.integers(0, 256, (h, w, 3))
+        cl[b, :h, :w] = rng.integers(0, 19, (h, w))
+    return ci, cl, hw
+
+
+def _near_tie(*coords, tie=1e-3):
+    out = torch.zeros(coords[0].shape, dtype=torch.bool)
+    for c in coords:
+        c = c.double().cpu()
+        out |= (c - c.floor() - 0.5).abs() < tie
+    return out
+
+
+@pytest.mark.parametrize("warp", ["u8", "float", "shared"])
+@pytest.mark.parametrize("recipe", ["aerial", "street"])
+def test_device_augmentation_on_cuda_matches_cpu(gen, warp, recipe):
+    """The warp and the photometric chain on the card against the same on
+    the CPU, from the same host-drawn params and the same noise."""
+    import numpy as np
+
+    from cabinet_tpu_torch.ops import geometric as G
+    from cabinet_tpu_torch.ops import photometric as P
+
+    ci, cl, hw = _aug_batch()
+    crop = (128, 128)
+    rng = np.random.default_rng(1)
+    aug = ({"degrees": 10.0, "translate": 0.05, "scale": 0.3, "fliplr": 0.5,
+            "flipud": 0.2, "mixup": 0.5} if recipe == "aerial" else
+           {"fliplr": 0.5, "scale_choices": (0.75, 1.0, 1.25, 1.5, 1.75, 2.0)})
+    geo = G.sample_geometric_params(rng, 4, aug, hw, shared_linear=warp == "shared")
+    pho = (P.sample_photometric(rng, 4, *crop, aug) if recipe == "aerial"
+           else P.sample_street_photometric(rng, 4, *crop))
+    chain = P.photometric_pipeline if recipe == "aerial" else P.street_photometric_pipeline
+    z = torch.randn((4, *crop, 3), generator=torch.Generator().manual_seed(2))
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        img = torch.from_numpy(ci if warp != "float" else ci.astype(np.float32)).to(dev)
+        fn = G.apply_geometric_shared if warp == "shared" else G.apply_geometric
+        x, y = fn(img, torch.from_numpy(cl).to(dev), torch.from_numpy(hw).to(dev),
+                  P.params_to_device(geo, dev), crop, 255)
+        x, y = chain(x, y, P.params_to_device(pho, dev), z.to(dev), mean, std)
+        outs[dev] = (x.cpu(), y.cpu())
+    err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    assert err <= AUG_ATOL / min(std), err
+    differ = outs["cuda"][1] != outs["cpu"][1]
+    assert float(differ.float().mean()) <= 1.0 - LABEL_SHARE
+    tp = P.params_to_device(geo, "cpu")
+    if warp == "shared":
+        c = G.shared_coords(torch.from_numpy(hw), tp, crop, ci.shape[1])
+        ties = _near_tie(c["xf"], c["yf"])
+    else:
+        c = G.geometric_coords(torch.from_numpy(hw), tp, crop)
+        ties = _near_tie(c["xl"], c["yl"], c["xc"], c["yc"])
+    assert not bool((differ & ~ties).any())
+
+
+def test_remat_step_on_cuda_updates_statistics_once(gen):
+    """A train step of a small CABiNet on the card with remat=True against
+    the step without remat: the BatchNorm statistics counted once and equal
+    to 1e-6, the loss to 1e-4, each gradient to 1e-4 of its largest value
+    plus 1e-6 of the step's largest gradient (cuDNN's backward adds in
+    another order in each run, and a gradient that is zero in exact
+    arithmetic, the bias of a BN behind a conv and a train-mode BN, is
+    rounding alone)."""
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+
+    cfgs = [[3, 1, 16, 1, 0, 2], [3, 4.5, 24, 0, 0, 2], [5, 4, 40, 1, 1, 2],
+            [5, 6, 96, 1, 1, 2]]
+    torch.manual_seed(0)
+    sd = CABiNet(8, "small", cfgs=cfgs).state_dict()
+    x = torch.randn(2, 128, 128, 3, generator=gen, device="cuda")
+    y = torch.randint(0, 8, (2, 128, 128), generator=gen, device="cuda")
+    out = {}
+    for remat in (False, True):
+        model = CABiNet(8, "small", cfgs=cfgs, remat=remat)
+        model.load_state_dict(sd)
+        model.cuda()
+        ts = T.create_train_state(model, GroupedSGD(model, lr0=0.1, max_iter=4))
+        _, loss = T.make_train_step(n_min=2 * 128 * 128 // 16, accum_steps=2)(ts, x, y)
+        out[remat] = (float(loss), {n: p.grad.clone() for n, p in model.named_parameters()},
+                      {k: t.clone() for k, t in model.state_dict().items()})
+    (l0, g0, s0), (l1, g1, s1) = out[False], out[True]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    largest = max(float(g.abs().max()) for g in g0.values())
+    for k in g0:
+        err = float((g1[k] - g0[k]).abs().max())
+        assert err <= 1e-4 * float(g0[k].abs().max()) + 1e-6 * largest, (k, err)
+    for k in s0:
+        if k.endswith("num_batches_tracked"):
+            assert int(s1[k]) == int(s0[k]) == 1, k
+        elif k.endswith(("running_mean", "running_var")):
+            assert float((s1[k] - s0[k]).abs().max()) <= 1e-6, k
+
+
+def test_train_main_with_device_augs_on_cuda(gen, tmp_path):
+    """cli/train.py main on the card over a tiny Cityscapes tree with the
+    shared warp, the street chain and remat: finite losses, the device
+    augmentation timed by CUDA events."""
+    import json
+    import math
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.train import main
+    from cabinet_tpu_torch.data.decode import save_png
+
+    rng = np.random.default_rng(3)
+    for split in ("train", "val"):
+        for i in range(4):
+            (tmp_path / "leftImg8bit" / split / "c").mkdir(parents=True, exist_ok=True)
+            (tmp_path / "gtFine" / split / "c").mkdir(parents=True, exist_ok=True)
+            save_png(tmp_path / "leftImg8bit" / split / "c" / f"c_{i}_0_leftImg8bit.png",
+                     rng.integers(0, 256, (96, 160, 3), dtype=np.uint8))
+            save_png(tmp_path / "gtFine" / split / "c" / f"c_{i}_0_gtFine_labelIds.png",
+                     rng.choice(np.array([7, 8, 11, 0], np.uint8), (96, 160)))
+    exp = tmp_path / "exp"
+    res = main(["model=mobilenetv3_small", "model.cfgs=[[3,1,16,1,0,2],[5,6,96,1,1,2]]",
+                "dataset=cityscapes", f"dataset.dataset_path={tmp_path}",
+                "dataset.cropsize=[64,64]", "training_config.batch_size=2",
+                "training_config.epochs=2", "training_config.num_workers=2",
+                f"training_config.experiments_path={exp}", "training_config.log_iter=1",
+                "validation_config.eval_scales=[1.0]", "validation_config.flip=false",
+                "runtime.device_geometric=shared", "runtime.remat=true",
+                f"+runtime.decode_cache={tmp_path / 'cache'}", "--device", "cuda"])
+    lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()]
+    assert all(math.isfinite(ln["train_loss"]) for ln in lines if "epoch" in ln)
+    assert res["timing"]["device_aug_seconds"] > 0 and res["timing"]["optimizer_steps"] == 4
+    assert len(list((tmp_path / "cache" / "cityscapes_train").iterdir())) == 4

@@ -75,6 +75,8 @@ def trees(tmp_path_factory):
                                  seed=3),
         "cityscapes": _make_city_tree(base / "cityscapes", ("val", "test", "train")),
         "cityscapes_p": _make_city_tree(base / "cityscapes_p", ("val",), mask_mode="P"),
+        "aeroscapes_big": _make_folder_tree(base / "aeroscapes_big", ".jpg", ("train",),
+                                            n=2, seed=4, sizes=[(64, 96), (48, 80)]),
     }
 
 
@@ -235,20 +237,117 @@ def test_error_paths_match_jax(trees, tmp_path):
     _raises_both(lambda: tds.UAVid(255, str(trees["uavid"]), [16, 16], mode="eval"),
                  lambda: jds.UAVid(255, str(trees["uavid"]), [16, 16], mode="eval"),
                  ValueError, ValueError)
-    # the device augmentation pipeline waits for its item
+    # the device augmentation pipeline constructs, as the JAX package's does
     root = str(trees["uavid"])
     for kwargs in (dict(photometric="device"), dict(photometric="device", geometric="device"),
+                   dict(photometric="device", geometric="device", reduced_decode=True,
+                        decode_cache=str(tmp_path / "cache")),
                    dict(decode_cache=str(tmp_path / "cache"))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            tds.UAVid(255, root, [16, 16], mode="train", **kwargs)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            tds.CityScapes(255, str(trees["cityscapes"]), [16, 16], mode="train", **kwargs)
+        for cls, jcls, tree in ((tds.UAVid, jds.UAVid, root),
+                                (tds.CityScapes, jds.CityScapes, str(trees["cityscapes"]))):
+            ours = cls(255, tree, [16, 16], mode="train", **kwargs)
+            ref = jcls(255, tree, [16, 16], mode="train", **kwargs)
+            for attr in ("photometric", "geometric", "reduced_decode", "mixup_p", "aug",
+                         "RECIPE"):
+                assert getattr(ours, attr) == getattr(ref, attr), attr
+            assert getattr(ours, "canvas", None) == getattr(ref, "canvas", None)
+            assert (ours._cache_dir is None) == (ref._cache_dir is None)
     # where the JAX package refuses a combination, so does the port
     for kwargs in (dict(geometric="device"), dict(reduced_decode=True),
-                   dict(photometric="gpu")):
-        _raises_both(lambda: tds.UAVid(255, root, [16, 16], mode="train", **kwargs),
-                     lambda: jds.UAVid(255, root, [16, 16], mode="train", **kwargs),
+                   dict(photometric="gpu"), dict(geometric="cpu"),
+                   dict(photometric="device", geometric="device", ignore_lb=300)):
+        kwargs = {"ignore_lb": 255, **kwargs}
+        ignore = kwargs.pop("ignore_lb")
+        _raises_both(lambda: tds.UAVid(ignore, root, [16, 16], mode="train", **kwargs),
+                     lambda: jds.UAVid(ignore, root, [16, 16], mode="train", **kwargs),
                      ValueError, ValueError)
+        city = str(trees["cityscapes"])
+        _raises_both(lambda: tds.CityScapes(ignore, city, [16, 16], mode="train", **kwargs),
+                     lambda: jds.CityScapes(ignore, city, [16, 16], mode="train", **kwargs),
+                     ValueError, ValueError)
+
+
+DEVICE_CASES = [("uavid", "uavid", "runtime.device_augs=true"),
+                ("uavid", "uavid", "runtime.device_geometric=true"),
+                ("uavid", "uavid", "runtime.device_geometric=shared"),
+                ("cityscapes", "cityscapes", "runtime.device_augs=true"),
+                ("cityscapes", "cityscapes", "runtime.device_geometric=true"),
+                ("aeroscapes", "aeroscapes_big", "runtime.device_geometric=true")]
+
+
+@pytest.mark.parametrize("name,tree,knob", DEVICE_CASES,
+                         ids=[f"{t}-{k.split('=')[0][8:]}-{k.split('=')[1]}"
+                              for _, t, k in DEVICE_CASES])
+def test_device_pipeline_samples_match_jax(trees, tmp_path, name, tree, knob):
+    """The train side of the device pipeline, bit for bit the JAX package's:
+    raw [0, 1] crops (device_augs) or the canvas triples (device_geometric,
+    the UAVid frames box-reduced into a 16^2 canvas, Cityscapes' native
+    frame kept, AeroScapes' JPEGs reduced in the DCT), the decode cache's
+    file names and arrays, and the cached triples read back."""
+    args = [f"dataset={name}", f"dataset.dataset_path={trees[tree]}",
+            "dataset.cropsize=[8,8]", knob, f"+runtime.decode_cache={tmp_path / 'cache'}"]
+    if tree == "aeroscapes_big":
+        args.append("+runtime.reduced_decode=true")
+    kw = tds.DATASET_KWARGS_BUILDERS[name](compose(jcommon.CONFIG_DIR, "train", args), "train")
+    jkw = jds.DATASET_KWARGS_BUILDERS[name](jcompose(jcommon.CONFIG_DIR, "train", args),
+                                            "train")
+    assert kw == jkw
+    jkw["decode_cache"] = str(tmp_path / "jcache")
+    ours, ref = tds.DATASET_REGISTRY[name](**kw), jds.DATASET_REGISTRY[name](**jkw)
+    for _ in range(2):  # cold, then from the cache
+        for i in range(len(ref)):
+            got, want = ours[i], ref[i]
+            assert len(got) == len(want) == (3 if "geometric" in knob else 2)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
+    if "geometric" not in knob:
+        assert ours.mixup_p == 0.0 and got[0].max() <= 1.0
+        return
+    assert ours.canvas == (28 if name == "cityscapes" else 16)
+    assert got[2].tolist() != [ours.canvas] * 2 or name == "cityscapes"
+    files = sorted(p.name for p in (tmp_path / "cache" / f"{name}_train").iterdir())
+    jfiles = sorted(p.name for p in (tmp_path / "jcache" / f"{name}_train").iterdir())
+    assert files == jfiles and len(files) == len(ref)
+    for f in files:
+        with np.load(tmp_path / "cache" / f"{name}_train" / f) as d, \
+                np.load(tmp_path / "jcache" / f"{name}_train" / f) as e:
+            for k in ("ci", "cl", "hw"):
+                np.testing.assert_array_equal(d[k], e[k])
+
+
+def test_decode_cache_redoes_a_broken_file(trees, tmp_path):
+    kw = dict(photometric="device", geometric="device", decode_cache=str(tmp_path))
+    ds = tds.UAVid(255, str(trees["uavid"]), [8, 8], mode="train", **kw)
+    want = ds[0]
+    f = ds._cache_file(0)
+    f.write_bytes(b"PK\x03\x04 not a whole zip")
+    got = ds[0]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    with np.load(f) as d:
+        np.testing.assert_array_equal(d["ci"], want[0])
+
+
+@pytest.mark.parametrize("decoder", ["pil", "cv2"])
+def test_reduced_jpeg_decode_matches_jax(trees, decoder):
+    """open_rgb(reduce_to=) on a JPEG written by PIL: PIL's draft or cv2's
+    reduced read, as the JAX package's; a PNG decodes full size."""
+    from cabinet_tpu.data import decode as jdecode
+    from cabinet_tpu_torch.data import decode as tdecode
+
+    for longest, cap in ((3840, 2048), (2048, 2048), (4096, 1024), (4096, 256),
+                         (512, 2048), (3000, 1024), (100, 0)):
+        assert tdecode._reduce_factor(longest, cap) == jdecode._reduce_factor(longest, cap)
+    jpg = sorted((trees["aeroscapes_big"] / "images" / "train").iterdir())[0]
+    for cap, shape in ((16, (16, 24, 3)), (40, (32, 48, 3)), (0, (64, 96, 3))):
+        got = tdecode.open_rgb(jpg, decoder, reduce_to=cap)
+        want = np.asarray(jdecode.open_rgb(str(jpg), decoder, reduce_to=cap))
+        np.testing.assert_array_equal(got, want)
+        assert got.shape == shape
+    png = sorted((trees["uavid"] / "images" / "train").iterdir())[0]
+    np.testing.assert_array_equal(tdecode.open_rgb(png, decoder, reduce_to=8),
+                                  tdecode.open_rgb(png, decoder))
 
 
 @pytest.mark.parametrize("name,batch,ok", [("uavid", 2, False), ("uavid", 1, True),

@@ -23,12 +23,12 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cabinet_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 42, names
+assert len(names) >= 44, names
 required = {"cabinet_tpu_torch." + m for m in (
     "cli.train", "cli.common", "core.logging", "core.config", "core.yaml_subset",
     "data.transforms", "data.class_weights", "data.datasets", "train",
     "train.losses", "train.optimizer", "train.ema", "train.early_stopping",
-    "train.trainer", "train.checkpoint")}
+    "train.trainer", "train.checkpoint", "ops.photometric", "ops.geometric")}
 assert required <= set(names), sorted(required - set(names))
 """
 

@@ -15,6 +15,8 @@ from cabinet_tpu_torch.data import transforms as TT
 CASES = [
     ("ResizeIfLarger", dict(max_size=40)),
     ("ResizeIfLarger", dict(max_size=100)),
+    ("ResizeIfLarger", dict(max_size=20, fast=True)),
+    ("ResizeIfLarger", dict(max_size=40, fast=True)),
     ("RandomScale", dict(scales=(0.7, 1.3), continuous=True)),
     ("RandomScale", dict(scales=(0.75, 1.0, 1.25, 1.5, 1.75, 2.0))),
     ("RandomHorizontalFlip", dict(p=0.5)),
@@ -90,5 +92,13 @@ def test_compose_of_a_recipe_matches_jax(recipe, tmp_path):
 
 
 def test_fast_resize_waits_for_the_device_canvas():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TT.ResizeIfLarger(64, fast=True)
+    """ResizeIfLarger(fast=True), the device canvas' resize, as the JAX
+    package's: PIL's box reduce by k = ceil(longest / max) (52 -> 26 even
+    for a cap of 50, and 18), nothing at or under the cap; the label
+    NEAREST to the image's size."""
+    for max_size, size in ((26, (26, 18)), (20, (18, 12)), (50, (26, 18)), (52, (52, 36))):
+        ours, ref = TT.ResizeIfLarger(max_size, fast=True), JT.ResizeIfLarger(max_size, fast=True)
+        got, want = ours(_sample(1), np.random.default_rng(0)), ref(_sample(1), None)
+        assert got["image"].size == got["label"].size == size
+        for key in ("image", "label"):
+            np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]))
