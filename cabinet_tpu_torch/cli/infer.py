@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -83,21 +83,109 @@ def choose_route(mode: str, device_type: str, dtype: torch.dtype, batch: int,
 
 
 def _resize_like_pil(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Resize (1,3,H,W) float 0..255 values as PIL's BILINEAR resizes a
-    uint8 image: a triangle filter widened by the scale on a downscale
-    (anti-aliased), the width first and then the height, each pass rounded
-    half up to a uint8 value. Within one level of PIL on every pixel."""
+    """Resize (B,3,H,W) uint8 levels (a float tensor holding them is cast)
+    as PIL's BILINEAR resizes a uint8 image: the width first and then the
+    height, a triangle filter widened by the scale on a downscale
+    (anti-aliased), each pass rounded to uint8. On the CPU, torch's
+    anti-aliased bilinear on uint8, which follows those two passes with
+    fixed-point weights of its own; on CUDA, which takes no uint8 there,
+    each pass in f32, rounded half up. Within one level of PIL on every
+    pixel either way. Returns uint8."""
+    x = x.to(torch.uint8)
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    if x.device.type == "cpu":
+        return F.interpolate(x, size=tuple(size), mode="bilinear",
+                             align_corners=False, antialias=True)
+
     def one_pass(t, hw):
         t = F.interpolate(t, size=hw, mode="bilinear", align_corners=False,
                           antialias=True)
         return torch.floor(t + 0.5).clamp_(0.0, 255.0)
 
     H, W = x.shape[2:]
+    t = x.float()
     if W != size[1]:
-        x = one_pass(x, (H, size[1]))
+        t = one_pass(t, (H, size[1]))
     if H != size[0]:
-        x = one_pass(x, tuple(size))
-    return x
+        t = one_pass(t, tuple(size))
+    return t.to(torch.uint8)
+
+
+def resize_frame(rgb: torch.Tensor, imgsz: int) -> torch.Tensor:
+    """An RGB uint8 (H,W,3) frame at the engine's fixed resolution, uint8
+    (imgsz, imgsz, 3) on the frame's device, by `_resize_like_pil`'s
+    rule."""
+    if tuple(rgb.shape[:2]) == (imgsz, imgsz):
+        return rgb
+    return _resize_like_pil(rgb.permute(2, 0, 1)[None],
+                            (imgsz, imgsz))[0].permute(1, 2, 0)
+
+
+def check_frame(rgb: np.ndarray) -> np.ndarray:
+    """`rgb` as a C-contiguous array; raises unless it is an RGB uint8
+    (H, W, 3) frame."""
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3 \
+            or 0 in rgb.shape:
+        raise ValueError(f"expected an RGB uint8 (H, W, 3) frame, got "
+                         f"{rgb.shape} {rgb.dtype}")
+    return np.ascontiguousarray(rgb)
+
+
+class BatchStep:
+    """The request path: n RGB uint8 (H,W,3) frames, of any sizes -> uint8
+    class IDs (n, size, size) at the fixed resolution, through `forward`
+    (uint8 (rows, size, size, 3) on `device` -> class IDs (rows, size,
+    size)).
+
+    One copy of the n frames' bytes to the device (through a pinned
+    staging buffer on CUDA, grown as needed and reused from call to call),
+    each frame resized there by `resize_frame`, padding with zero rows up
+    to `rows`, the forward, a cast to uint8 and one copy of the n real rows
+    back, which waits for the device. The counterpart of the JAX server's
+    `_pad_to_regime` and of the JAX engine's host resize. Not for
+    concurrent callers: the staging buffer is shared."""
+
+    def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor],
+                 device: torch.device, size: int):
+        self.forward = forward
+        self.device = torch.device(device)
+        self.size = int(size)
+        self._staging: Optional[torch.Tensor] = None
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def upload(self, frames: Sequence[np.ndarray]) -> list:
+        """The frames as uint8 (H,W,3) tensors on the device, from one
+        copy."""
+        frames = [check_frame(f) for f in frames]
+        if self.device.type != "cuda":
+            return [torch.from_numpy(f).to(self.device) for f in frames]
+        total = sum(f.size for f in frames)
+        if self._copied is not None:  # the last copy out of the staging buffer
+            self._copied.synchronize()
+        st = self._staging
+        if st is None or st.numel() < total:
+            st = self._staging = torch.empty(total, dtype=torch.uint8,
+                                             pin_memory=True)
+        ends = np.cumsum([0] + [f.size for f in frames])
+        for f, a, b in zip(frames, ends, ends[1:]):
+            st[a:b].copy_(torch.from_numpy(f).view(-1))
+        flat = st[:total].to(self.device, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+        return [flat[a:b].view(f.shape)
+                for f, a, b in zip(frames, ends, ends[1:])]
+
+    @torch.no_grad()
+    def __call__(self, frames: Sequence[np.ndarray], rows: int = 0) -> np.ndarray:
+        frames = self.upload(frames)
+        n, s = len(frames), self.size
+        x = torch.empty((max(rows, n), s, s, 3), dtype=torch.uint8,
+                        device=self.device)
+        for i, f in enumerate(frames):
+            x[i] = resize_frame(f, s)
+        x[n:].zero_()
+        return self.forward(x)[:n].to(torch.uint8).cpu().numpy()
 
 
 class Segmenter:
@@ -113,13 +201,16 @@ class Segmenter:
     (its plain version for CPU tensors); without it, the einsum path. The
     chosen route is `self.route`.
 
-    Inputs of another size than `imgsz` are resized as PIL's BILINEAR
-    resizes the uint8 frame in the JAX engine (anti-aliased on a downscale,
-    within one level of PIL per pixel; `_resize_like_pil`), then
-    normalised. Masks go back to the input size with "nearest-exact", PIL
-    NEAREST's pixel-centre rule (the two can pick neighbouring pixels only
-    where a centre falls exactly on a pixel boundary, which float rounding
-    decides in each).
+    A batch of requests is one `BatchStep` (`self.step`): the frames'
+    bytes go to the device in one copy; there a frame of another size than
+    `imgsz` is resized to uint8 as PIL's BILINEAR resizes it in the JAX
+    engine (`resize_frame`: anti-aliased on a downscale, within one level
+    of PIL per pixel), the batch is normalised in f32 and runs the forward
+    and the argmax, and the class IDs come back as uint8 in one copy.
+    Masks go back to the input size with "nearest-exact", PIL NEAREST's
+    pixel-centre rule (the two can pick neighbouring pixels only where a
+    centre falls exactly on a pixel boundary, which float rounding decides
+    in each).
     """
 
     def __init__(self, checkpoint: str, dataset: str, mode: str = "large",
@@ -148,48 +239,54 @@ class Segmenter:
             self.model.to(device=self.device, dtype=self.dtype).eval()
             self._logits = lambda x: self.model(
                 x.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
-            return
-        if self.route == "fused_early":
-            forward = fused.make_fused_apply(self.model, self.device, self.dtype)
         else:
-            forward = fused.make_fused_tail_apply(
-                self.model, self.device, self.dtype,
-                use_early=self.route == "fused_tail_early")
-        self._logits = lambda x: forward(x)[0]
+            if self.route == "fused_early":
+                forward = fused.make_fused_apply(self.model, self.device,
+                                                 self.dtype)
+            else:
+                forward = fused.make_fused_tail_apply(
+                    self.model, self.device, self.dtype,
+                    use_early=self.route == "fused_tail_early")
+            self._logits = lambda x: forward(x)[0]
+        self.step = BatchStep(lambda x: self._forward(self._normalise(x)),
+                              self.device, imgsz)
 
     @torch.no_grad()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B,imgsz,imgsz,3) normalised f32 -> (B,imgsz,imgsz) class IDs."""
         return torch.argmax(self._logits(x.to(self.dtype)), dim=-1)
 
+    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 (..., 3) -> f32 (x / 255 - mean) / std."""
+        return (x.float() / 255.0 - self.mean) / self.std
+
     def _preprocess(self, rgb: np.ndarray) -> torch.Tensor:
-        x = torch.tensor(rgb, device=self.device).permute(2, 0, 1)[None].float()
-        if tuple(x.shape[2:]) != (self.imgsz, self.imgsz):
-            x = _resize_like_pil(x, (self.imgsz, self.imgsz))
-        return (x[0].permute(1, 2, 0) / 255.0 - self.mean) / self.std
+        """One frame as the forward sees it in `self.step`: (imgsz, imgsz,
+        3) normalised f32 on the device."""
+        return self._normalise(resize_frame(self.step.upload([rgb])[0],
+                                            self.imgsz))
 
     @staticmethod
     def _postprocess(pred: torch.Tensor, hw: Tuple[int, int]) -> np.ndarray:
+        """(h, w) class IDs -> (H, W) uint8 at `hw` by "nearest-exact"."""
+        pred = pred.to(torch.uint8)
         if tuple(hw) != tuple(pred.shape):
-            pred = F.interpolate(pred[None, None].float(), size=tuple(hw),
+            pred = F.interpolate(pred[None, None], size=tuple(hw),
                                  mode="nearest-exact")[0, 0]
-        return pred.to(torch.int32).cpu().numpy()
+        return pred.cpu().numpy()
 
     def predict(self, rgb: np.ndarray) -> np.ndarray:
-        """RGB uint8 (H,W,3) -> class-ID mask (H,W) int32, through the fixed
+        """RGB uint8 (H,W,3) -> class-ID mask (H,W) uint8, through the fixed
         resolution and back."""
-        pred = self._forward(self._preprocess(rgb)[None])[0]
-        return self._postprocess(pred, rgb.shape[:2])
+        pred = self.step([rgb], 1)[0]
+        return self._postprocess(torch.from_numpy(pred), rgb.shape[:2])
 
     def predict_batch(self, rgbs) -> list:
-        """List of RGB uint8 frames -> list of class-ID masks. Frames are
-        padded with zeros up to the engine batch."""
-        xs = torch.stack([self._preprocess(r) for r in rgbs])
-        n = len(rgbs)
-        if n < self.batch:
-            xs = F.pad(xs, (0, 0, 0, 0, 0, 0, 0, self.batch - n))
-        preds = self._forward(xs)
-        return [self._postprocess(preds[i], rgbs[i].shape[:2]) for i in range(n)]
+        """List of RGB uint8 frames -> list of uint8 class-ID masks, in one
+        device step padded with zero rows up to the engine batch."""
+        preds = self.step(rgbs, self.batch)
+        return [self._postprocess(torch.from_numpy(p), r.shape[:2])
+                for p, r in zip(preds, rgbs)]
 
 
 def _overlay(rgb: np.ndarray, mask_rgb: np.ndarray, alpha: float) -> np.ndarray:

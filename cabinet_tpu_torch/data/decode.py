@@ -18,6 +18,9 @@ filters, and Adam7 interlacing. The conversions follow PIL's:
 A palette index past the palette's end, a bad CRC, a truncated stream or an
 unknown form raise `DatasetError`; no pixel is guessed.
 
+`decode_rgb` decodes an image held in memory (a request body) as `open_rgb`
+decodes a file, and `encode_png` gives the bytes `save_png` writes.
+
 Other formats (the JPEG images of AeroScapes and VDD) go through the backend
 `decoder` names, "pil" or "cv2", imported when first needed; where it cannot
 be imported, `DatasetError` names it. There is no switch to another backend.
@@ -25,6 +28,7 @@ be imported, `DatasetError` names it. There is no switch to another backend.
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from pathlib import Path
@@ -45,6 +49,10 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+# PIL refuses an image past twice its `Image.MAX_IMAGE_PIXELS` (89478485)
+# as a decompression bomb; so does the reader here
+MAX_PIXELS = 2 * 89_478_485
 
 PathLike = Union[str, Path]
 
@@ -199,7 +207,12 @@ def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
 
 def read_png(path: PathLike) -> PngImage:
     """Decode a PNG file into its samples (see `PngImage`)."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), path)
+
+
+def decode_png(data: bytes, path: PathLike = "<bytes>") -> PngImage:
+    """Decode a PNG held in memory into its samples (see `PngImage`);
+    `path` names it in errors."""
     if not data.startswith(PNG_SIGNATURE):
         raise DatasetError(f"{path}: not a PNG file")
     header, palette, idat = None, None, []
@@ -220,27 +233,44 @@ def read_png(path: PathLike) -> PngImage:
                            f"filter method {filter_method}, interlace {interlace})")
     if ctype == 3 and palette is None:
         raise DatasetError(f"{path}: paletted PNG without a PLTE chunk")
-    try:
-        raw = memoryview(zlib.decompress(b"".join(idat)))
-    except zlib.error as e:
-        raise DatasetError(f"{path}: corrupt PNG image data: {e}") from None
+    if w * h > MAX_PIXELS:
+        raise DatasetError(f"{path}: {w}x{h} PNG exceeds the limit of "
+                           f"{MAX_PIXELS} pixels (a decompression bomb?)")
     channels = _CHANNELS[ctype]
     bpp = max(1, channels * depth // 8)
 
+    def row_bytes(pw):
+        return (pw * channels * depth + 7) // 8
+
+    passes = [(0, 0, 1, 1, w, h)] if interlace == 0 else [
+        (x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy))
+        for x0, y0, dx, dy in _ADAM7]
+    passes = [p for p in passes if p[4] > 0 and p[5] > 0]
+    need = sum(ph * (row_bytes(pw) + 1) for *_, pw, ph in passes)
+    # inflate no more than the header's image needs: a small body can
+    # inflate about 1000:1
+    inflate = zlib.decompressobj()
+    try:
+        raw = memoryview(inflate.decompress(b"".join(idat), need + 1))
+    except zlib.error as e:
+        raise DatasetError(f"{path}: corrupt PNG image data: {e}") from None
+    if len(raw) > need:
+        raise DatasetError(f"{path}: more PNG image data than its {w}x{h} "
+                           "header declares")
+    if not inflate.eof:
+        raise DatasetError(f"{path}: corrupt PNG image data: incomplete or "
+                           "truncated stream")
+
     def one(buf, pw, ph):
-        row_bytes = (pw * channels * depth + 7) // 8
-        rows = _unfilter(buf, ph, row_bytes, bpp, path)
-        return _samples(rows, pw, channels, depth), ph * (row_bytes + 1)
+        rows = _unfilter(buf, ph, row_bytes(pw), bpp, path)
+        return _samples(rows, pw, channels, depth), ph * (row_bytes(pw) + 1)
 
     if interlace == 0:
         samples, _ = one(raw, w, h)
     else:
         samples = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
         pos = 0
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
-            if pw <= 0 or ph <= 0:
-                continue
+        for x0, y0, dx, dy, pw, ph in passes:
             part, used = one(raw[pos:], pw, ph)
             samples[y0::dy, x0::dx] = part
             pos += used
@@ -377,6 +407,23 @@ def open_rgb(path: PathLike, decoder: str = "pil", reduce_to: int = 0) -> np.nda
     return _backend_rgb(path, decoder, reduce_to)
 
 
+def decode_rgb(data: bytes, decoder: str = "pil") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of an encoded image held in memory, as `open_rgb`
+    gives it for a file: PNG through `decode_png`, other formats through the
+    backend `decoder` names."""
+    check_decoder(decoder)
+    if data.startswith(PNG_SIGNATURE):
+        return png_rgb(decode_png(data))
+    lib = _import_backend(decoder)
+    if decoder == "pil":
+        with lib.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGB"))
+    bgr = lib.imdecode(np.frombuffer(data, np.uint8), lib.IMREAD_COLOR)
+    if bgr is None or bgr.ndim != 3 or bgr.dtype != np.uint8:
+        raise DatasetError("cv2 cannot decode this image")
+    return lib.cvtColor(bgr, lib.COLOR_BGR2RGB)
+
+
 def png_size(path: PathLike) -> tuple:
     """(width, height) of a PNG from its IHDR chunk, no pixel decoded."""
     with open(path, "rb") as f:
@@ -406,17 +453,21 @@ def _chunk(ctype: bytes, payload: bytes) -> bytes:
 
 
 def save_png(path: PathLike, array: np.ndarray, compress_level: int = 6) -> None:
-    """Write an (H, W) L or (H, W, 3) RGB uint8 array as an 8-bit PNG, every
-    row with filter 0 (None)."""
+    """Write `encode_png(array, compress_level)` to `path`."""
+    Path(path).write_bytes(encode_png(array, compress_level))
+
+
+def encode_png(array: np.ndarray, compress_level: int = 6) -> bytes:
+    """An (H, W) L or (H, W, 3) RGB uint8 array as the bytes of an 8-bit
+    PNG, every row with filter 0 (None)."""
     a = np.asarray(array)
     if a.dtype != np.uint8 or not (a.ndim == 2 or (a.ndim == 3 and a.shape[2] == 3)):
-        raise ValueError(f"save_png takes (H, W) or (H, W, 3) uint8, got "
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 3) uint8, got "
                          f"{a.shape} {a.dtype}")
     h, w = a.shape[:2]
     rows = np.zeros((h, 1 + a[0].size), np.uint8)
     rows[:, 1:] = a.reshape(h, -1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if a.ndim == 2 else 2, 0, 0, 0)
-    Path(path).write_bytes(
-        PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), compress_level))
-        + _chunk(b"IEND", b""))
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), compress_level))
+            + _chunk(b"IEND", b""))

@@ -85,7 +85,22 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               augmentation seconds, the host ms per canvas frame; and the
               train step at batch 4, 1024^2, bf16 with remat false / 4 /
               true: ms per step and peak memory
-  11. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  11. serve  serving and export at CABiNet-Large, 1024^2, on seeded
+              uavid weights saved as a .pth: (a) `cli/export.py:main` (bf16,
+              symbolic batch, --check on the card), its seconds and bytes,
+              and the artifact's ms/img at batch 1 and 8 beside the kernel
+              route's; (b) `cli/serve.py`'s checkpoint server in bf16
+              (max_batch 8, deadline 3 ms, queue 64) over HTTP on 16
+              1920x1080 PNG frames: 8 solo requests, then 32 concurrent
+              clients x 4 requests (requests/s, p50/p99, mean batch size),
+              every mask held against the plain path by phase 4's rule, K1-K4
+              launched; the host steps' ms apart; (c) backpressure (queue 2,
+              50 ms submit timeout, 32 requests at once): a 503 and no lost
+              request; (d) the f32 server (the f32 K1 and K4, not K2/K3); (e)
+              the server on (a)'s artifact, each batch bit-equal to the live
+              serving module; then, in fresh processes with lazy and with
+              eager module loading, where a server's first requests go
+  12. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -1762,6 +1777,566 @@ def run_device_augs(torch, peaks, paths, tmp: Path):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: serving and export
+# ---------------------------------------------------------------------------
+
+# 1920x1080 frames (UAVid's video size halved), the server's batch ceiling
+# and its deadline, the load of phase 11b and the small frames of 11c.
+SERVE_FRAMES, SERVE_H, SERVE_W, SERVE_SIZE = 16, 1080, 1920, 1024
+SERVE_MAX_BATCH, SERVE_DEADLINE_MS, SERVE_QUEUE = 8, 3.0, 64
+SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 4
+BUSY_FRAMES, BUSY_H, BUSY_W = 8, 180, 320
+
+
+def serve_frames(np, n: int, h: int, w: int, seed: int):
+    """n uint8 frames of uniform noise, as phase 4's: the masks compress
+    poorly, so their PNG encode is at its slowest (zlib stores the
+    bodies as they are, so their inflate is a copy)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def plain_references(torch, ckpt: Path, route: str, dtype, frames, bound: float):
+    """For each frame, as the server resizes it: the plain path's argmax
+    and the pixels whose plain-path margin exceeds twice the forward's
+    logit bound (`bound` of max|logit|), both at the frame's own size by
+    the server's nearest-exact rule."""
+    from cabinet_tpu_torch.cli.infer import Segmenter, resize_frame
+    from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
+
+    plain = plain_forward(torch, ckpt, route, dtype)
+    stats = DATASET_REGISTRY["uavid"]
+    mean = torch.tensor(stats.MEAN, device=DEVICE)
+    std = torch.tensor(stats.STD, device=DEVICE)
+    refs = []
+    for rgb in frames:
+        x = resize_frame(torch.from_numpy(rgb).to(DEVICE), SERVE_SIZE)
+        with torch.no_grad():
+            logits = plain(((x.float() / 255.0 - mean) / std)[None])[0][0].float()
+        top2 = logits.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * bound * float(logits.abs().max())
+        hw = rgb.shape[:2]
+        refs.append((Segmenter._postprocess(logits.argmax(-1), hw),
+                     Segmenter._postprocess(sure, hw).astype(bool)))
+    return refs
+
+
+def hold_masks(answers, refs, min_agree: float, tag: str):
+    """answers: (frame index, mask) pairs, each held against its frame's
+    plain reference by phase 4's rule. Returns (least agreement, least
+    agreement beyond the bound)."""
+    check(len(answers) > 0, f"{tag}: no mask to hold")
+    agree, sure_agree = [], []
+    for i, mask in answers:
+        ref, sure = refs[i]
+        check(mask.shape == ref.shape, f"{tag}: mask {mask.shape}, frame {ref.shape}")
+        same = mask == ref
+        agree.append(float(same.mean()))
+        sure_agree.append(float(same[sure].mean()))
+    check(min(sure_agree) == 1.0 and min(agree) >= min_agree,
+          f"{tag}: agreement {min(agree)}, beyond the bound {min(sure_agree)}")
+    return min(agree), min(sure_agree)
+
+
+def post_raw(url: str, body: bytes, timeout: float = 120.0):
+    """(HTTP status, response body, client ms to the last byte)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"{url}/segment", data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            data, status = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        data, status = e.read(), e.code
+    return status, data, (time.perf_counter() - t0) * 1e3
+
+
+def as_mask(status: int, data: bytes):
+    from cabinet_tpu_torch.data.decode import decode_png, png_mask
+
+    return png_mask(decode_png(data)) if status == 200 else None
+
+
+def post_segment(url: str, body: bytes, timeout: float = 120.0):
+    """(HTTP status, mask or None, client ms to the last byte)."""
+    status, data, ms = post_raw(url, body, timeout)
+    return status, as_mask(status, data), ms
+
+
+class Serving:
+    """`make_server(engine)` on an ephemeral port, served from a thread;
+    on exit the server stops and the engine's batcher closes."""
+
+    def __init__(self, engine):
+        import threading
+
+        from cabinet_tpu_torch.cli.serve import make_server
+
+        self.engine = engine
+        self.server = make_server(engine, "127.0.0.1", 0)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self.url
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.engine.batcher.close()
+        self.thread.join(timeout=10)
+
+
+def percentile(values, p: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p * len(v)))]
+
+
+def load_clients(url: str, folder: str, jobs) -> None:
+    """The load generator, in a process of its own (`concurrent_requests`):
+    one thread per client sends the bodies `folder`/<i>.png of its frame
+    indices in turn, all clients starting together; each answer is written
+    to `folder`/answer_<client>_<k>. Prints one JSON line: [frame index,
+    status, client ms, answer file] per request, and the wall seconds."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = Path(folder)
+    bodies = {i: (root / f"{i}.png").read_bytes() for i in {i for js in jobs for i in js}}
+    barrier = threading.Barrier(len(jobs))
+
+    def client(c):
+        barrier.wait()
+        out = []
+        for k, i in enumerate(jobs[c]):
+            status, data, ms = post_raw(url, bodies[i])
+            path = root / f"answer_{c}_{k}"
+            path.write_bytes(data)
+            out.append([i, status, ms, str(path)])
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        answers = [a for rs in pool.map(client, range(len(jobs))) for a in rs]
+    print(json.dumps({"answers": answers, "wall_s": time.perf_counter() - t0}), flush=True)
+
+
+def concurrent_requests(url: str, bodies, jobs):
+    """`jobs` is a list per client of frame indices, sent in turn by that
+    client; all clients start together, from a process of their own
+    (`load_clients`), so that the load generator's threads do not share
+    the server's interpreter lock. Returns [(frame index, status, mask or
+    None, client ms)] and the clients' wall seconds."""
+    with tempfile.TemporaryDirectory() as folder:
+        for i in {i for js in jobs for i in js}:
+            (Path(folder) / f"{i}.png").write_bytes(bodies[i])
+        code = ("import sys, json; sys.path.insert(0, %r); import chip_smoke; "
+                "chip_smoke.load_clients(%r, %r, json.loads(sys.argv[1]))"
+                % (str(ROOT), url, folder))
+        res = subprocess.run([sys.executable, "-c", code, json.dumps(jobs)],
+                             capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"load clients failed: {res.stderr[-2000:]}")
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        answers = [(i, status, as_mask(status, Path(f).read_bytes()), ms)
+                   for i, status, ms, f in run["answers"]]
+    return answers, run["wall_s"]
+
+
+def export_artifact(torch, ckpt: Path, out: Path):
+    """Phase 11a: `cli/export.py:main` as a user runs it (Large, 1024^2,
+    bf16, symbolic batch, --check on the card). Returns (seconds, bytes)."""
+    from cabinet_tpu_torch.cli.export import main as export_main
+
+    _, seconds, lines = run_cli(export_main, [
+        "--checkpoint", str(ckpt), "--dataset", "uavid", "--out", str(out),
+        "--imgsz", str(SERVE_SIZE), "--batch", "b", "--mode", "large",
+        "--dtype", "bfloat16", "--device", DEVICE, "--check"], "export")
+    check(any("round-trip check passed" in ln for ln in lines), "export --check")
+    return seconds, sum(f.stat().st_size for f in out.iterdir())
+
+
+def artifact_ms(torch, art: Path, ckpt: Path):
+    """ms per image of the artifact (the model's own path, no kernel) and
+    of the kernel route (Segmenter bf16 at batch 8: K4, the fused tail,
+    K1), uint8 in and class IDs out on the card, at batch 1 and 8 (CUDA
+    events, back to back)."""
+    from cabinet_tpu_torch.cli.infer import Segmenter
+    from cabinet_tpu_torch.export import load_artifact
+
+    serve, _ = load_artifact(art, DEVICE)
+    seg = Segmenter(str(ckpt), "uavid", imgsz=SERVE_SIZE, dtype_name="bfloat16",
+                    batch=8, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    x = torch.randint(0, 256, (8, SERVE_SIZE, SERVE_SIZE, 3), generator=gen,
+                      device=DEVICE, dtype=torch.uint8)
+    kernel_route = lambda t: seg._forward(seg._normalise(t))  # noqa: E731
+    out = {}
+    with torch.no_grad():
+        for b in (1, 8):
+            out[f"artifact_ms_per_img_batch{b}"] = time_ms(lambda: serve(x[:b]), iters=10) / b
+            out[f"kernel_route_ms_per_img_batch{b}"] = time_ms(
+                lambda: kernel_route(x[:b]), iters=10) / b
+    return out
+
+
+def host_ms(np, body: bytes, mask, reps: int = 3):
+    """The host steps of one 1920x1080 request, ms each (one thread): the
+    PNG decode, the mask's resize back and its PNG encode (the frame's
+    resize runs in the worker's device step)."""
+    import torch
+
+    from cabinet_tpu_torch.cli.infer import Segmenter
+    from cabinet_tpu_torch.data.decode import decode_rgb, encode_png
+
+    def ms(fn):
+        best = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best.append((time.perf_counter() - t0) * 1e3)
+        return min(best)
+
+    rgb = decode_rgb(body)
+    small = np.zeros((SERVE_SIZE, SERVE_SIZE), np.uint8)
+    return {"decode_ms": ms(lambda: decode_rgb(body)),
+            "mask_resize_ms": ms(lambda: Segmenter._postprocess(
+                torch.from_numpy(small), rgb.shape[:2])),
+            "encode_ms": ms(lambda: encode_png(mask))}
+
+
+def run_serve_bf16(torch, ckpt: Path, bodies, refs):
+    """Phase 11b: the checkpoint server in bf16 (Large, 1024^2, max_batch
+    8, deadline 3 ms, queue 64): 8 solo requests in sequence, then 32
+    concurrent clients of 4 requests each; every mask held against the
+    plain path; K1-K4 launched by the served requests, the engine's
+    warm-up aside."""
+    from cabinet_tpu_torch.cli.serve import _Engine
+
+    t0 = time.perf_counter()
+    engine = _Engine(None, str(ckpt), "uavid", "large", SERVE_SIZE, "bfloat16",
+                     max_batch=SERVE_MAX_BATCH, deadline_ms=SERVE_DEADLINE_MS,
+                     queue_depth=SERVE_QUEUE, device=DEVICE)
+    start_s = time.perf_counter() - t0
+    check(engine.meta["route"] == "fused_tail_early", f"route {engine.meta}")
+    warm = kernel_counts()
+    step, worker_ms = engine.batcher.infer_batch, []
+
+    def timed(xs, regime):  # the worker's device step, host clock
+        t1 = time.perf_counter()
+        out = step(xs, regime)
+        worker_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    engine.batcher.infer_batch = timed
+    with Serving(engine) as url:
+        solo = [(i, *post_segment(url, bodies[i])) for i in range(8)]
+        worker_ms.clear()
+        engine.batcher.reset_stats()
+        n = len(bodies)
+        jobs = [[(c * SERVE_PER_CLIENT + k) % n for k in range(SERVE_PER_CLIENT)]
+                for c in range(SERVE_CLIENTS)]
+        loaded, wall = concurrent_requests(url, bodies, jobs)
+        stats = engine.stats()
+    answers = solo + loaded
+    check(all(s == 200 for _, s, _, _ in answers),
+          f"statuses {sorted({s for _, s, _, _ in answers})}")
+    served = {k: n - warm[k] for k, n in kernel_counts().items()}
+    check(all(served[k] > 0 for k in TAIL + ("stem_block0",)),
+          f"serve bf16: the requests launched {served} (the warm-up {warm})")
+    agree = hold_masks([(i, m) for i, _, m, _ in answers], refs, 0.99, "serve bf16")
+    check(stats["mean_batch_size"] > 1, f"mean batch size {stats['mean_batch_size']}")
+    check(stats["requests"] == len(loaded) and stats["errors"] == 0, f"stats {stats}")
+    client_ms = [ms for _, _, _, ms in loaded]
+    return {
+        "engine_start_s": start_s, "warmup_ms": engine.warmup_ms,
+        "launches_warmup": warm, "launches_served": served,
+        "first_request_ms": solo[0][3],
+        "solo_p50_ms_after_first": percentile([ms for *_, ms in solo[1:]], 0.5),
+        "requests": len(loaded), "wall_s": wall,
+        "client_requests_per_s": len(loaded) / wall,
+        "client_latency_ms_p50": percentile(client_ms, 0.5),
+        "client_latency_ms_p99": percentile(client_ms, 0.99),
+        "server": stats, "least_agreement": agree[0],
+        "agreement_beyond_bound": agree[1],
+        "worker_step_ms_p50": percentile(worker_ms, 0.5),
+        "worker_step_ms_max": max(worker_ms),
+        "worker_busy_share": sum(worker_ms) / 1e3 / wall}
+
+
+def run_backpressure(torch, ckpt: Path, bodies, refs):
+    """Phase 11c: queue 2, submit timeout 50 ms, 32 requests at once: at
+    least one 503, every other answer a correct mask, no client past 30 s,
+    close() within its join timeout."""
+    from cabinet_tpu_torch.cli.serve import _Engine
+
+    engine = _Engine(None, str(ckpt), "uavid", "large", SERVE_SIZE, "bfloat16",
+                     max_batch=SERVE_MAX_BATCH, deadline_ms=SERVE_DEADLINE_MS,
+                     queue_depth=2, submit_timeout_s=0.05, device=DEVICE)
+    with Serving(engine) as url:
+        answers, wall = concurrent_requests(
+            url, bodies, [[c % len(bodies)] for c in range(32)])
+        t0 = time.perf_counter()
+        engine.batcher.close()
+        close_s = time.perf_counter() - t0
+    statuses = [s for _, s, _, _ in answers]
+    busy = statuses.count(503)
+    check(busy >= 1, f"no 503 under backpressure: {statuses}")
+    check(all(s in (200, 503) for s in statuses), f"statuses {statuses}")
+    hold_masks([(i, m) for i, s, m, _ in answers if s == 200], refs, 0.99,
+               "backpressure")
+    slowest = max(ms for *_, ms in answers)
+    check(slowest < 30e3, f"a client waited {slowest} ms")
+    check(close_s < 5.0, f"close() took {close_s} s")
+    return {"responses_503": busy, "responses_200": statuses.count(200),
+            "slowest_client_ms": slowest, "close_s": close_s, "wall_s": wall}
+
+
+def run_serve_f32(torch, ckpt: Path, bodies, refs):
+    """Phase 11d: the float32 server, 8 concurrent requests: the f32 K1 and
+    K4 launched, K2 and K3 not; masks against the f32 plain path."""
+    from cabinet_tpu_torch.cli.serve import _Engine
+
+    engine = _Engine(None, str(ckpt), "uavid", "large", SERVE_SIZE, "float32",
+                     max_batch=SERVE_MAX_BATCH, deadline_ms=SERVE_DEADLINE_MS,
+                     device=DEVICE)
+    check(engine.meta["route"] == "fused_early", f"route {engine.meta}")
+    warm = kernel_counts()
+    with Serving(engine) as url:
+        answers, _ = concurrent_requests(url, bodies, [[i] for i in range(8)])
+        stats = engine.stats()
+    check(all(s == 200 for _, s, _, _ in answers), "f32 statuses")
+    counts = kernel_counts()
+    served = {k: n - warm[k] for k, n in counts.items()}
+    check(served["attention_f32"] > 0 and served["stem_block0"] > 0
+          and counts["attention"] == counts["ffm_pointwise"] == counts["head_conv3x3"] == 0,
+          f"f32 server launches {served} (the warm-up {warm})")
+    agree = hold_masks([(i, m) for i, _, m, _ in answers], refs, 0.999, "serve f32")
+    return {"server": stats, "least_agreement": agree[0],
+            "agreement_beyond_bound": agree[1]}
+
+
+def run_artifact_server(torch, art: Path, ckpt: Path, frames, bodies):
+    """Phase 11e: the server on 11a's artifact, 8 concurrent requests: no
+    kernel launched; each batch the worker ran equal, bit for bit, to the
+    live make_serving_fn on the same frames resized and padded by the same
+    rule, and each answer to its row brought to the frame's size."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.infer import Segmenter, load_state_dict, resize_frame
+    from cabinet_tpu_torch.cli.serve import _Engine
+    from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
+    from cabinet_tpu_torch.export import make_serving_fn
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    engine = _Engine(str(art), None, None, "large", SERVE_SIZE, "bfloat16",
+                     max_batch=SERVE_MAX_BATCH, deadline_ms=SERVE_DEADLINE_MS,
+                     device=DEVICE)
+    batches = []
+    infer = engine.batcher.infer_batch
+
+    def recorded(xs, regime):
+        out = infer(xs, regime)
+        batches.append((list(xs), regime, out.copy()))
+        return out
+
+    engine.batcher.infer_batch = recorded
+    with Serving(engine) as url:
+        answers, _ = concurrent_requests(url, bodies, [[i] for i in range(8)])
+        stats = engine.stats()
+    check(all(s == 200 for _, s, _, _ in answers), "artifact statuses")
+    check(all(n == 0 for n in kernel_counts().values()),
+          f"the artifact launched {kernel_counts()}")
+    stats_ds = DATASET_REGISTRY["uavid"]
+    model = CABiNet(8, "large", attention="einsum")
+    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    live = make_serving_fn(model, stats_ds.MEAN, stats_ds.STD, torch.bfloat16).to(DEVICE)
+    rows = []
+    with torch.no_grad():
+        for xs, regime, out in batches:
+            x = torch.zeros((regime, SERVE_SIZE, SERVE_SIZE, 3), dtype=torch.uint8,
+                            device=DEVICE)
+            for j, f in enumerate(xs):
+                x[j] = resize_frame(torch.from_numpy(f).to(DEVICE), SERVE_SIZE)
+            want = live(x)[:len(xs)].to(torch.uint8).cpu().numpy()
+            check(np.array_equal(want, out), f"artifact batch (regime {regime}) "
+                  f"differs from the live module on {int((want != out).sum())} pixels")
+            rows += list(zip(xs, out))
+    for i, _, mask, _ in answers:
+        row = next(o for f, o in rows if np.array_equal(f, frames[i]))
+        check(np.array_equal(mask, Segmenter._postprocess(torch.from_numpy(row),
+                                                          frames[i].shape[:2])),
+              f"artifact answer {i} is not its batch row")
+    return {"server": stats, "batches": [(len(xs), r) for xs, r, _ in batches]}
+
+
+def cold_start(ckpt: Path, loading: str) -> dict:
+    """Where a fresh server process's first requests go, in a child with
+    CUDA_MODULE_LOADING=`loading` (`cold_start_child`)."""
+    import os
+
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "chip_smoke.cold_start_child(%r)" % (str(ROOT), str(ckpt)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "CUDA_MODULE_LOADING": loading})
+    check(res.returncode == 0, f"cold start ({loading}) failed: {res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def cold_start_child(ckpt: str) -> None:
+    """In a fresh process, host clock, each ending in a synchronize: the
+    imports; the first CUDA call; the first cuBLAS and cuDNN calls (their
+    handles and libraries); the kernels' ctypes loads; `_Engine`'s build
+    with its first forward at each regime (`warmup_ms`: what each regime's
+    first request would pay without it, the loads above aside); the first
+    request after it and the next ones; then, after
+    `torch.cuda.empty_cache()`, one forward per regime again (the
+    allocator's growth alone: cuDNN's plans and the modules stay loaded)
+    and once more warm. Prints one JSON line."""
+    out = {}
+
+    def lap(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from cabinet_tpu_torch.cli.serve import _Engine, _regimes
+    from cabinet_tpu_torch.ops import _build
+    out["import_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lap("cuda_init_ms", lambda: torch.zeros(1, device=DEVICE))
+    a = torch.ones(64, 64, device=DEVICE)
+    lap("cublas_first_ms", lambda: a @ a)
+    lap("cudnn_first_ms", lambda: torch.nn.functional.conv2d(
+        torch.ones(1, 3, 16, 16, device=DEVICE), torch.ones(4, 3, 3, 3, device=DEVICE)))
+    lap("ctypes_load_ms", lambda: [_build.load(s) for s in _build.SOURCES])
+    engine = lap("engine_ms", lambda: _Engine(
+        None, ckpt, "uavid", "large", SERVE_SIZE, "bfloat16",
+        max_batch=SERVE_MAX_BATCH, device=DEVICE))
+    out["warmup_ms"] = engine.warmup_ms
+    frame = np.random.default_rng(3).integers(0, 256, (SERVE_H, SERVE_W, 3), dtype=np.uint8)
+    after = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        engine.predict(frame)
+        after.append((time.perf_counter() - t1) * 1e3)
+    out["first_request_ms_after_warmup"], out["next_requests_ms"] = after[0], after[1:]
+    blank = np.zeros((SERVE_SIZE, SERVE_SIZE, 3), np.uint8)
+    step = engine.batcher.infer_batch
+    for tag in ("after_empty_cache_ms", "warm_ms"):
+        if tag == "after_empty_cache_ms":
+            torch.cuda.empty_cache()
+        out[tag] = {}
+        for r in _regimes(SERVE_MAX_BATCH):
+            t1 = time.perf_counter()
+            step([blank], r)
+            out[tag][r] = (time.perf_counter() - t1) * 1e3
+    out["reserved_mib"] = torch.cuda.memory_reserved() / 2 ** 20
+    engine.batcher.close()
+    print(json.dumps(out), flush=True)
+
+
+def run_serve(torch, paths, tmp: Path) -> dict:
+    """Phase 11: export, the bf16 server, backpressure, the f32 server and
+    the artifact server, each main path driven with the counts set to 0
+    just before it; then a fresh process's first requests."""
+    import numpy as np
+
+    from cabinet_tpu_torch.data.decode import encode_png
+
+    ckpt = tmp / "uavid_large_seeded.pth"
+    seeded_uavid_checkpoint(torch, ckpt)
+    art = tmp / "artifact"
+    out = {}
+    out["export_s"], out["artifact_bytes"] = paths.drive(
+        "export_main", export_artifact, torch, ckpt, art)
+    out.update(artifact_ms(torch, art, ckpt))
+
+    frames = serve_frames(np, SERVE_FRAMES, SERVE_H, SERVE_W, seed=71)
+    bodies = [encode_png(f) for f in frames]
+    refs = plain_references(torch, ckpt, "fused_tail_early", torch.bfloat16, frames,
+                            BOUND_FORWARD)
+    out["bf16"] = paths.drive("serve_bf16", run_serve_bf16, torch, ckpt, bodies, refs)
+    counts = paths.per_path["serve_bf16"]
+    check(all(counts[k] > 0 for k in TAIL + ("stem_block0",)), f"serve bf16 launches {counts}")
+    out["host"] = host_ms(np, bodies[0], refs[0][0])
+
+    small = serve_frames(np, BUSY_FRAMES, BUSY_H, BUSY_W, seed=73)
+    small_refs = plain_references(torch, ckpt, "fused_tail_early", torch.bfloat16,
+                                  small, BOUND_FORWARD)
+    out["backpressure"] = paths.drive("serve_backpressure", run_backpressure, torch,
+                                      ckpt, [encode_png(f) for f in small], small_refs)
+
+    refs_f32 = plain_references(torch, ckpt, "fused_early", torch.float32, frames[:8],
+                                BOUND_FORWARD_F32)
+    out["f32"] = paths.drive("serve_f32", run_serve_f32, torch, ckpt, bodies[:8], refs_f32)
+    out["artifact"] = paths.drive("serve_artifact", run_artifact_server, torch, art,
+                                  ckpt, frames[:8], bodies[:8])
+    out["cold"] = {loading: cold_start(ckpt, loading) for loading in ("LAZY", "EAGER")}
+    return out
+
+
+def first_use(cold: dict) -> dict:
+    """Where a fresh server's first requests go, summed over the regimes,
+    ms: the allocator's growth (the first forward after `empty_cache`
+    against a warm one), cuDNN's heuristics and the other first calls of a
+    shape (the first forward against the one after `empty_cache`, with
+    every module loaded at start-up), and the lazy module loads (the same
+    difference with lazy loading, less the eager run's)."""
+    def first_over_regrown(run):
+        return sum(run["warmup_ms"].values()) - sum(run["after_empty_cache_ms"].values())
+
+    lazy, eager = cold["LAZY"], cold["EAGER"]
+    return {
+        "allocator_growth_ms": sum(lazy["after_empty_cache_ms"].values())
+        - sum(lazy["warm_ms"].values()),
+        "cudnn_heuristics_and_first_calls_ms": first_over_regrown(eager),
+        "lazy_module_loads_ms": first_over_regrown(lazy) - first_over_regrown(eager),
+        "eager_module_loads_at_init_ms": eager["cuda_init_ms"] - lazy["cuda_init_ms"]}
+
+
+def say_serve(smi: str, served: dict) -> None:
+    bf16, host, busy = served["bf16"], served["host"], served["backpressure"]
+    for loading, run in served["cold"].items():
+        say("serve", part="cold_start", CUDA_MODULE_LOADING=loading, **run)
+    say("serve", part="first_use", **first_use(served["cold"]))
+    say("serve", card=smi, export_s=served["export_s"],
+        artifact_bytes=served["artifact_bytes"],
+        **{k: v for k, v in served.items() if k.endswith(("batch1", "batch8"))},
+        requests_per_s=bf16["server"]["requests_per_s"],
+        latency_ms_p50=bf16["server"]["latency_ms_p50"],
+        latency_ms_p99=bf16["server"]["latency_ms_p99"],
+        mean_batch_size=bf16["server"]["mean_batch_size"],
+        batches=bf16["server"]["batches"],
+        client_requests_per_s=bf16["client_requests_per_s"],
+        client_latency_ms_p50=bf16["client_latency_ms_p50"],
+        client_latency_ms_p99=bf16["client_latency_ms_p99"],
+        worker_step_ms_p50_under_load=bf16["worker_step_ms_p50"],
+        worker_step_ms_max_under_load=bf16["worker_step_ms_max"],
+        worker_busy_share=bf16["worker_busy_share"],
+        worker_step_ms_alone_fresh_process=served["cold"]["LAZY"]["warm_ms"],
+        first_request_ms=bf16["first_request_ms"],
+        solo_p50_ms_after_first=bf16["solo_p50_ms_after_first"],
+        first_request_ms_fresh_process_after_warmup=served["cold"]["LAZY"][
+            "first_request_ms_after_warmup"],
+        first_forward_ms_fresh_process_by_regime=served["cold"]["LAZY"]["warmup_ms"],
+        engine_start_s=bf16["engine_start_s"], agreement=bf16["least_agreement"],
+        host_ms=host, responses_503=busy["responses_503"],
+        responses_200=busy["responses_200"], close_s=busy["close_s"],
+        f32_agreement=served["f32"]["least_agreement"],
+        artifact_batches=served["artifact"]["batches"])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1863,6 +2438,9 @@ def main() -> int:
            for k, v in augs["runs"].items()},
         **{f"{k}_loader_wait_share": v["loader_wait_share"] for k, v in augs["runs"].items()},
         **augs["host"])
+    with tempfile.TemporaryDirectory() as tmp:
+        served = run_serve(torch, paths, Path(tmp))
+    say_serve(smi, served)
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")

@@ -23,6 +23,20 @@ wrapper's split count `key_splits` replaced by each of 1, 2, 4, 8 and 16
 (at most one a key tile): rows named `attention splits=S` and
 `attention_f32 splits=S`. A checkout whose wrapper does not call
 `key_splits` for a dtype gives that dtype's rows the same time at every S.
+
+With `--requests`, it times the request path instead of the kernels:
+`Segmenter.predict` (batch 1, bf16, CABiNet-Large at 1024^2 from seeded
+weights) and `Segmenter.predict_batch` (batch 8, 8 frames a call), on
+uint8 frames of 1920x1080, 3840x2160 and 1024x1024 (noise from a seed), one
+JSON line per call and size with `ms_per_img`: the median of 5 calls on the
+host's clock (a call returns masks on the host), after 2 untimed calls.
+
+With `--serve`, it times the checkpoint server of a checkout that has
+one (`cli/serve.py`) as `chip_smoke.py` phase 11 loads it: bf16 Large at
+1024^2, max_batch 8, 8 solo requests and then 32 clients x 4 requests of
+1920x1080 noise PNGs from another process; one JSON line with the
+server's stats, the clients' rate and latencies and the worker's step
+(host clock) under load. The masks are not checked here (phase 11 does).
 """
 
 from __future__ import annotations
@@ -64,12 +78,105 @@ def packed_views(torch, ws):
     return tuple(buf[a:b].view(t.shape) for t, a, b in zip(ws, ends, ends[1:]))
 
 
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def time_requests(torch, label: str, smi: str) -> int:
+    """`--requests`: the request path's ms per image (see the module's
+    docstring)."""
+    import tempfile
+    import time
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.infer import Segmenter
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "uavid_large_seeded.pth"
+        chip_smoke.seeded_uavid_checkpoint(torch, ckpt)
+        segs = {b: Segmenter(str(ckpt), "uavid", imgsz=1024, dtype_name="bfloat16",
+                             batch=b, device=chip_smoke.DEVICE) for b in (1, 8)}
+    rng = np.random.default_rng(0)
+    for hw in ((1080, 1920), (2160, 3840), (1024, 1024)):
+        frames = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(8)]
+        for name, fn, n in (
+                ("predict", lambda: [segs[1].predict(f) for f in frames], 8),
+                ("predict_batch", lambda: segs[8].predict_batch(frames), 8)):
+            ms = []
+            for k in range(7):
+                t0 = time.perf_counter()
+                fn()
+                if k >= 2:
+                    ms.append((time.perf_counter() - t0) * 1e3 / n)
+            print(json.dumps({"label": label, "card": smi, "name": name,
+                              "shape": f"{hw[1]}x{hw[0]}",
+                              "ms_per_img": statistics.median(ms)}), flush=True)
+    return 0
+
+
+def time_server(torch, label: str, smi: str) -> int:
+    """`--serve`: the checkpoint server's rate and latencies (see the
+    module's docstring)."""
+    import tempfile
+    import time
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.serve import _Engine
+    from cabinet_tpu_torch.data.decode import encode_png
+
+    cs = chip_smoke
+    frames = cs.serve_frames(np, cs.SERVE_FRAMES, cs.SERVE_H, cs.SERVE_W, seed=71)
+    bodies = [encode_png(f) for f in frames]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "uavid_large_seeded.pth"
+        cs.seeded_uavid_checkpoint(torch, ckpt)
+        engine = _Engine(None, str(ckpt), "uavid", "large", cs.SERVE_SIZE, "bfloat16",
+                         max_batch=cs.SERVE_MAX_BATCH, deadline_ms=cs.SERVE_DEADLINE_MS,
+                         queue_depth=cs.SERVE_QUEUE, device=cs.DEVICE)
+    step, worker_ms = engine.batcher.infer_batch, []
+
+    def timed(xs, regime):
+        t0 = time.perf_counter()
+        out = step(xs, regime)
+        worker_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.batcher.infer_batch = timed
+    with cs.Serving(engine) as url:
+        solo = [cs.post_raw(url, bodies[i])[2] for i in range(8)]
+        worker_ms.clear()
+        engine.batcher.reset_stats()
+        jobs = [[(c * cs.SERVE_PER_CLIENT + k) % len(bodies) for k in range(cs.SERVE_PER_CLIENT)]
+                for c in range(cs.SERVE_CLIENTS)]
+        answers, wall = cs.concurrent_requests(url, bodies, jobs)
+        stats = engine.stats()
+    client_ms = [ms for *_, ms in answers]
+    print(json.dumps({
+        "label": label, "card": smi, "name": "serve",
+        "shape": f"{cs.SERVE_W}x{cs.SERVE_H} {cs.SERVE_CLIENTS}x{cs.SERVE_PER_CLIENT}",
+        "statuses": sorted({s for _, s, _, _ in answers}), "server": stats,
+        "client_requests_per_s": len(answers) / wall,
+        "client_latency_ms_p50": cs.percentile(client_ms, 0.5),
+        "client_latency_ms_p99": cs.percentile(client_ms, 0.99),
+        "solo_ms": solo, "worker_step_ms_p50": cs.percentile(worker_ms, 0.5),
+        "worker_step_ms_max": max(worker_ms)}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent)
     ap.add_argument("--label", default="")
     ap.add_argument("--splits", action="store_true",
                     help="also sweep K1's split count")
+    ap.add_argument("--requests", action="store_true",
+                    help="time Segmenter.predict/predict_batch instead")
+    ap.add_argument("--serve", action="store_true",
+                    help="time the checkpoint server instead")
     args = ap.parse_args()
 
     import torch
@@ -78,6 +185,10 @@ def main() -> int:
         print("kernel_times: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.root.resolve()))
+    if args.requests:
+        return time_requests(torch, args.label, card())
+    if args.serve:
+        return time_server(torch, args.label, card())
     from cabinet_tpu_torch.ops import attention as attn
     from cabinet_tpu_torch.ops import decoder_tail as dt
     from cabinet_tpu_torch.ops import early_stage as es
@@ -114,9 +225,7 @@ def main() -> int:
     if args.splits:
         cases += sweep
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     for name, shape, fn in cases:
         ms = [chip_smoke.time_ms(fn) for _ in range(REPEATS)]
         dms = [chip_smoke.graph_ms(fn) for _ in range(REPEATS)]

@@ -673,3 +673,182 @@ def test_train_main_with_device_augs_on_cuda(gen, tmp_path):
     assert all(math.isfinite(ln["train_loss"]) for ln in lines if "epoch" in ln)
     assert res["timing"]["device_aug_seconds"] > 0 and res["timing"]["optimizer_steps"] == 4
     assert len(list((tmp_path / "cache" / "cityscapes_train").iterdir())) == 4
+
+
+def _seeded_large(path, seed=0):
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    torch.manual_seed(seed)
+    model = CABiNet(8, "large")
+    with torch.no_grad():
+        model.ab.a2block.gamma.fill_(0.5)
+        torch.nn.init.normal_(model.ab.a2block.global_attn.project_out.weight, 0, 0.05)
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def test_predict_batch_copies_once_each_way_on_cuda(gen, tmp_path):
+    """`Segmenter.predict_batch` (bf16, batch 8, K1-K4) makes one
+    host-to-device copy (the frames' bytes at their own size, pinned; the
+    resize runs on the card) and one device-to-host copy (the uint8 class
+    IDs of the real rows) per batch, as the profiler's memcpy records
+    show."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from cabinet_tpu_torch.cli.infer import Segmenter
+
+    seg = Segmenter(str(_seeded_large(tmp_path / "l.pth")), "uavid", imgsz=256,
+                    dtype_name="bfloat16", batch=8, device="cuda")
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (300, 200, 3), dtype=np.uint8) for _ in range(5)]
+    seg.predict_batch(frames)  # first call: allocations, cuDNN plans
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        masks = seg.predict_batch(frames)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert sum("Memcpy HtoD" in n for n in names) == 1, sorted(set(names))
+    assert sum("Memcpy DtoH" in n for n in names) == 1, sorted(set(names))
+    assert [m.shape for m in masks] == [(300, 200)] * 5
+    assert all(m.dtype == np.uint8 for m in masks)
+
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (2160, 3840), (700, 1000), (200, 300)])
+def test_frame_resize_on_cuda_follows_pil_bilinear(gen, hw):
+    """The request path's resize on the card (`resize_frame`, each pass in
+    f32 rounded half up) against PIL's BILINEAR on the uint8 frame, down
+    and up to 1024^2: within one level on every pixel and equal on >= 99%
+    of them, as tests/test_torch_slice.py holds the CPU's uint8 form; and
+    within one level of the CPU's form."""
+    import numpy as np
+    from PIL import Image
+
+    from cabinet_tpu_torch.cli.infer import resize_frame
+
+    rgb = np.random.default_rng(hw[0]).integers(0, 256, (*hw, 3), dtype=np.uint8)
+    pil = np.asarray(Image.fromarray(rgb).resize((1024, 1024), Image.BILINEAR))
+    got = resize_frame(torch.from_numpy(rgb).cuda(), 1024)
+    assert got.dtype == torch.uint8 and got.shape == (1024, 1024, 3)
+    got = got.cpu().numpy().astype(np.int64)
+    diff = np.abs(got - pil)
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+    cpu = resize_frame(torch.from_numpy(rgb), 1024).numpy().astype(np.int64)
+    assert np.abs(got - cpu).max() <= 1
+
+
+def test_batch_step_on_cuda_keeps_each_frame_on_its_row(gen):
+    """On the card, `BatchStep` packs frames of mixed sizes into one pinned
+    staging buffer (grown and reused across calls of other sizes) and
+    answers each frame with its own row, equal to `resize_frame` of that
+    frame alone on the card."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.infer import BatchStep, resize_frame
+
+    step = BatchStep(lambda x: x[..., 2], "cuda", 256)
+    rng = np.random.default_rng(3)
+    for sizes in ([(1080, 1920), (256, 256), (1080, 1920), (300, 200)],
+                  [(2160, 3840)] * 2, [(256, 256)]):
+        frames = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for hw in sizes]
+        out = step(frames, 4)
+        assert out.shape == (len(frames), 256, 256)
+        for f, row in zip(frames, out):
+            want = resize_frame(torch.from_numpy(f).cuda(), 256)[..., 2].cpu().numpy()
+            np.testing.assert_array_equal(row, want)
+
+
+def test_serve_route_on_cuda_launches_k1_to_k4(gen, tmp_path):
+    """The checkpoint server in bf16 at max_batch 8 answers concurrent PNG
+    requests through K1, K2, K3 and K4, and its masks agree with the plain
+    path's argmax on the same resized frames on >= 99% of pixels."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.infer import load_state_dict, resize_frame
+    from cabinet_tpu_torch.cli.serve import _Engine, make_server
+    from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
+    from cabinet_tpu_torch.data.decode import decode_png, encode_png, png_mask
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.models.fused import make_fused_tail_apply
+    from cabinet_tpu_torch.ops.early_stage import fused_stem_block0
+
+    ckpt = _seeded_large(tmp_path / "l.pth")
+    engine = _Engine(None, str(ckpt), "uavid", "large", 256, "bfloat16",
+                     max_batch=8, deadline_ms=20.0, device="cuda")
+    assert engine.meta["route"] == "fused_tail_early"
+    counters = [(attn.fused_global_attention, "launches"), (dt.ffm_pointwise, "launches"),
+                (dt.head_conv3x3, "launches"), (fused_stem_block0, "launches")]
+    before = [getattr(f, a) for f, a in counters]
+    srv = make_server(engine, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/segment"
+    rng = np.random.default_rng(1)
+    frames = [rng.integers(0, 256, (270, 480, 3), dtype=np.uint8) for _ in range(8)]
+
+    def one(rgb):
+        req = urllib.request.Request(url, data=encode_png(rgb), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return png_mask(decode_png(r.read()))
+
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            masks = list(pool.map(one, frames))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.batcher.close()
+    after = [getattr(f, a) for f, a in counters]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+
+    plain_model = CABiNet(8, "large", attention="plain")
+    plain_model.load_state_dict(load_state_dict(ckpt, plain_model), strict=True)
+    plain = make_fused_tail_apply(plain_model, "cuda", torch.bfloat16, kernels=False,
+                                  use_early=True)
+    stats = DATASET_REGISTRY["uavid"]
+    mean = torch.tensor(stats.MEAN, device="cuda")
+    std = torch.tensor(stats.STD, device="cuda")
+    for rgb, mask in zip(frames, masks):
+        x = resize_frame(torch.from_numpy(rgb).cuda(), 256)
+        with torch.no_grad():
+            logits = plain(((x.float() / 255.0 - mean) / std)[None])[0][0]
+        ref = torch.nn.functional.interpolate(
+            logits.argmax(-1).to(torch.uint8)[None, None], size=(270, 480),
+            mode="nearest-exact")[0, 0].cpu().numpy()
+        assert mask.shape == (270, 480)
+        assert (mask == ref).mean() >= 0.99
+
+
+def test_cuda_export_roundtrip_is_bit_equal(gen, tmp_path, capsys):
+    """cli.export on the card (Large, bf16, symbolic batch, --check) and the
+    loaded CUDA program at batch 1 and 3 against the live serving module,
+    bit for bit with cuDNN's autotuner off; the CUDA artifact refuses to
+    load for the CPU."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.export import main
+    from cabinet_tpu_torch.cli.infer import load_state_dict
+    from cabinet_tpu_torch.export import load_artifact, make_serving_fn
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    ckpt = _seeded_large(tmp_path / "l.pth")
+    out = tmp_path / "art"
+    main(["--checkpoint", str(ckpt), "--dataset", "uavid", "--out", str(out),
+          "--imgsz", "256", "--batch", "b", "--dtype", "bfloat16", "--check"])
+    assert "round-trip check passed" in capsys.readouterr().out
+    serve, meta = load_artifact(out, "cuda")
+    assert meta["device"] == "cuda" and meta["batch"] == "b"
+    model = CABiNet(8, "large", attention="einsum")
+    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    live = make_serving_fn(model, meta["mean"], meta["std"], torch.bfloat16).cuda()
+    torch.backends.cudnn.benchmark = False
+    for b in (1, 3):
+        x = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 256, (b, 256, 256, 3), dtype=np.uint8)).cuda()
+        with torch.no_grad():
+            assert torch.equal(serve(x), live(x))
+    with pytest.raises(ValueError, match="exported for cuda, not cpu"):
+        load_artifact(out, "cpu")

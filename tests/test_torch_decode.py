@@ -246,6 +246,51 @@ def test_broken_files_raise_dataset_error(tmp_path):
         decode.open_rgb(short)
 
 
+@pytest.mark.parametrize("side,error", [(20000, "exceeds the limit"),
+                                        (64, "more PNG image data")])
+def test_decompression_bomb_is_refused_without_inflating_it(side, error):
+    """A 64 KiB PNG whose image data inflates to 64 MiB: with a header past
+    PIL's pixel limit it is refused before inflating, with a 64x64 header
+    after inflating what 64x64 needs; neither allocates more than 1 MiB."""
+    import tracemalloc
+
+    def chunk(t, p):
+        return struct.pack(">I", len(p)) + t + p + struct.pack(">I", zlib.crc32(t + p))
+
+    body = (decode.PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", side, side, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(64 << 20), 9)) + chunk(b"IEND", b""))
+    assert len(body) < 128 << 10
+    tracemalloc.start()
+    try:
+        with pytest.raises(DatasetError, match=error):
+            decode.decode_png(body)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 1 << 20
+
+
+def test_png_stream_must_end_with_the_image():
+    """Image data cut short inside the zlib stream is corrupt, as
+    `zlib.decompress` had it."""
+    def chunk(t, p):
+        return struct.pack(">I", len(p)) + t + p + struct.pack(">I", zlib.crc32(t + p))
+
+    rows = bytes(8 * (1 + 8 * 3))
+    for data, error in ((zlib.compress(rows)[:-4], "truncated stream"),
+                        (zlib.compress(rows[:-5]), "truncated PNG image data")):
+        body = (decode.PNG_SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", data) + chunk(b"IEND", b""))
+        with pytest.raises(DatasetError, match=error):
+            decode.decode_png(body)
+    ok = (decode.PNG_SIGNATURE
+          + chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 8, 2, 0, 0, 0))
+          + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+    assert decode.png_rgb(decode.decode_png(ok)).shape == (8, 8, 3)
+
+
 def test_jpeg_goes_through_the_named_decoder(tmp_path, monkeypatch):
     """JPEG with decoder="pil" equals the JAX open_rgb; with the backend not
     importable it raises DatasetError naming the package, never switching."""
@@ -269,3 +314,51 @@ def test_jpeg_goes_through_the_named_decoder(tmp_path, monkeypatch):
     # PNG needs neither backend
     png = write_png(tmp_path / "x.png", np.zeros((H, W, 3), np.uint8), 2, 8, 0)
     assert decode.open_rgb(png, "cv2").shape == (H, W, 3)
+
+
+@pytest.mark.parametrize("writer", ["pil", "cv2"])
+def test_bytes_decoding_equals_path_decoding(tmp_path, writer):
+    """decode_rgb of a file's bytes (a request body) equals open_rgb of the
+    file: every PNG file PIL and cv2 write, an interlaced one with every
+    filter, and a JPEG through the named backend."""
+    rng = np.random.default_rng(4)
+    paths = list((_pil_files if writer == "pil" else _cv2_files)(tmp_path, rng).values())
+    paths.append(write_png(tmp_path / "i.png", _samples(rng, 2, 8), 2, 8, "cycle",
+                           interlace=1))
+    for path in paths:
+        np.testing.assert_array_equal(decode.decode_rgb(path.read_bytes(), writer),
+                                      decode.open_rgb(path, writer))
+    jpg = tmp_path / "a.jpg"
+    Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).save(jpg, quality=90)
+    np.testing.assert_array_equal(decode.decode_rgb(jpg.read_bytes(), writer),
+                                  decode.open_rgb(jpg, writer))
+    data = paths[0].read_bytes()
+    with pytest.raises(DatasetError):
+        decode.decode_rgb(data[:len(data) // 2])
+
+
+def _png_as_written_before(a, level):
+    """The file save_png wrote before it was split into encode_png and a
+    write: 8-bit L or RGB, filter 0 on every row, one IDAT."""
+    def chunk(t, p):
+        return struct.pack(">I", len(p)) + t + p + struct.pack(">I", zlib.crc32(t + p))
+
+    h, w = a.shape[:2]
+    rows = np.zeros((h, 1 + a[0].size), np.uint8)
+    rows[:, 1:] = a.reshape(h, -1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if a.ndim == 2 else 2, 0, 0, 0)
+    return (decode.PNG_SIGNATURE + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("level", [1, 6])
+def test_encode_png_is_what_save_png_writes(tmp_path, level):
+    rng = np.random.default_rng(8)
+    for a in (rng.integers(0, 256, (H, W), dtype=np.uint8),
+              rng.integers(0, 256, (H, W, 3), dtype=np.uint8)):
+        path = tmp_path / "s.png"
+        decode.save_png(path, a, level)
+        assert decode.encode_png(a, level) == path.read_bytes()
+        assert path.read_bytes() == _png_as_written_before(a, level)
+    with pytest.raises(ValueError, match="encode_png takes"):
+        decode.encode_png(np.zeros((4, 4, 4), np.uint8))

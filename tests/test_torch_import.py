@@ -5,6 +5,7 @@ unasked."""
 import re
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -23,12 +24,13 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cabinet_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 44, names
+assert len(names) >= 47, names
 required = {"cabinet_tpu_torch." + m for m in (
     "cli.train", "cli.common", "core.logging", "core.config", "core.yaml_subset",
     "data.transforms", "data.class_weights", "data.datasets", "train",
     "train.losses", "train.optimizer", "train.ema", "train.early_stopping",
-    "train.trainer", "train.checkpoint", "ops.photometric", "ops.geometric")}
+    "train.trainer", "train.checkpoint", "ops.photometric", "ops.geometric",
+    "export", "cli.export", "cli.serve")}
 assert required <= set(names), sorted(required - set(names))
 """
 
@@ -63,7 +65,8 @@ def test_no_kernel_build_at_import():
 
 @pytest.mark.parametrize("entry", ["segmenter", "fused_tail", "fused_apply",
                                    "msc_eval", "eval_forward", "evaluate_main",
-                                   "resolve_device", "train_main", "train_and_evaluate"])
+                                   "resolve_device", "train_main", "train_and_evaluate",
+                                   "export_serving", "export_main", "serve_engine"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without device="cpu" the entry points ask for CUDA, and raise where
     there is none instead of running on the CPU."""
@@ -72,6 +75,9 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
     from cabinet_tpu_torch.cli.evaluate import main as evaluate_main
     from cabinet_tpu_torch.cli.evaluate import make_eval_forward
     from cabinet_tpu_torch.cli.common import CONFIG_DIR
+    from cabinet_tpu_torch.cli.export import main as export_main
+    from cabinet_tpu_torch.cli.serve import _Engine
+    from cabinet_tpu_torch.export import export_serving
     from cabinet_tpu_torch.cli.infer import Segmenter
     from cabinet_tpu_torch.cli.train import main as train_main
     from cabinet_tpu_torch.cli.train import train_and_evaluate
@@ -100,5 +106,65 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         elif entry == "train_and_evaluate":
             train_and_evaluate(compose(CONFIG_DIR, "train",
                                        [f"dataset.dataset_path={tmp_path}"]))
+        elif entry == "export_serving":
+            export_serving(CABiNet(8, "small", cfgs=[[3, 1, 16, 1, 0, 2]]),
+                           mean=(0.5,) * 3, std=(0.5,) * 3, imgsz=32)
+        elif entry == "export_main":
+            export_main(["--checkpoint", str(tmp_path / "unused.pth"), "--dataset",
+                         "uavid", "--out", str(tmp_path / "art")])
+        elif entry == "serve_engine":
+            _Engine(None, str(tmp_path / "unused.pth"), "uavid", "large", 64,
+                    "bfloat16")
         else:
             resolve_device()
+
+
+_BLOCKED = ("jax", "jaxlib", "PIL", "yaml", "cv2", "rich", "tqdm")
+
+_SERVE_WITHOUT_JAX_PIL_YAML = textwrap.dedent("""
+    import json, sys, threading, urllib.request
+    for m in {blocked!r}:
+        sys.modules[m] = None          # import m now raises ImportError
+    from pathlib import Path
+    import numpy as np, torch
+    from cabinet_tpu_torch.cli import export, serve
+    from cabinet_tpu_torch.data.decode import decode_png, encode_png, png_mask
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    out = Path(sys.argv[1])
+    torch.manual_seed(0)
+    torch.save(CABiNet(8, "small").state_dict(), out / "ck.pth")
+    export.main(["--checkpoint", str(out / "ck.pth"), "--dataset", "uavid",
+                 "--out", str(out / "art"), "--imgsz", "32", "--batch", "b",
+                 "--mode", "small", "--dtype", "float32", "--device", "cpu",
+                 "--check"])
+    rgb = np.random.default_rng(0).integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    for art, ck in ((str(out / "art"), None), (None, str(out / "ck.pth"))):
+        engine = serve._Engine(art, ck, "uavid", "small", 32, "float32",
+                               max_batch=2, device="cpu")
+        srv = serve.make_server(engine, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{{srv.server_address[1]}}/segment?format=color_png",
+            data=encode_png(rgb), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert decode_png(r.read()).samples.shape == (40, 56, 3)
+        srv.shutdown()
+        srv.server_close()
+        engine.batcher.close()
+    bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+                 and m.split(".")[0] in {blocked!r})
+    assert not bad, bad
+    print("SERVE-WITHOUT-JAX-PIL-YAML OK")
+""")
+
+
+def test_export_and_serve_need_no_pil_yaml_or_jax(tmp_path):
+    """The GPU machine may lack PIL, PyYAML, OpenCV, rich, tqdm and JAX: with
+    each blocked, cli.export main writes and checks an artifact, and the
+    server answers a PNG request on both routes (artifact and checkpoint)."""
+    code = _SERVE_WITHOUT_JAX_PIL_YAML.format(blocked=_BLOCKED)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=PKG.parent, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "SERVE-WITHOUT-JAX-PIL-YAML OK" in res.stdout
