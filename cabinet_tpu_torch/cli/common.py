@@ -2,10 +2,10 @@
 composition, seeding, model, dataset and loader construction, checkpoint
 loading, the warm start and the pretrained backbone, and the eval settings.
 
-Not ported here, each waiting for its ROADMAP item: `--legacy-config` and
-`runtime.loader=grain` (Queue 1 item 8), the loader's multi-process
-`shard` and `eval_tile_mesh` (Queue 1 item 7; the port runs on one
-device). Orbax checkpoint directories raise: the JAX package's
+Not ported here, each waiting for its ROADMAP item: `--legacy-config`
+(Queue 1 item 8), the thread loader's multi-process `shard` and
+`eval_tile_mesh` (Queue 1 item 7; the port runs on one device). Orbax
+checkpoint directories raise: the JAX package's
 `cli/convert_checkpoint.py` turns them into a `.pth` or `.npz`.
 """
 
@@ -164,18 +164,26 @@ def load_pretrained_backbone(model: torch.nn.Module, path: Path) -> List[str]:
 
 def make_loader(cfg: Config, dataset: Any, batch_size: int, *,
                 shuffle: bool = False, drop_last: bool = False,
-                num_workers: int = 4, seed: int = 0) -> Any:
-    """The input pipeline of `runtime.loader`: `thread` (data/loader.py),
-    with the JAX package's batch order for `shuffle`, `drop_last` and
-    `seed`."""
+                num_workers: int = 4, seed: int = 0,
+                shard: Any = None) -> Any:
+    """The input pipeline of `runtime.loader`: `thread` (data/loader.py, the
+    default) or `grain` (data/grain_loader.py, worker processes), with the
+    JAX package's batch order for `shuffle`, `drop_last` and `seed`.
+    `shard=(index, count)` is the process loader's; the thread loader's
+    waits for ROADMAP Queue 1 item 7."""
     kind = str(cfg.select("runtime.loader", "thread")).lower()
     if kind == "grain":
-        raise NotImplementedError(
-            "runtime.loader=grain is not ported yet (data/grain_loader.py, "
-            "ROADMAP Queue 1 item 8); use runtime.loader=thread")
+        from cabinet_tpu_torch.data.grain_loader import GrainLoader
+
+        return GrainLoader(dataset, batch_size, shuffle=shuffle, drop_last=drop_last,
+                           num_workers=num_workers, seed=seed, shard=shard)
     if kind != "thread":
         raise ConfigurationError(
             f"runtime.loader must be 'thread' or 'grain', got {kind!r}")
+    if shard is not None:
+        raise NotImplementedError(
+            "the thread loader's shard is not ported yet (ROADMAP Queue 1 item 7); "
+            "use runtime.loader=grain")
     from cabinet_tpu_torch.data.loader import DataLoader
 
     return DataLoader(dataset, batch_size, shuffle=shuffle, drop_last=drop_last,

@@ -143,7 +143,10 @@ def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[
                         pad_to=cfg.select("validation_config.eval_pad_to", None),
                         tile_batch=common.eval_tile_batch(cfg),
                         acc_dtype=common.eval_acc_dtype(cfg), device=device)
-    return evaluator.evaluate(None, dl, progress=True)
+    try:
+        return evaluator.evaluate(None, dl, progress=True)
+    finally:  # stops runtime.loader=grain's worker processes
+        dl.close()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:

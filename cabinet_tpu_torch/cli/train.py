@@ -34,10 +34,12 @@ is the dataset's `RECIPE`'s, aerial or street. `runtime.reduced_decode` and
 `runtime.decode_cache` act on the canvas path. `runtime.remat=true|N`
 rematerialises backbone blocks in the backward.
 
+`runtime.loader=grain` reads the train split on worker processes
+(`data/grain_loader.py`), which stop when training ends.
+
 Not ported, each raising with the ROADMAP item it waits for:
 `runtime.pipeline`, `runtime.model_axis > 1`, `runtime.spatial_axis`,
-multi-process training (Queue 1 item 7), `runtime.loader=grain` and
-`--legacy-config` (item 8).
+multi-process training (Queue 1 item 7) and `--legacy-config` (item 8).
 """
 
 from __future__ import annotations
@@ -384,6 +386,8 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                 break
     except KeyboardInterrupt:  # graceful final save (reference :569-580)
         logger.info("Interrupted: saving final state.")
+    finally:  # the workers start in the loop (runtime.loader=grain)
+        dl_train.close()
 
     ckpt.save_variables(tc.model_save_name, state.ema_variables)
     save_config(cfg, Path(tc.experiments_path) / "config.yaml")

@@ -20,6 +20,8 @@ unknown form raise `DatasetError`; no pixel is guessed.
 
 `decode_rgb` decodes an image held in memory (a request body) as `open_rgb`
 decodes a file, and `encode_png` gives the bytes `save_png` writes.
+`open_array` gives a file's samples as `np.asarray(PIL.Image.open(p))` does
+(a paletted mask's indices), which the converters validate.
 
 Other formats (the JPEG images of AeroScapes and VDD) go through the backend
 `decoder` names, "pil" or "cv2", imported when first needed; where it cannot
@@ -321,6 +323,23 @@ def png_mask(png: PngImage, path: PathLike = "") -> np.ndarray:
     return luminance(png_rgb(png, path))
 
 
+def png_array(png: PngImage) -> np.ndarray:
+    """The PNG's samples as `np.asarray(PIL.Image.open(p))` gives them:
+    palette indices (not colours), every channel, 1-bit grey as bool, 2- and
+    4-bit grey scaled to 0..255, 16-bit grey as uint16, other 16-bit forms
+    by their high byte (grey+alpha as PIL's RGBA)."""
+    ct, depth, s = png.color_type, png.bit_depth, png.samples
+    if ct in (0, 3):
+        if ct == 0 and depth == 1:
+            return s[..., 0].astype(bool)
+        return _grey_levels(png) if ct == 0 and depth in (2, 4) else s[..., 0]
+    if depth == 16:
+        s = (s >> 8).astype(np.uint8)
+        if ct == 4:
+            return s[..., [0, 0, 0, 1]]
+    return s
+
+
 def _is_png(path: PathLike) -> bool:
     with open(path, "rb") as f:
         return f.read(8) == PNG_SIGNATURE
@@ -440,6 +459,16 @@ def open_mask(path: PathLike, decoder: str = "pil") -> np.ndarray:
     if _is_png(path):
         return png_mask(read_png(path), path)
     return _backend_mask(path, decoder)
+
+
+def open_array(path: PathLike) -> np.ndarray:
+    """The file's samples as `np.asarray(PIL.Image.open(path))` gives them
+    (`png_array` for PNG; other formats through PIL, named in the
+    `DatasetError` where it is absent)."""
+    if _is_png(path):
+        return png_array(read_png(path))
+    with _import_backend("pil").open(path) as im:
+        return np.asarray(im)
 
 
 # ---------------------------------------------------------------------------

@@ -72,6 +72,10 @@ class DataLoader:
     def _collate(samples: List[Tuple[np.ndarray, ...]]) -> Tuple[np.ndarray, ...]:
         return tuple(np.stack(field) for field in zip(*samples))
 
+    def close(self) -> None:
+        """Nothing to stop: a pass's threads end with it (the process
+        loader's `close` stops its workers)."""
+
     def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
         order = self._indices()
         batches = [order[i:i + self.batch_size]

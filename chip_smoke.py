@@ -100,7 +100,27 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               the server on (a)'s artifact, each batch bit-equal to the live
               serving module; then, in fresh processes with lazy and with
               eager module loading, where a server's first requests go
-  12. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  12. data   the data layer as a user meets it, from a raw UAVid download:
+              a raw tree (<split>/<seq>/{Images,Labels}, 8 train and 2 val
+              3840x2160 frames, images Paeth-filtered, labels in UAVid's
+              colours with patches of unknown ones); `cli/convert.py uavid
+              --workers <cores>`, every mask held against a plain numpy
+              remap of its label (unknown colours 255) and every image a
+              link; `cli/compute_stats.py` on images/train against a numpy
+              recomputation; the process loader's first batches (worker
+              start-up); `cli/train.py:main` (CABiNet-Large, bf16,
+              use_pallas, crop 1024, epochs 2, 8 loader workers) with
+              runtime.loader=thread and =grain in turns, twice each, on the
+              host recipe and on the device canvas (device_geometric=true),
+              the batches its steps take bit-equal between the loaders,
+              with each run's loop s per step and loader-wait share; and
+              `cli/evaluate.py:main` on the EMA weights (bf16, use_pallas,
+              K1-K3) with each loader, the confusion matrices equal
+  13. no process left: the process loader's forkserver and resource
+      tracker stopped and reaped, and no process this run started (a
+      child, or any process carrying the run's mark in its environment)
+      still there
+  14. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -113,6 +133,7 @@ result. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -122,6 +143,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
+RUN_MARK = "CHIP_SMOKE_RUN"  # in the environment of every process the run starts
 FIXTURE = ROOT / "tests" / "fixtures" / "miou_large_cabinet_v1.npz"
 REF_OUTPUTS = FIXTURE.with_name("miou_ref_outputs_large_v1.npz")
 
@@ -2175,8 +2197,6 @@ def run_artifact_server(torch, art: Path, ckpt: Path, frames, bodies):
 def cold_start(ckpt: Path, loading: str) -> dict:
     """Where a fresh server process's first requests go, in a child with
     CUDA_MODULE_LOADING=`loading` (`cold_start_child`)."""
-    import os
-
     code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
             "chip_smoke.cold_start_child(%r)" % (str(ROOT), str(ckpt)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -2337,9 +2357,404 @@ def say_serve(smi: str, served: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the data layer, from a raw UAVid download to train and evaluate
+# ---------------------------------------------------------------------------
+
+# Raw UAVid as downloaded: sequences of 3840x2160 frames (train 2 x 4; val
+# 1 x 2, as phase 10's split), label colours outside UAVid's table in
+# DATA_UNKNOWN patches, and the train main runs per loader and recipe, in
+# turns. At 2 steps an epoch these runs hold the batches and show each
+# loader's start-up; `kernel_times.py --loader` times the loaders over 20
+# steps in fresh processes.
+DATA_SEQS = {"train": ("seq01", "seq02"), "val": ("seq03",)}
+DATA_PER_SEQ = {"train": 4, "val": 2}
+DATA_UNKNOWN = ((1, 2, 3), (250, 250, 250))
+DATA_PATCH = 64
+DATA_RUNS = 2
+
+
+def write_uavid_raw(np, src: Path, h: int, w: int, seed: int = 81):
+    """A raw UAVid tree, <src>/<split>/<seq>/{Images,Labels}/<stem>.png:
+    palette-task images stored so that UAVid's normalisation gives back the
+    palette values plus noise, every row Paeth-filtered (`paeth_png`, the
+    reader's slow case); labels in the class colours of the port's UAVid
+    table, with patches of DATA_UNKNOWN colours. Returns the u8 train images
+    and every frame's class IDs (255 on the patches), by converted name."""
+    from cabinet_tpu_torch.data.datasets import UAVid
+    from cabinet_tpu_torch.data.decode import save_png
+    from cabinet_tpu_torch.data.palettes import UAVID_CLASSES
+
+    mean = np.asarray(UAVid.MEAN, np.float32)
+    std = np.asarray(UAVid.STD, np.float32)
+    colours = np.asarray([c["color"] for c in UAVID_CLASSES], np.uint8)
+    rng = np.random.default_rng(seed)
+    images, ids = {}, {}
+    for split, seqs in DATA_SEQS.items():
+        for seq in seqs:
+            for sub in ("Images", "Labels"):
+                (src / split / seq / sub).mkdir(parents=True)
+            for k in range(DATA_PER_SEQ[split]):
+                stem = f"{100 * k:06d}"
+                image, labels = synthetic_palette(np, rng, h, w, 120)
+                u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
+                rgb = colours[labels]
+                want = labels.astype(np.uint8)
+                for j, colour in enumerate(DATA_UNKNOWN):
+                    y = int(rng.integers(0, h - DATA_PATCH))
+                    x = int(rng.integers(0, w - DATA_PATCH))
+                    rgb[y:y + DATA_PATCH, x:x + DATA_PATCH] = colour
+                    want[y:y + DATA_PATCH, x:x + DATA_PATCH] = 255
+                paeth_png(np, src / split / seq / "Images" / f"{stem}.png", u8)
+                save_png(src / split / seq / "Labels" / f"{stem}.png", rgb, compress_level=1)
+                name = f"{seq}_{stem}.png"
+                ids[(split, name)] = want
+                if split == "train":
+                    images[name] = u8
+    return images, ids
+
+
+def plain_uavid_remap(np, rgb):
+    """Class IDs of a UAVid colour label, one class colour at a time (the
+    table's kept classes in trainId order), 255 elsewhere."""
+    from cabinet_tpu_torch.data.palettes import UAVID_CLASSES
+
+    key = (rgb[..., 0].astype(np.int32) << 16) | (rgb[..., 1].astype(np.int32) << 8) | rgb[..., 2]
+    out = np.full(rgb.shape[:2], 255, np.uint8)
+    kept = sorted((c for c in UAVID_CLASSES if not c["ignoreInEval"]), key=lambda c: c["trainId"])
+    for i, c in enumerate(kept):
+        r, g, b = c["color"]
+        out[key == (r << 16 | g << 8 | b)] = i
+    return out
+
+
+def plain_stats_lines(np, images):
+    """compute_stats' two lines from the images in memory, in file order."""
+    mean, sq = np.zeros(3), np.zeros(3)
+    for name in sorted(images):
+        a = images[name].astype(np.float64) / 255.0
+        mean += a.mean(axis=(0, 1))
+        sq += (a ** 2).mean(axis=(0, 1))
+    mean, sq = mean / len(images), sq / len(images)
+    m = mean.astype(np.float32)
+    s = np.sqrt(np.maximum(sq - mean ** 2, 0)).astype(np.float32)
+    return [f"mean: ({m[0]:.3f}, {m[1]:.3f}, {m[2]:.3f})",
+            f"std:  ({s[0]:.3f}, {s[1]:.3f}, {s[2]:.3f})"]
+
+
+def run_convert_and_stats(np, src: Path, dst: Path, images, ids, workers: int):
+    """cli.convert uavid and cli.compute_stats as a user runs them; every
+    mask held against the plain remap of its label and the IDs it was drawn
+    from, every image a link to its raw frame, the stats against the
+    numpy recomputation. Returns the wall seconds of each."""
+    from cabinet_tpu_torch.cli.compute_stats import main as stats_main
+    from cabinet_tpu_torch.cli.convert import main as convert_main
+    from cabinet_tpu_torch.data.decode import open_mask, open_rgb
+
+    _, convert_s, lines = run_cli(convert_main, ["uavid", "--src", str(src), "--dst",
+                                                 str(dst), "--workers", str(workers)],
+                                  "convert")
+    n = len(ids)
+    check(lines[-2] == f"[DONE] Total masks written: {n}", f"cli.convert said {lines}")
+    for split in DATA_SEQS:
+        check(f"[INFO] {split}: converted {sum(s == split for s, _ in ids)} masks" in lines,
+              f"cli.convert said {lines}")
+    for (split, name), want in ids.items():
+        mask = open_mask(dst / "masks" / split / name)
+        seq, stem = name.split("_", 1)
+        label = plain_uavid_remap(np, open_rgb(src / split / seq / "Labels" / stem))
+        check(np.array_equal(label, want), f"{name}: the raw label does not hold its IDs")
+        check(mask.shape == want.shape and np.array_equal(mask, want),
+              f"{name}: {int((mask != want).sum())} converted mask pixels differ")
+        img = dst / "images" / split / name
+        check(img.is_symlink() and img.resolve() == (src / split / seq / "Images" / stem
+                                                     ).resolve(), f"{img} is not its link")
+    _, stats_s, lines = run_cli(stats_main, [str(dst / "images" / "train")], "stats")
+    want = plain_stats_lines(np, images)
+    check(lines == want, f"cli.compute_stats said {lines}, numpy {want}")
+    return {"convert_seconds": convert_s, "compute_stats_seconds": stats_s,
+            "masks": n, "stats": lines}
+
+
+def cold_forkserver() -> None:
+    """Stop the process loader's forkserver (it outlives its loaders), so
+    that the next loader starts it afresh and pays what a new `python -m
+    cabinet_tpu_torch.cli.train` pays: the server's import of torch and the
+    datasets, then its workers."""
+    from cabinet_tpu_torch.data.grain_loader import stop_servers
+
+    stop_servers()
+
+
+def processes_left() -> list:
+    """The processes this run started that are still there: its children
+    (running or not reaped) and any process that carries the run's mark in
+    its environment (a grandchild, or an orphan)."""
+    me, mark = os.getpid(), f"{RUN_MARK}={os.environ[RUN_MARK]}".encode()
+    left = []
+    for proc in Path("/proc").iterdir():
+        if not proc.name.isdigit() or int(proc.name) == me:
+            continue
+        try:
+            stat = (proc / "stat").read_text()
+            env = (proc / "environ").read_bytes()
+            cmd = (proc / "cmdline").read_bytes().replace(b"\0", b" ").decode()[:160]
+        except OSError:  # gone meanwhile, or not ours to read
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if int(ppid) == me or mark in env.split(b"\0"):
+            left.append(f"pid {proc.name} state {state}: {cmd}")
+    return left
+
+
+def stop_every_process(wait_s: float = 10.0) -> None:
+    """Phase 13: stop the process loader's servers, give what is left a
+    moment to end, and fail if any process this run started is still
+    there."""
+    cold_forkserver()
+    deadline = time.monotonic() + wait_s
+    while (left := processes_left()) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    check(not left, f"processes left running: {left}")
+    say("processes", left=0)
+
+
+class BatchClock:
+    """While entered, wraps every loader that `cli/common.py:make_loader`
+    makes: for each pass, the host clock when each batch was asked for and
+    when it came (`passes`, a list of [(asked, got), ...])."""
+
+    def __init__(self) -> None:
+        self.passes = []
+
+    def __enter__(self):
+        from cabinet_tpu_torch.cli import common
+
+        self._common, self._make = common, common.make_loader
+        common.make_loader = lambda *a, **kw: _Clocked(self._make(*a, **kw), self.passes)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._common.make_loader = self._make
+
+
+def first_waits(passes):
+    """Each pass's wait for its first batch (BatchClock's passes), s."""
+    return [p[0][1] - p[0][0] for p in passes if p]
+
+
+class _Clocked:
+    def __init__(self, loader, passes) -> None:
+        self.loader, self.passes = loader, passes
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        stamps, it = [], iter(self.loader)
+        self.passes.append(stamps)
+        while True:
+            asked = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            stamps.append((asked, time.perf_counter()))
+            yield batch
+
+
+def grain_startup(dst: Path, workers: int, crop: int) -> dict:
+    """A fresh process loader on the converted train split (host recipe,
+    batch 4), its forkserver started afresh: the first batch of its first
+    pass (server and workers started, records decoded) and of its second
+    pass (decode only), host seconds."""
+    from cabinet_tpu_torch.data.datasets import UAVid
+    from cabinet_tpu_torch.data.grain_loader import GrainLoader
+
+    def first_batch(epoch):
+        grain.set_epoch(epoch)
+        t0 = time.perf_counter()
+        it = iter(grain)
+        batch = next(it)
+        seconds = time.perf_counter() - t0
+        check(batch[0].shape == (4, crop, crop, 3), f"first batch {batch[0].shape}")
+        for _ in it:  # the rest of the pass, so the next starts with none in flight
+            pass
+        return seconds
+
+    ds = UAVid(255, str(dst), [crop, crop], mode="train")
+    cold_forkserver()
+    grain = GrainLoader(ds, 4, shuffle=True, drop_last=True, num_workers=workers, seed=15)
+    try:
+        fresh, warm = first_batch(0), first_batch(1)
+    finally:
+        grain.close()
+    return {"grain_first_batch_s": fresh, "grain_next_pass_first_batch_s": warm,
+            "grain_worker_startup_s": fresh - warm}
+
+
+def recording_steps(trainer_mod, batches):
+    """make_train_step whose steps keep a device copy of each batch they
+    take (copied on the device; hashed after the run)."""
+    make_step = trainer_mod.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def recorded(state, images, labels):
+            batches.append((images.clone(), labels.clone()))
+            return step(state, images, labels)
+        return recorded
+    return recording
+
+
+def data_train_run(torch, paths, name: str, argv, exp: Path) -> dict:
+    """One `cli/train.py:main` run driven as a main path: the hashes of the
+    batches its steps took, its losses, its loop's s per optimizer step and
+    loader-wait share, and each epoch's wait for its first batch (with the
+    process loader, the first holds the forkserver's and workers' start)."""
+    import hashlib
+    import math
+
+    from cabinet_tpu_torch.cli.train import main as train_main
+    from cabinet_tpu_torch.train import trainer as trainer_mod
+
+    batches = []
+    make_step = trainer_mod.make_train_step
+    trainer_mod.make_train_step = recording_steps(trainer_mod, batches)
+    try:
+        with BatchClock() as clock:
+            res, main_s, _ = paths.drive(name, run_cli, train_main, argv + [
+                f"training_config.experiments_path={exp}", "--device", DEVICE], "train", 2)
+    finally:
+        trainer_mod.make_train_step = make_step
+    hashes = [hashlib.sha1(x.cpu().numpy().tobytes() + y.cpu().numpy().tobytes()).hexdigest()
+              for x, y in batches]
+    del batches
+    lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()
+             if '"epoch"' in ln]
+    t = res["timing"]
+    out = {"main_seconds": main_s,
+           "loop_seconds_per_optimizer_step": t["train_seconds"] / t["optimizer_steps"],
+           "loader_wait_share": t["loader_wait_seconds"] / t["train_seconds"],
+           "loader_wait_seconds": t["loader_wait_seconds"], "train_seconds": t["train_seconds"],
+           "optimizer_steps": t["optimizer_steps"],
+           "epoch_first_batch_wait_seconds": first_waits(clock.passes),
+           "train_losses": [ln["train_loss"] for ln in lines],
+           "k1_launches": paths.per_path[name]["attention"], "hashes": hashes}
+    say("data", part="train_main", run=name,
+        **{k: v for k, v in out.items() if k != "hashes"}, batch_sha1=[h[:12] for h in hashes])
+    check(t["optimizer_steps"] == 4 and len(hashes) == 4,
+          f"{name}: {t['optimizer_steps']} steps, {len(hashes)} batches")
+    check(all(math.isfinite(v) for v in out["train_losses"]), f"{name}: losses {lines}")
+    check(out["k1_launches"] > 0, f"{name}: K1 never launched")
+    return out
+
+
+DATA_RECIPES = {"host": [], "canvas": ["runtime.device_geometric=true"]}
+
+
+def data_train_argv(dst: Path, recipe: str, loader: str, epochs: int = 2):
+    """train main's overrides for a phase 12 run: train.yaml's apart from
+    the epochs, warmup 2, log_iter 1, one eval scale, use_pallas and the
+    crop; the recipe's (DATA_RECIPES) and the loader."""
+    crop = [f"dataset.cropsize=[{AUG_CROP},{AUG_CROP}]"] if AUG_CROP != EVAL_MAIN_CROP else []
+    return ["dataset=uavid", f"dataset.dataset_path={dst}", f"training_config.epochs={epochs}",
+            "training_config.warmup_steps=2", "training_config.log_iter=1",
+            "runtime.use_pallas=true", "validation_config.eval_scales=[1.0]", *crop,
+            *DATA_RECIPES[recipe], f"runtime.loader={loader}"]
+
+
+def run_data(torch, paths, tmp: Path) -> dict:
+    """Phase 12: raw UAVid -> cli.convert -> cli.compute_stats -> train main
+    with the thread and the process loader in turns (host recipe and the
+    device canvas) -> evaluate main on the EMA weights with each loader."""
+    import numpy as np
+
+    cores = len(os.sched_getaffinity(0))
+    src, dst = tmp / "uavid_raw", tmp / "uavid"
+    t0 = time.perf_counter()
+    images, ids = write_uavid_raw(np, src, UAVID_H, UAVID_W)
+    say("data", part="raw_tree", cores=cores, frames=len(ids), size=f"{UAVID_W}x{UAVID_H}",
+        write_seconds=time.perf_counter() - t0)
+    tools = run_convert_and_stats(np, src, dst, images, ids, cores)
+    del images, ids
+    say("data", part="tools", **tools)
+    startup = grain_startup(dst, 8, AUG_CROP)
+    say("data", part="startup", cores=cores, workers=8, **startup)
+
+    crop = [f"dataset.cropsize=[{AUG_CROP},{AUG_CROP}]"] if AUG_CROP != EVAL_MAIN_CROP else []
+    runs = {}
+    for recipe in DATA_RECIPES:
+        for k, loader in enumerate(("thread", "grain") * DATA_RUNS):
+            name = f"data_{recipe}_{loader}_{k}"
+            if loader == "grain":
+                cold_forkserver()
+            runs[name] = data_train_run(torch, paths, name, data_train_argv(dst, recipe, loader),
+                                        tmp / f"exp_{name}")
+        first = runs[f"data_{recipe}_thread_0"]["hashes"]
+        differ = [n for n, r in runs.items() if recipe in n and r["hashes"] != first]
+        check(not differ, f"{recipe}: batches differ from the thread loader's in {differ}")
+
+    ckpt = tmp / "exp_data_host_grain_1" / "cabinet.pth"
+    evals = {}
+    for loader in ("thread", "grain"):
+        name = f"data_evaluate_{loader}"
+        if loader == "grain":
+            cold_forkserver()
+        res, _, main_s = paths.drive(name, run_main, [
+            "dataset=uavid", f"dataset.dataset_path={dst}", f"checkpoint_path={ckpt}",
+            "validation_config.batch_size=1", "runtime.compute_dtype=bfloat16", *crop,
+            "runtime.use_pallas=true", f"runtime.loader={loader}", "--device", DEVICE])
+        counts = paths.per_path[name]
+        check(all(counts[k] > 0 for k in TAIL), f"{name}: launches {counts}")
+        t = res["timing"]
+        first = t["loader_wait_seconds_per_batch"][0]
+        evals[loader] = {"hist": res["confusion_matrix"], "mIoU": res["mIoU"],
+                         "frames": t["frames"], "main_seconds_per_frame": main_s / t["frames"],
+                         "loop_seconds_per_frame": t["seconds"] / t["frames"],
+                         "first_frame_wait_seconds": first,
+                         "loop_seconds_per_frame_after_first": (t["seconds"] - first)
+                         / max(t["frames"] - 1, 1),
+                         "loader_wait_seconds": t["loader_wait_seconds"],
+                         "loader_wait_share": t["loader_wait_seconds"] / t["seconds"]}
+        say("data", part="evaluate_main", run=name, launches=counts,
+            **{k: v for k, v in evals[loader].items() if k != "hist"})
+    check(evals["grain"]["frames"] == len(DATA_SEQS["val"]) * DATA_PER_SEQ["val"],
+          f"evaluate main scored {evals['grain']['frames']} frames")
+    check(np.array_equal(evals["grain"]["hist"], evals["thread"]["hist"]),
+          "evaluate main: the process loader's confusion matrix differs from the thread's")
+    return {"cores": cores, "tools": tools, "startup": startup, "runs": runs,
+            "evaluate": {k: {x: y for x, y in v.items() if x != "hist"}
+                         for k, v in evals.items()}}
+
+
+def say_data(smi: str, data: dict) -> None:
+    by = {}
+    for name, r in data["runs"].items():
+        _, recipe, loader, _ = name.split("_")
+        key = f"{recipe}_{loader}"
+        by.setdefault(f"{key}_loop_seconds_per_optimizer_step", []).append(
+            r["loop_seconds_per_optimizer_step"])
+        by.setdefault(f"{key}_loader_wait_share", []).append(r["loader_wait_share"])
+        by.setdefault(f"{key}_epoch_first_batch_wait_seconds", []).append(
+            r["epoch_first_batch_wait_seconds"])
+    say("data", card=smi, cores=data["cores"],
+        convert_seconds=data["tools"]["convert_seconds"],
+        compute_stats_seconds=data["tools"]["compute_stats_seconds"],
+        grain_worker_startup_s=data["startup"]["grain_worker_startup_s"], **by,
+        **{f"evaluate_{k}_{x}": v[x] for k, v in data["evaluate"].items()
+           for x in ("main_seconds_per_frame", "first_frame_wait_seconds",
+                     "loop_seconds_per_frame_after_first", "loader_wait_share")})
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
+    started = time.perf_counter()
+    os.environ[RUN_MARK] = str(os.getpid())
     import torch
 
     if not torch.cuda.is_available():
@@ -2441,10 +2856,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         served = run_serve(torch, paths, Path(tmp))
     say_serve(smi, served)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = run_data(torch, paths, Path(tmp))
+    say_data(smi, data)
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")
+    stop_every_process()
 
+    say("run", seconds=time.perf_counter() - started)
     main_k2, main_k3 = tails[1]  # B=1, S=128, 8 classes: Segmenter on uavid
     rows = [
         ("attention", "csrc/attention.cu",

@@ -37,6 +37,19 @@ one (`cli/serve.py`) as `chip_smoke.py` phase 11 loads it: bf16 Large at
 1920x1080 noise PNGs from another process; one JSON line with the
 server's stats, the clients' rate and latencies and the worker's step
 (host clock) under load. The masks are not checked here (phase 11 does).
+
+With `--loader`, it times train main's input on each loader as
+`chip_smoke.py` phase 12 runs it (raw UAVid 3840x2160 Paeth frames through
+`cli.convert`; CABiNet-Large, bf16, batch 4, crop 1024, 8 workers), but
+over 20 optimizer steps: the 8 converted train frames are linked 5 times
+over (40 records, 10 steps an epoch, 2 epochs). For the host recipe and
+the device canvas, it runs thread, grain, thread, grain, each train main
+in a fresh process (`python -m cabinet_tpu_torch.cli.train` as a user runs
+it: the process loader starts its forkserver and workers in the loop), and
+prints one JSON line per run: the loop's s per optimizer step and
+loader-wait share over all steps, each epoch's wait for its first batch,
+and the steady state, the steps after an epoch's first batch and before
+its last (host clock). The batches are not checked here (phase 12 does).
 """
 
 from __future__ import annotations
@@ -167,6 +180,90 @@ def time_server(torch, label: str, smi: str) -> int:
     return 0
 
 
+LOADER_COPIES, LOADER_EPOCHS, LOADER_RUNS = 5, 2, 2
+
+
+def link_train_copies(dst: Path, copies: int) -> int:
+    """Each converted train frame and mask linked `copies - 1` more times
+    under new names (c<k>_<name>); returns the train records now there."""
+    for sub in ("images", "masks"):
+        d = dst / sub / "train"
+        for f in sorted(d.iterdir()):
+            for k in range(1, copies):
+                (d / f"c{k}_{f.name}").symlink_to(f.resolve())
+    return len(list((dst / "images" / "train").iterdir()))
+
+
+def loader_child(out: Path, argv) -> int:
+    """One train main in this process, its train loader clocked; writes its
+    timing and the loader's (asked, got) stamps by pass to `out`."""
+    from cabinet_tpu_torch.cli.train import main as train_main
+
+    with chip_smoke.BatchClock() as clock:
+        res, main_s, _ = chip_smoke.run_cli(train_main, argv, "train", 1)
+    out.write_text(json.dumps({"main_seconds": main_s, "timing": res["timing"],
+                               "passes": clock.passes}))
+    return 0
+
+
+def steady(passes):
+    """(s per step, wait share, steps) over the steps after each pass's
+    first batch and before its last: the loop's time from one batch's
+    request to the next's."""
+    loop = wait = 0.0
+    n = 0
+    for stamps in passes:
+        for (asked, got), (nxt, _) in zip(stamps[1:-1], stamps[2:]):
+            loop += nxt - asked
+            wait += got - asked
+            n += 1
+    return loop / n, wait / loop, n
+
+
+def time_loaders(torch, label: str, smi: str, root: Path) -> int:
+    """`--loader`: train main's loop on each loader over 20 steps (see the
+    module's docstring)."""
+    import tempfile
+    import time
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.convert import main as convert_main
+
+    cs = chip_smoke
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src, dst = tmp / "uavid_raw", tmp / "uavid"
+        cs.write_uavid_raw(np, src, cs.UAVID_H, cs.UAVID_W)
+        cs.run_cli(convert_main, ["uavid", "--src", str(src), "--dst", str(dst),
+                                  "--workers", "8"], "convert", 1)
+        records = link_train_copies(dst, LOADER_COPIES)
+        for recipe in cs.DATA_RECIPES:
+            for k, loader in enumerate(("thread", "grain") * LOADER_RUNS):
+                out, exp = tmp / f"{recipe}_{k}.json", tmp / f"exp_{recipe}_{k}"
+                argv = cs.data_train_argv(dst, recipe, loader, LOADER_EPOCHS) + [
+                    f"training_config.experiments_path={exp}", "--device", cs.DEVICE]
+                t0 = time.perf_counter()
+                subprocess.run([sys.executable, str(Path(__file__).resolve()), "--root",
+                                str(root), "--loader-child", str(out), "--", *argv],
+                               check=True, timeout=900)
+                process_s = time.perf_counter() - t0
+                got = json.loads(out.read_text())
+                t = got["timing"]
+                loop, share, n = steady(got["passes"])
+                print(json.dumps({
+                    "label": label, "card": smi, "name": "loader", "recipe": recipe,
+                    "loader": loader, "run": k, "records": records,
+                    "optimizer_steps": t["optimizer_steps"], "process_seconds": process_s,
+                    "main_seconds": got["main_seconds"],
+                    "loop_seconds_per_optimizer_step": t["train_seconds"] / t["optimizer_steps"],
+                    "loader_wait_share": t["loader_wait_seconds"] / t["train_seconds"],
+                    "epoch_first_batch_wait_seconds": cs.first_waits(got["passes"]),
+                    "steady_seconds_per_step": loop, "steady_loader_wait_share": share,
+                    "steady_steps": n}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent)
@@ -177,9 +274,17 @@ def main() -> int:
                     help="time Segmenter.predict/predict_batch instead")
     ap.add_argument("--serve", action="store_true",
                     help="time the checkpoint server instead")
+    ap.add_argument("--loader", action="store_true",
+                    help="time train main's loop on each loader instead")
+    ap.add_argument("--loader-child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("overrides", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
+
+    if args.loader_child:  # one run of --loader, on the device its overrides name
+        sys.path.insert(0, str(args.root.resolve()))
+        return loader_child(args.loader_child, args.overrides)
 
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA device", file=sys.stderr)
@@ -189,6 +294,8 @@ def main() -> int:
         return time_requests(torch, args.label, card())
     if args.serve:
         return time_server(torch, args.label, card())
+    if args.loader:
+        return time_loaders(torch, args.label, card(), args.root.resolve())
     from cabinet_tpu_torch.ops import attention as attn
     from cabinet_tpu_torch.ops import decoder_tail as dt
     from cabinet_tpu_torch.ops import early_stage as es

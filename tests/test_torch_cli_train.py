@@ -3,8 +3,10 @@ user runs it: `main` over a tiny UAVid-layout tree and a tiny
 Cityscapes-layout tree for 2 epochs, then a resume for a third; the same
 with the device augmentation (`runtime.device_geometric=true` on UAVid,
 the aerial chain with mixup; `=shared` on Cityscapes, the street chain),
-whose resume must equal the uninterrupted run; and one run in a process
-where JAX, Flax, optax, orbax, PyYAML, rich and tqdm cannot be imported."""
+whose resume must equal the uninterrupted run; `runtime.loader=grain`
+(worker processes) against the thread loader, with evaluate main on the
+weights it wrote; and one run in a process where JAX, Flax, optax, orbax,
+PyYAML, rich and tqdm cannot be imported."""
 
 import json
 import subprocess
@@ -112,8 +114,7 @@ def test_train_main_refuses_what_is_not_ported(tmp_path):
     base = overrides("uavid", data, tmp_path / "exp")
     for extra, item in (("runtime.pipeline=2", "Queue 1 item 7"),
                         ("runtime.model_axis=2", "Queue 1 item 7"),
-                        ("runtime.spatial_axis=true", "Queue 1 item 7"),
-                        ("runtime.loader=grain", "Queue 1 item 8")):
+                        ("runtime.spatial_axis=true", "Queue 1 item 7")):
         with pytest.raises(NotImplementedError, match=item):
             main(base + [extra, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
@@ -234,3 +235,56 @@ def test_train_main_needs_no_jax_yaml_or_rich(tmp_path):
     assert "NO-JAX-TRAIN OK 4" in res.stdout
     assert set(json.loads(res.stdout.strip().splitlines()[-2])) == {
         "best_miou", "mIoU", "accuracy"}
+
+
+_LOADERS_RUN = textwrap.dedent("""
+    import json, multiprocessing as mp, sys
+    from pathlib import Path
+    import numpy as np
+    from cabinet_tpu_torch.cli.evaluate import main as evaluate_main
+    from cabinet_tpu_torch.cli.train import main as train_main
+
+    args, data, tmp = json.loads(sys.argv[1]), sys.argv[2], Path(sys.argv[3])
+    out = {}
+    for i, loader in enumerate(("thread", "grain", "thread")):
+        exp = tmp / f"exp_{i}_{loader}"
+        res = train_main([a.replace("EXP", str(exp)) for a in args]
+                         + [f"runtime.loader={loader}", "--device", "cpu"])
+        lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()
+                 if '"epoch"' in ln]
+        ev = evaluate_main(["dataset=uavid", f"dataset.dataset_path={data}",
+                            f"checkpoint_path={exp / 'tiny.pth'}",
+                            "model=mobilenetv3_small", args[1],
+                            "validation_config.batch_size=1", "validation_config.num_workers=2",
+                            "validation_config.eval_scales=[1.0]", "validation_config.flip=false",
+                            f"runtime.loader={loader}", "--device", "cpu"])
+        out.setdefault(loader, []).append({
+            "losses": [(ln["train_loss"], ln["val_loss"], ln["mIoU"]) for ln in lines],
+            "steps": res["timing"]["optimizer_steps"],
+            "hist": np.asarray(ev["confusion_matrix"]).tolist(),
+            "children": len(mp.active_children())})
+    print(json.dumps(out))
+""")
+
+
+def test_train_main_grain_loader_matches_thread_loader(tmp_path):
+    """main with runtime.loader=grain (two worker processes) trains as the
+    thread loader does: the same train and val losses and mIoU at every
+    epoch; evaluate main on the weights it wrote, on the process loader,
+    gives the thread loader's confusion matrix; no worker outlives either
+    main. In a subprocess under a timeout (it starts worker processes)."""
+    data = make_uavid_tree(tmp_path / "data", n=6)
+    args = overrides("uavid", data, "EXP") + ["training_config.num_workers=2"]
+    assert args[1].startswith("model.cfgs=")
+    res = subprocess.run([sys.executable, "-c", _LOADERS_RUN, json.dumps(args), str(data),
+                          str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    (thread, thread_again), (grain,) = out["thread"], out["grain"]
+    assert thread == thread_again  # the thread loader repeats itself
+    assert grain["steps"] == thread["steps"] == 6
+    assert len(grain["losses"]) == 2
+    assert grain["losses"] == thread["losses"]
+    assert grain["hist"] == thread["hist"] and np.sum(grain["hist"]) > 0
+    assert grain["children"] == 0

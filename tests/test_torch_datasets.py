@@ -467,9 +467,12 @@ def test_make_loader_and_eval_settings_match_jax():
     loader = common.make_loader(compose(jcommon.CONFIG_DIR, "evaluate", base),
                                 _Numbers(4), 2, num_workers=0)
     assert isinstance(loader, DataLoader) and len(loader) == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        common.make_loader(compose(jcommon.CONFIG_DIR, "evaluate",
-                                   base + ["runtime.loader=grain"]), _Numbers(4), 2)
+    from cabinet_tpu_torch.data.grain_loader import GrainLoader
+
+    grain = common.make_loader(compose(jcommon.CONFIG_DIR, "evaluate",
+                                       base + ["runtime.loader=grain"]), _Numbers(4), 2,
+                               num_workers=0)
+    assert isinstance(grain, GrainLoader) and len(grain) == 2
     bad = base + ["runtime.loader=procs"]
     _raises_both(lambda: common.make_loader(compose(jcommon.CONFIG_DIR, "evaluate", bad),
                                             _Numbers(4), 2),

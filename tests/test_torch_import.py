@@ -2,6 +2,7 @@
 nothing of cabinet_tpu, and its entry points never drop to the CPU
 unasked."""
 
+import os
 import re
 import subprocess
 import sys
@@ -24,13 +25,14 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cabinet_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 47, names
+assert len(names) >= 52, names
 required = {"cabinet_tpu_torch." + m for m in (
     "cli.train", "cli.common", "core.logging", "core.config", "core.yaml_subset",
     "data.transforms", "data.class_weights", "data.datasets", "train",
     "train.losses", "train.optimizer", "train.ema", "train.early_stopping",
     "train.trainer", "train.checkpoint", "ops.photometric", "ops.geometric",
-    "export", "cli.export", "cli.serve")}
+    "export", "cli.export", "cli.serve", "data.grain_loader", "data.converters",
+    "data.stats", "cli.convert", "cli.compute_stats")}
 assert required <= set(names), sorted(required - set(names))
 """
 
@@ -168,3 +170,52 @@ def test_export_and_serve_need_no_pil_yaml_or_jax(tmp_path):
                          cwd=PKG.parent, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert "SERVE-WITHOUT-JAX-PIL-YAML OK" in res.stdout
+
+
+_DATA_TOOLS_WITHOUT_PIL = textwrap.dedent("""
+    import sys
+    from pathlib import Path
+    import numpy as np
+    from cabinet_tpu_torch.cli import compute_stats, convert
+    from cabinet_tpu_torch.data.decode import open_mask, save_png
+    from cabinet_tpu_torch.data.palettes import UAVID_CLASSES
+
+    root = Path(sys.argv[1])
+    colors = np.array([c["color"] for c in UAVID_CLASSES], np.uint8)
+    rng = np.random.default_rng(0)
+    for seq in ("seq1", "seq2"):
+        for sub in ("Images", "Labels"):
+            (root / "raw" / "train" / seq / sub).mkdir(parents=True)
+        for i in range(2):
+            ids = rng.integers(0, 8, (12, 20))
+            save_png(root / "raw" / "train" / seq / "Images" / f"{i:06d}.png",
+                     rng.integers(0, 256, (12, 20, 3), dtype=np.uint8))
+            save_png(root / "raw" / "train" / seq / "Labels" / f"{i:06d}.png", colors[ids])
+            np.save(root / f"{seq}_{i:06d}.npy", ids)
+    convert.main(["uavid", "--src", str(root / "raw"), "--dst", str(root / "out"),
+                  "--workers", "2"])
+    for f in sorted((root / "out" / "masks" / "train").iterdir()):
+        assert (open_mask(f) == np.load(root / (f.stem + ".npy"))).all(), f
+    compute_stats.main([str(root / "out" / "images" / "train")])
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not bad, bad
+    print("DATA-TOOLS-WITHOUT-PIL OK")
+""")
+
+
+def test_convert_and_compute_stats_need_no_pil_or_jax(tmp_path):
+    """With JAX, PIL, PyYAML and OpenCV unimportable (shadowed on the path,
+    so the converter's spawned pool workers cannot import them either),
+    cli.convert uavid writes the masks and cli.compute_stats reads PNGs."""
+    blocked = ("jax", "jaxlib", "PIL", "yaml", "cv2")
+    shadow = tmp_path / "shadow"
+    for m in blocked:
+        (shadow / m).mkdir(parents=True)
+        (shadow / m / "__init__.py").write_text(f"raise ImportError('{m} is blocked')\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(shadow), str(PKG.parent)])}
+    code = _DATA_TOOLS_WITHOUT_PIL.replace("BLOCKED", repr(blocked))
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=PKG.parent,
+                         env=env, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "[DONE] Total masks written: 4" in res.stdout
+    assert "mean: (" in res.stdout and "DATA-TOOLS-WITHOUT-PIL OK" in res.stdout
