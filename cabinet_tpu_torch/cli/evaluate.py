@@ -10,15 +10,22 @@ Usage (CUDA unless --device cpu):
 `runtime.compute_dtype=bfloat16 runtime.use_pallas=true` runs the attention
 kernel K1 and, through the fused decoder tail, K2 and K3 on every tile
 forward; `runtime.use_pallas=true` alone runs the float32 K1.
+`+runtime.quantize=int8` runs int8 post-training quantization
+(`cabinet_tpu_torch/quant.py`), calibrated on the first
+`runtime.calib_batches` (default 2) batches of the split; `int8dw` also
+quantizes the depthwise convs.
 `checkpoint_path` takes a reference `.pth` or a JAX variables `.npz`.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import json
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from cabinet_tpu_torch.cli import common
@@ -30,7 +37,7 @@ from cabinet_tpu_torch.models.cabinet import CABiNet
 def make_eval_forward(
     model: CABiNet, cropsize: int, device: Union[str, torch.device] = "cuda",
     compute_dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-    fused_tail: str = "auto", quantize: str = "",
+    fused_tail: str = "auto", act_scales: Optional[Mapping[str, float]] = None,
 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """Return `apply_fn(variables, images) -> (logits, aux)` (NHWC, the
     `variables` argument ignored) for `MscEval`, as the JAX CLI picks it:
@@ -42,15 +49,18 @@ def make_eval_forward(
         tail (K2, K3) on CUDA when `compute_dtype` is bf16 and the crop's
         /8 grid is supported; "true" runs it wherever both hold and raises
         where they do not; "false" runs the model's forward;
-      - `quantize` (runtime.quantize, int8 PTQ) is not ported yet and raises
-        (ROADMAP Queue 1 item 5).
+      - `act_scales` (runtime.quantize: `calibration_scales`' result) runs
+        int8 at those conv sites, in the model's forward and in the branches
+        the fused tail runs; the tail's own convs run float inside K2 and
+        K3, as in JAX.
 
-    The model is moved to `device` and `compute_dtype` in place and set to
-    eval mode. The returned function's `route` is "fused_tail" or "model".
+    The model's attention is set. Without `act_scales` the model is moved
+    to `device` and `compute_dtype` in place and set to eval mode; with
+    them a quantized copy is (`quant.make_quantized_apply`, its int8
+    weights made from the model's f32 weights), and the model keeps its
+    float convs. The returned function's `route` is "fused_tail" or
+    "model".
     """
-    if quantize:
-        raise NotImplementedError(f"runtime.quantize={quantize} is not ported "
-                                  f"yet (int8 PTQ, ROADMAP Queue 1 item 5)")
     mode = str(fused_tail).lower()
     if mode not in ("auto", "true", "false"):
         raise ValueError(f"fused_tail must be auto, true or false; got {fused_tail!r}")
@@ -58,6 +68,10 @@ def make_eval_forward(
 
     device = resolve_device(device)
     model.ab.a2block.global_attn.attention = "kernel" if use_pallas else "einsum"
+    if act_scales is not None:
+        from cabinet_tpu_torch.quant import make_quantized_apply
+
+        model = make_quantized_apply(model, act_scales)
     s8 = cropsize // 8
     why = None
     if not fused_tail_supported(s8, s8, model.n_classes):
@@ -94,6 +108,30 @@ def make_eval_forward(
     return apply_fn
 
 
+def calibration_scales(model: CABiNet, loader: Iterable, n_batches: int, crop: int,
+                       device: Union[str, torch.device], dtype: torch.dtype,
+                       depthwise: bool = False) -> Tuple[Dict[str, float], int]:
+    """(act_scales, batches used): the JAX CLI's calibration. The first
+    `n_batches` (images, labels) batches of `loader`, cropped to
+    [:crop, :crop] and cast to `dtype`, through the forward of a copy of
+    `model` (its attention as it is) on `device`; `depthwise` adds the
+    depthwise sites (int8dw). The loader's pass is closed after them."""
+    from cabinet_tpu_torch.quant import collect_act_scales
+
+    device = resolve_device(device)
+    it = iter(loader)
+    try:
+        batches = [torch.from_numpy(np.ascontiguousarray(images, np.float32))
+                   .to(device).to(dtype)[:, :crop, :crop].permute(0, 3, 1, 2)
+                   for images, _ in itertools.islice(it, n_batches)]
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+    calib = copy.deepcopy(model).to(device=device, dtype=dtype)
+    return collect_act_scales(calib, batches, quantize_depthwise=depthwise), len(batches)
+
+
 def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Multi-scale metrics of `cfg.checkpoint_path` on `cfg.split` of
     `cfg.dataset`, as `cabinet_tpu.cli.evaluate.evaluate_checkpoint` gives
@@ -120,32 +158,40 @@ def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[
                           strict=True)
     crop = max(cfg.dataset.cropsize)
     dtype = common.compute_dtype_of(cfg)
+    # the JAX CLI quantizes on "int8" and "int8dw" and ignores other values
     quantize = str(cfg.select("runtime.quantize", ""))
     # the JAX CLI reads only "auto" and "true"; any other value runs the model
     fused_tail = str(cfg.select("runtime.fused_tail", "auto")).lower()
-    try:
-        fwd = make_eval_forward(
-            model, crop, device, dtype,
-            use_pallas=bool(cfg.select("runtime.use_pallas", False)),
-            fused_tail=fused_tail if fused_tail in ("auto", "true") else "false",
-            quantize=quantize if quantize in ("int8", "int8dw") else "")
-    except ValueError as e:  # runtime.fused_tail=true where it cannot run
-        raise ConfigurationError(f"{e}. Drop the setting (or fix the config) "
-                                 f"to run the model's forward.") from None
-    if fwd.route == "fused_tail":
-        print("[info] fused decoder tail enabled", flush=True)
+    try:  # stops runtime.loader=grain's worker processes at the end
+        act_scales = None
+        if quantize in ("int8", "int8dw"):
+            act_scales, n_calib = calibration_scales(
+                model, dl, int(cfg.select("runtime.calib_batches", 2)), crop, device,
+                dtype, depthwise=quantize == "int8dw")
+            print(f"[info] int8 PTQ: {len(act_scales)} convs quantized, calibrated "
+                  f"on {n_calib} batches", flush=True)
+        try:
+            fwd = make_eval_forward(
+                model, crop, device, dtype,
+                use_pallas=bool(cfg.select("runtime.use_pallas", False)),
+                fused_tail=fused_tail if fused_tail in ("auto", "true") else "false",
+                act_scales=act_scales)
+        except ValueError as e:  # runtime.fused_tail=true where it cannot run
+            raise ConfigurationError(f"{e}. Drop the setting (or fix the config) "
+                                     f"to run the model's forward.") from None
+        if fwd.route == "fused_tail":
+            print("[info] fused decoder tail enabled", flush=True)
 
-    evaluator = MscEval(fwd, n_classes, ignore_label=cfg.dataset.ignore_idx,
-                        scales=tuple(vc.eval_scales), flip=bool(vc.flip),
-                        cropsize=crop, compute_dtype=dtype,
-                        # strict native-resolution protocol by default; opt
-                        # into bucketing with validation_config.eval_pad_to
-                        pad_to=cfg.select("validation_config.eval_pad_to", None),
-                        tile_batch=common.eval_tile_batch(cfg),
-                        acc_dtype=common.eval_acc_dtype(cfg), device=device)
-    try:
+        evaluator = MscEval(fwd, n_classes, ignore_label=cfg.dataset.ignore_idx,
+                            scales=tuple(vc.eval_scales), flip=bool(vc.flip),
+                            cropsize=crop, compute_dtype=dtype,
+                            # strict native-resolution protocol by default; opt
+                            # into bucketing with validation_config.eval_pad_to
+                            pad_to=cfg.select("validation_config.eval_pad_to", None),
+                            tile_batch=common.eval_tile_batch(cfg),
+                            acc_dtype=common.eval_acc_dtype(cfg), device=device)
         return evaluator.evaluate(None, dl, progress=True)
-    finally:  # stops runtime.loader=grain's worker processes
+    finally:
         dl.close()
 
 

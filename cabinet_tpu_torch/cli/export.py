@@ -9,9 +9,14 @@ runs only on the device type it was exported for.
 Usage (CUDA unless --device cpu):
     python -m cabinet_tpu_torch.cli.export --checkpoint ck.pth --dataset uavid \\
         --out artifacts/uavid_large [--imgsz 1024] [--batch 1|b] \\
-        [--mode large] [--dtype bfloat16] [--device cuda] [--check]
+        [--mode large] [--dtype bfloat16] [--device cuda] [--check] \\
+        [--quantize int8|int8dw --calib 'val/*.png']
 
 ``--batch b`` exports a symbolic batch dimension (one artifact, any batch).
+``--quantize`` bakes int8 post-training quantization into the artifact
+(`cabinet_tpu_torch/quant.py`), its activation scales calibrated on at most
+16 frames of ``--calib``, resized to ``--imgsz`` and normalised as the
+artifact normalises.
 ``--check`` loads the artifact back on the same device and requires it to
 match the live serving module bit for bit (cuDNN's autotuner off, so that
 both runs pick the same algorithms).
@@ -20,11 +25,37 @@ both runs pick the same algorithms).
 from __future__ import annotations
 
 import argparse
+import glob
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def calibrate(model, paths: Sequence[str], mean: Sequence[float], std: Sequence[float],
+              imgsz: int, dtype: torch.dtype, device: torch.device,
+              depthwise: bool = False) -> dict:
+    """The activation scales of `model` on the frames at `paths` as one
+    batch, as the JAX CLI calibrates: each frame decoded to RGB
+    (`data/decode.py:open_rgb`), resized to imgsz x imgsz as PIL's
+    BILINEAR resizes (`cli/infer.py:_resize_like_pil`), normalised in numpy
+    f32, cast to `dtype`, through a copy of the model on `device`."""
+    import copy
+
+    from cabinet_tpu_torch.cli.infer import _resize_like_pil
+    from cabinet_tpu_torch.data.decode import open_rgb
+    from cabinet_tpu_torch.quant import collect_act_scales
+
+    mean, std = np.asarray(mean, np.float32), np.asarray(std, np.float32)
+    frames = []
+    for path in paths:
+        rgb = torch.from_numpy(open_rgb(path)).permute(2, 0, 1)[None]
+        rgb = _resize_like_pil(rgb, (imgsz, imgsz))[0].permute(1, 2, 0).numpy()
+        frames.append((rgb.astype(np.float32) / 255.0 - mean) / std)
+    calib = torch.from_numpy(np.stack(frames)).to(device).to(dtype).permute(0, 3, 1, 2)
+    return collect_act_scales(copy.deepcopy(model).to(device=device, dtype=dtype),
+                              [calib], quantize_depthwise=depthwise)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -48,17 +79,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"))
     p.add_argument("--quantize", default=None, choices=("int8", "int8dw"),
-                   help="the int8 PTQ serving path (not ported yet)")
+                   help="bake the int8 PTQ serving path into the artifact "
+                        "(cabinet_tpu_torch/quant.py; int8dw also quantizes "
+                        "the depthwise convs); requires --calib")
+    p.add_argument("--calib", default=None, metavar="GLOB",
+                   help="calibration images for --quantize (glob of PNG/JPG "
+                        "files, e.g. 'val/*.png'; activation scales are "
+                        "computed through the normalization the artifact "
+                        "bakes in)")
     p.add_argument("--device", default="cuda",
                    help="torch device the program is exported for and runs on")
     p.add_argument("--check", action="store_true",
                    help="load the artifact back and verify it against the "
                         "live serving module")
     args = p.parse_args(argv)
+    calib_paths = []
     if args.quantize:
-        raise NotImplementedError(
-            f"--quantize {args.quantize}: the int8 PTQ path (cabinet_tpu/quant.py) "
-            f"is not ported yet (ROADMAP.md Queue 1 item 5)")
+        if not args.calib:
+            raise SystemExit(f"--quantize {args.quantize} requires --calib <glob>")
+        calib_paths = sorted(glob.glob(args.calib))[:16]  # a handful saturates the absmax
+        if not calib_paths:
+            raise SystemExit(f"--calib matched no files: {args.calib}")
     if args.family == "yolosem":
         raise NotImplementedError(
             "--family yolosem: the YOLO-sem family is not ported yet "
@@ -81,6 +122,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
     model = CABiNet(ds_cls.NUM_CLASSES, mode=args.mode, attention="einsum")
     model.load_state_dict(load_state_dict(args.checkpoint, model), strict=True)
+    if args.quantize:
+        from cabinet_tpu_torch.quant import make_quantized_apply
+
+        scales = calibrate(model, calib_paths, ds_cls.MEAN, ds_cls.STD, args.imgsz,
+                           dtype, device, depthwise=args.quantize == "int8dw")
+        model = make_quantized_apply(model, scales)
+        print(f"[INFO] int8 PTQ: calibrated {len(scales)} conv sites on "
+              f"{len(calib_paths)} frames", flush=True)
     try:
         batch = int(args.batch)
     except ValueError:

@@ -5,6 +5,10 @@ Carries its own copy of the key table of `cabinet_tpu.utils.torch_convert`
 package. Transforms: conv HWIO -> OIHW (depthwise (kH,kW,1,C) -> (C,1,kH,kW)
 is the same transpose), dense (in,out) -> (out,in), BatchNorm
 scale/bias/mean/var -> weight/bias/running_mean/running_var.
+
+The same table names the int8 sites both ways (`jax_site_keys`,
+`port_module_names`): the JAX package keys its activation scales by
+`"/".join(mod.path)` of each conv, the port by the conv's module name.
 """
 
 from __future__ import annotations
@@ -147,6 +151,19 @@ def cabinet_mapping(cfgs: Sequence[Sequence[float]]) -> List[MapEntry]:
     e += _conv_bn_relu("conv_out.conv", ("conv_out", "conv"))
     e += _conv("conv_out.conv_out.weight", ("conv_out", "conv_out", "kernel"))
     return e
+
+
+def jax_site_keys(cfgs: Sequence[Sequence[float]]) -> Dict[str, str]:
+    """{port conv module name: JAX site key}, e.g. "sb.conv_out.conv" ->
+    "sb/conv_out/conv", "mobile.features.1.conv.0" -> "mobile/block_0/dw":
+    the conv's kernel path in the table without its last part."""
+    return {torch_key[:-len(".weight")]: "/".join(flax_path[:-1])
+            for torch_key, flax_path, kind in cabinet_mapping(cfgs) if kind == CONV}
+
+
+def port_module_names(cfgs: Sequence[Sequence[float]]) -> Dict[str, str]:
+    """{JAX site key: port conv module name}, the inverse of `jax_site_keys`."""
+    return {key: name for name, key in jax_site_keys(cfgs).items()}
 
 
 def _nested(variables: Mapping[str, Any]) -> Dict[str, Any]:

@@ -110,17 +110,34 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               recomputation; the process loader's first batches (worker
               start-up); `cli/train.py:main` (CABiNet-Large, bf16,
               use_pallas, crop 1024, epochs 2, 8 loader workers) with
-              runtime.loader=thread and =grain in turns, twice each, on the
+              runtime.loader=thread and =grain in turns, once each, on the
               host recipe and on the device canvas (device_geometric=true),
               the batches its steps take bit-equal between the loaders,
               with each run's loop s per step and loader-wait share; and
               `cli/evaluate.py:main` on the EMA weights (bf16, use_pallas,
               K1-K3) with each loader, the confusion matrices equal
-  13. no process left: the process loader's forkserver and resource
+  13. quant  int8 post-training quantization (cabinet_tpu_torch/quant.py):
+              (a) every int8dw site of CABiNet-Large at its input shape at
+              1024^2, batch 1 and 8: int8 inputs, int32 sums and outputs on
+              the card equal to the CPU's bit for bit; (b)
+              `cli/evaluate.py:main` on the trained fixture over 2 of phase
+              7's frames (bf16, use_pallas, six scales with flip, batch 1):
+              float, +runtime.quantize=int8, =int8dw and =int8dw with
+              runtime.loader=grain, then float again, each quantized run
+              printing its 46 or 64 quantized convs, launching K1-K3 on
+              every tile forward (K1 also in its 2 calibration forwards)
+              and no K4, within 0.5% of the pixels and 0.01 mIoU of the
+              float run; (c) `cli/export.py
+              --quantize int8dw --calib` on those frames with --check, and
+              the checkpoint-less server on that artifact answering 8
+              requests, each batch bit-equal to the live quantized module;
+              (d) the fused-tail forward's ms/img float, int8 and int8dw at
+              batch 1 and 8, in turns, back to back and from a CUDA graph
+  14. no process left: the process loader's forkserver and resource
       tracker stopped and reaped, and no process this run started (a
       child, or any process carrying the run's mark in its environment)
       still there
-  14. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  15. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -2140,11 +2157,12 @@ def run_serve_f32(torch, ckpt: Path, bodies, refs):
             "agreement_beyond_bound": agree[1]}
 
 
-def run_artifact_server(torch, art: Path, ckpt: Path, frames, bodies):
+def run_artifact_server(torch, art: Path, ckpt: Path, frames, bodies, live_model=None):
     """Phase 11e: the server on 11a's artifact, 8 concurrent requests: no
     kernel launched; each batch the worker ran equal, bit for bit, to the
-    live make_serving_fn on the same frames resized and padded by the same
-    rule, and each answer to its row brought to the frame's size."""
+    live make_serving_fn (of `live_model`, else of the checkpoint's model)
+    on the same frames resized and padded by the same rule, and each answer
+    to its row brought to the frame's size."""
     import numpy as np
 
     from cabinet_tpu_torch.cli.infer import Segmenter, load_state_dict, resize_frame
@@ -2172,8 +2190,10 @@ def run_artifact_server(torch, art: Path, ckpt: Path, frames, bodies):
     check(all(n == 0 for n in kernel_counts().values()),
           f"the artifact launched {kernel_counts()}")
     stats_ds = DATASET_REGISTRY["uavid"]
-    model = CABiNet(8, "large", attention="einsum")
-    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    model = live_model
+    if model is None:
+        model = CABiNet(8, "large", attention="einsum")
+        model.load_state_dict(load_state_dict(ckpt, model), strict=True)
     live = make_serving_fn(model, stats_ds.MEAN, stats_ds.STD, torch.bfloat16).to(DEVICE)
     rows = []
     with torch.no_grad():
@@ -2370,7 +2390,7 @@ DATA_SEQS = {"train": ("seq01", "seq02"), "val": ("seq03",)}
 DATA_PER_SEQ = {"train": 4, "val": 2}
 DATA_UNKNOWN = ((1, 2, 3), (250, 250, 250))
 DATA_PATCH = 64
-DATA_RUNS = 2
+DATA_RUNS = 1  # thread and grain train mains per recipe, in turns
 
 
 def write_uavid_raw(np, src: Path, h: int, w: int, seed: int = 81):
@@ -2750,6 +2770,232 @@ def say_data(smi: str, data: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: int8 post-training quantization
+# ---------------------------------------------------------------------------
+
+QUANT_FRAMES = 2  # the first frames of phase 7's split
+QUANT_SITES = {"int8": 46, "int8dw": 64}  # CABiNet-Large's, as JAX counts them
+QUANT_ROUNDS = 2
+
+
+def check_int8_sites(torch, size: int = EVAL_MAIN_CROP, batches=(1, 8)):
+    """Every int8dw site of CABiNet-Large (the trained fixture's weights)
+    at its input shape in a size^2 forward, at each batch: the same bf16
+    input on the card and on the CPU gives equal int8 inputs, equal sums
+    (int32 from `torch._int_mm`, or the depthwise f32 convolution of the
+    integers) and equal outputs, bit for bit. The FFM's 1x1 maps take the
+    padded GEMM rows. Returns the count of sites and the largest |sum|."""
+    import copy
+
+    from cabinet_tpu_torch.quant import Int8Site, quantization_sites
+
+    model = fixture_model(torch, "einsum").eval()
+    sites = quantization_sites(model, quantize_depthwise=True)
+    check(len(sites) == QUANT_SITES["int8dw"], f"{len(sites)} int8dw sites")
+    shapes = {}
+
+    def shape_of(name):
+        def hook(mod, args):
+            shapes[name] = tuple(args[0].shape[1:])
+        return hook
+
+    hooks = [m.register_forward_pre_hook(shape_of(n)) for n, m in sites.items()]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size))
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    largest = 0
+    for name, conv in sites.items():
+        for b in batches:
+            x_d = torch.randn((b, *shapes[name]), generator=gen, device=DEVICE).to(torch.bfloat16)
+            x = x_d.cpu()
+            site = Int8Site(conv, float(x.float().abs().max()) / 127.0)
+            site_d = copy.deepcopy(site).to(DEVICE)
+            xq, xq_d = site.quantize_input(x), site_d.quantize_input(x_d)
+            check(torch.equal(xq_d.cpu(), xq), f"{name} batch {b}: int8 inputs differ")
+            sums, sums_d = site.sums(xq), site_d.sums(xq_d)
+            check(torch.equal(sums_d.cpu(), sums), f"{name} batch {b}: sums differ "
+                  f"({site.depthwise and 'depthwise' or 'dense'})")
+            check(torch.equal(site_d(x_d).cpu(), site(x)), f"{name} batch {b}: outputs differ")
+            largest = max(largest, int(sums.abs().max()))
+            del x_d, x, xq, xq_d, sums, sums_d
+    say("quant", part="sites", sites=len(sites), size=size, batches=list(batches),
+        largest_abs_sum=largest)
+    return {"sites": len(sites), "largest_abs_sum": largest}
+
+
+def quant_main_run(torch, paths, name: str, argv) -> dict:
+    """`cli/evaluate.py:main(argv)` as one main path; its result, host s and
+    printed lines."""
+    from cabinet_tpu_torch.cli.evaluate import main as evaluate_main
+
+    (res, seconds, lines) = paths.drive(name, run_cli, evaluate_main, argv, "main")
+    return {"res": res, "seconds": seconds, "lines": lines,
+            "counts": paths.per_path[name]}
+
+
+def run_quant_evaluate(torch, paths, root: Path, crop: int = EVAL_MAIN_CROP) -> dict:
+    """Phase 13b: evaluate main in bf16 with runtime.use_pallas=true on the
+    trained fixture over `root` (evaluate.yaml's six scales with flip,
+    crop 1024, batch 1): float, then +runtime.quantize=int8 and =int8dw,
+    then int8dw with runtime.loader=grain, then float again (its matrix
+    the first float run's). Each quantized run: its count of
+    quantized convs printed, K2 and K3 on every tile forward as in the
+    float run, K1 on those and on each of the 2 calibration forwards, no
+    K4; at most 0.5% of the pixels moved and |delta mIoU| < 0.01 against
+    the float run; the grain run's matrix equal to the thread run's."""
+    import numpy as np
+
+    base = [f"checkpoint_path={FIXTURE}", "dataset=cityscapes", "dataset.num_classes=5",
+            f"dataset.dataset_path={root}", "validation_config.batch_size=1",
+            "runtime.compute_dtype=bfloat16", "runtime.use_pallas=true"]
+    if crop != EVAL_MAIN_CROP:
+        base.append(f"dataset.cropsize=[{crop},{crop}]")
+    runs = {"float": quant_main_run(torch, paths, "quant_evaluate_float",
+                                    base + ["--device", DEVICE])}
+    flt = runs["float"]
+    tiles = flt["counts"]["ffm_pointwise"]
+    check(tiles > 0 and flt["counts"]["attention"] == tiles == flt["counts"]["head_conv3x3"],
+          f"float evaluate main launches {flt['counts']}")
+    pixels = float(flt["res"]["confusion_matrix"].sum())
+    for mode, loader in (("int8", "thread"), ("int8dw", "thread"), ("int8dw", "grain")):
+        key = mode if loader == "thread" else f"{mode}_{loader}"
+        if loader == "grain":
+            cold_forkserver()
+        run = quant_main_run(torch, paths, f"quant_evaluate_{key}", base + [
+            f"+runtime.quantize={mode}", f"runtime.loader={loader}", "--device", DEVICE])
+        runs[key] = run
+        counts, res = run["counts"], run["res"]
+        line = f"int8 PTQ: {QUANT_SITES[mode]} convs quantized, calibrated on 2 batches"
+        check(any(line in ln for ln in run["lines"]), f"{key}: no '{line}' printed")
+        check(counts["ffm_pointwise"] == counts["head_conv3x3"] == tiles
+              and counts["attention"] == tiles + 2
+              and counts["attention_f32"] == 0 and counts["stem_block0"] == 0,
+              f"{key}: launches {counts}, float run {flt['counts']}")
+        moved = float(np.abs(res["confusion_matrix"] - flt["res"]["confusion_matrix"]).sum() / 2)
+        run["moved_share"] = moved / pixels
+        run["delta_mIoU"] = res["mIoU"] - flt["res"]["mIoU"]
+        say("quant", part="evaluate_main", run=key, mIoU=res["mIoU"],
+            float_mIoU=flt["res"]["mIoU"], moved_share=run["moved_share"],
+            main_seconds_per_frame=run["seconds"] / res["timing"]["frames"],
+            launches=counts)
+        check(run["moved_share"] <= 5e-3 and abs(run["delta_mIoU"]) < 0.01,
+              f"{key}: {moved} of {pixels} pixels moved, mIoU {res['mIoU']} against "
+              f"{flt['res']['mIoU']}")
+    check(np.array_equal(runs["int8dw_grain"]["res"]["confusion_matrix"],
+                         runs["int8dw"]["res"]["confusion_matrix"]),
+          "int8dw: the process loader's confusion matrix differs from the thread's")
+    # float once more, last: the first run of the phase pays first-use costs
+    runs["float_again"] = quant_main_run(torch, paths, "quant_evaluate_float_again",
+                                         base + ["--device", DEVICE])
+    check(runs["float_again"]["counts"] == flt["counts"]
+          and np.array_equal(runs["float_again"]["res"]["confusion_matrix"],
+                             flt["res"]["confusion_matrix"]),
+          f"float evaluate main again: launches {runs['float_again']['counts']}, or "
+          f"another confusion matrix")
+    frames = flt["res"]["timing"]["frames"]
+    return {k: {"main_seconds_per_frame": r["seconds"] / frames, "mIoU": r["res"]["mIoU"],
+                **({"moved_share": r["moved_share"]} if "moved_share" in r else {})}
+            for k, r in runs.items()}
+
+
+def run_quant_export(torch, paths, root: Path, tmp: Path) -> dict:
+    """Phase 13c: `cli/export.py --quantize int8dw --calib` on the split's
+    frames (seeded uavid weights, Large, 1024^2, bf16, symbolic batch,
+    --check bit-exact on the card); then the checkpoint-less server on
+    that artifact answers 8 requests, each batch bit-equal to the live
+    quantized module calibrated as the CLI calibrates."""
+    import glob
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli import export as cli_export
+    from cabinet_tpu_torch.cli.infer import load_state_dict
+    from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
+    from cabinet_tpu_torch.data.decode import encode_png
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.quant import make_quantized_apply
+
+    ckpt, art = tmp / "uavid_large_seeded.pth", tmp / "artifact_int8dw"
+    seeded_uavid_checkpoint(torch, ckpt)
+    calib = str(root / "leftImg8bit" / "val" / "*" / "*.png")
+    _, seconds, lines = paths.drive("quant_export_main", run_cli, cli_export.main, [
+        "--checkpoint", str(ckpt), "--dataset", "uavid", "--out", str(art),
+        "--imgsz", str(SERVE_SIZE), "--batch", "b", "--mode", "large",
+        "--dtype", "bfloat16", "--device", DEVICE, "--check",
+        "--quantize", "int8dw", "--calib", calib], "export")
+    check(any(f"calibrated {QUANT_SITES['int8dw']} conv sites on {QUANT_FRAMES} frames" in ln
+              for ln in lines), "export: calibration line")
+    check(any("round-trip check passed" in ln for ln in lines), "export --check (int8dw)")
+    model = CABiNet(8, "large", attention="einsum")
+    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    stats = DATASET_REGISTRY["uavid"]
+    scales = cli_export.calibrate(model, sorted(glob.glob(calib))[:16], stats.MEAN,
+                                  stats.STD, SERVE_SIZE, torch.bfloat16,
+                                  torch.device(DEVICE), depthwise=True)
+    frames = serve_frames(np, 8, SERVE_H, SERVE_W, seed=75)
+    served = paths.drive("quant_serve_artifact", run_artifact_server, torch, art, ckpt,
+                         frames, [encode_png(f) for f in frames],
+                         make_quantized_apply(model, scales))
+    return {"export_s": seconds, "artifact_bytes": sum(f.stat().st_size for f in art.iterdir()),
+            "batches": served["batches"]}
+
+
+def time_quant_forwards(torch, size: int = EVAL_MAIN_CROP, rounds: int = QUANT_ROUNDS):
+    """bf16 fused-tail forward (K1-K3) of the trained fixture at size^2,
+    ms/img float, int8 and int8dw (scales calibrated on the palette
+    images), at batch 1 and 8, timed in turns within this call: `rounds`
+    of (float, int8, int8dw, int8dw, int8, float), back to back (`ms`) and
+    replayed from a CUDA graph (`device_ms`). Per batch and timer, each
+    mode's median."""
+    import statistics
+
+    from cabinet_tpu_torch.models.fused import make_fused_tail_apply
+    from cabinet_tpu_torch.quant import collect_act_scales, make_quantized_apply
+
+    images = palette_images(torch, size)
+    calib = images.to(DEVICE).to(torch.bfloat16).permute(0, 3, 1, 2)
+    fwds = {"float": make_fused_tail_apply(fixture_model(torch), DEVICE, torch.bfloat16)}
+    for mode in ("int8", "int8dw"):
+        model = fixture_model(torch)
+        scales = collect_act_scales(fixture_model(torch).to(DEVICE, torch.bfloat16), [calib],
+                                    quantize_depthwise=mode == "int8dw")
+        fwds[mode] = make_fused_tail_apply(make_quantized_apply(model, scales), DEVICE,
+                                           torch.bfloat16)
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    x = torch.randn(8, size, size, 3, generator=gen, device=DEVICE).to(torch.bfloat16)
+    out = {}
+    for b in (1, 8):
+        ms = {(t, m): [] for t in ("ms", "device_ms") for m in fwds}
+        for _ in range(rounds):
+            for mode in ("float", "int8", "int8dw", "int8dw", "int8", "float"):
+                fn = lambda: fwds[mode](x[:b])  # noqa: E731
+                ms["ms", mode].append(time_ms(fn, iters=5) / b)
+                ms["device_ms", mode].append(graph_ms(fn, iters=2, warmup=1, replays=3) / b)
+        for t in ("ms", "device_ms"):
+            out[f"batch{b}_{t}"] = {m: statistics.median(ms[t, m]) for m in fwds}
+            say("quant", part="forward_ms_per_img_in_turns", batch=b, timer=t,
+                **{m: ms[t, m] for m in fwds})
+    return out
+
+
+def run_quant(torch, paths, tmp: Path) -> dict:
+    """Phase 13: (a) the int8 sites card against CPU, (b) evaluate main
+    float / int8 / int8dw / int8dw on the process loader, (c) the int8dw
+    export and the server on it, (d) the forwards' ms/img."""
+    import numpy as np
+
+    out = {"sites": check_int8_sites(torch)}
+    root = tmp / "cityscapes"
+    write_city_split(np, root, QUANT_FRAMES, FRAME_H, FRAME_W)
+    out["evaluate"] = run_quant_evaluate(torch, paths, root)
+    out["export"] = run_quant_export(torch, paths, root, tmp)
+    out["forward"] = time_quant_forwards(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2859,6 +3105,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data = run_data(torch, paths, Path(tmp))
     say_data(smi, data)
+    with tempfile.TemporaryDirectory() as tmp:
+        quant = run_quant(torch, paths, Path(tmp))
+    say("quant", card=smi, **quant["forward"],
+        evaluate_main_seconds_per_frame={k: v["main_seconds_per_frame"]
+                                         for k, v in quant["evaluate"].items()},
+        moved_share={k: v["moved_share"] for k, v in quant["evaluate"].items()
+                     if "moved_share" in v},
+        export_s=quant["export"]["export_s"], sites=quant["sites"]["sites"])
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")

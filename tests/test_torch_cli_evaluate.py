@@ -118,6 +118,38 @@ def test_evaluate_checkpoint_matches_jax(tiny_eval, protocol):
     assert got["timing"]["frames"] == len(SIZES)
 
 
+@pytest.mark.parametrize("quantize", ["int8", "int8dw"])
+def test_evaluate_checkpoint_quantized_matches_jax(tiny_eval, quantize, capsys):
+    """`+runtime.quantize=int8|int8dw`: both packages calibrate on the first
+    2 val batches (cropped to 32x32) and score with the quantized model,
+    and the port prints its count of quantized convs, that of JAX's sites.
+    Each package calibrates on its own forward, so a scale may differ from
+    JAX's by float noise (tests/test_torch_quant.py bounds it at 2e-4
+    relative); a site input within that noise of a rounding tie then takes
+    the other int8 value, and on this random-weight model, whose class
+    probabilities are nearly flat, a few argmaxes move (8 of 5860 pixels
+    under int8dw). Bound: the quality gate's, at most 0.5% of the pixels
+    moved and |delta mIoU| < 0.01."""
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.quant import quantization_sites
+
+    overrides, _, _ = tiny_eval
+    argv = overrides + ["validation_config.eval_scales=[1.0]",
+                        "validation_config.flip=false", f"+runtime.quantize={quantize}"]
+    ref = j_evaluate_checkpoint(jcompose(jcommon.CONFIG_DIR, "evaluate", argv))
+    cfg = compose(jcommon.CONFIG_DIR, "evaluate", argv)
+    capsys.readouterr()
+    got = tev.evaluate_checkpoint(cfg, device="cpu")
+    n_sites = len(quantization_sites(common.build_model(cfg, 8),
+                                     quantize_depthwise=quantize == "int8dw"))
+    assert (f"int8 PTQ: {n_sites} convs quantized, calibrated on 2 batches"
+            in capsys.readouterr().out)
+    hist, ref_hist = got["confusion_matrix"], ref["confusion_matrix"]
+    assert hist.sum() == ref_hist.sum() == sum(h * w - 3 * w for h, w in SIZES)
+    assert np.abs(hist - ref_hist).sum() / 2 <= 5e-3 * hist.sum()
+    assert abs(got["mIoU"] - ref["mIoU"]) < 0.01
+
+
 def test_main_prints_the_jax_json_line(tiny_eval, capsys):
     overrides, _, _ = tiny_eval
     protocol = ["validation_config.eval_scales=[1.0]", "validation_config.flip=false"]
@@ -133,9 +165,6 @@ def test_split_train_and_unported_options_raise(tiny_eval):
     with pytest.raises(ConfigurationError, match="train"):
         tev.evaluate_checkpoint(compose(jcommon.CONFIG_DIR, "evaluate",
                                         overrides + ["split=train"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tev.evaluate_checkpoint(compose(jcommon.CONFIG_DIR, "evaluate",
-                                        overrides + ["+runtime.quantize=int8"]), device="cpu")
     # fused_tail=true where it cannot run (float32), as the JAX CLI refuses
     with pytest.raises(ConfigurationError, match="fused decoder tail"):
         tev.evaluate_checkpoint(compose(jcommon.CONFIG_DIR, "evaluate",

@@ -852,3 +852,112 @@ def test_cuda_export_roundtrip_is_bit_equal(gen, tmp_path, capsys):
             assert torch.equal(serve(x), live(x))
     with pytest.raises(ValueError, match="exported for cuda, not cpu"):
         load_artifact(out, "cpu")
+
+
+def _large_site_shapes(size):
+    """{site module name: (conv, its input's (C, H, W))} of every int8dw
+    site of a seeded CABiNet-Large in a size^2 forward (CPU, f32)."""
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.quant import quantization_sites
+
+    torch.manual_seed(0)
+    model = CABiNet(8, "large").eval()
+    sites = quantization_sites(model, quantize_depthwise=True)
+    shapes = {}
+
+    def shape_of(name):
+        def hook(mod, args):
+            shapes[name] = tuple(args[0].shape[1:])
+        return hook
+
+    hooks = [m.register_forward_pre_hook(shape_of(n)) for n, m in sites.items()]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size))
+    for h in hooks:
+        h.remove()
+    return {n: (m, shapes[n]) for n, m in sites.items()}
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_site_sums_on_cuda_equal_cpu(gen, batch):
+    """Every int8dw site of Large at its 1024^2 input shape: the same int8
+    operands give the same int32 sums on the card (`torch._int_mm`; the
+    FFM's 1x1 maps through the 16 padded rows; the depthwise f32
+    convolution of integers) as on the CPU, and the same bf16 input the
+    same int8 input and output, bit for bit."""
+    import copy
+
+    from cabinet_tpu_torch.quant import Int8Site
+
+    sites = _large_site_shapes(1024)
+    assert len(sites) == 64
+    for name, (conv, shape) in sites.items():
+        x_d = torch.randn((batch, *shape), generator=gen, device="cuda").bfloat16()
+        x = x_d.cpu()
+        site = Int8Site(conv, float(x.float().abs().max()) / 127.0)
+        site_d = copy.deepcopy(site).cuda()
+        xq, xq_d = site.quantize_input(x), site_d.quantize_input(x_d)
+        assert torch.equal(xq_d.cpu(), xq), name
+        assert torch.equal(site_d.sums(xq_d).cpu(), site.sums(xq)), name
+        assert torch.equal(site_d(x_d).cpu(), site(x)), name
+
+
+@pytest.mark.parametrize("cout", [184, 200])
+def test_int8_site_takes_many_rows_on_cuda(gen, cout):
+    """The 1x1 sites 80 -> 184 and 80 -> 200 of Large's block 7-9 at 32
+    tiles of 64x64 (131072 GEMM rows, as a bf16 evaluation's tile batch
+    gives them): cuBLASLt refuses those widths unpadded from 65536 rows;
+    the padded weight rows give the CPU's sums."""
+    import copy
+
+    from cabinet_tpu_torch.quant import Int8Site
+
+    torch.manual_seed(cout)
+    conv = torch.nn.Conv2d(80, cout, 1, bias=False)
+    x_d = torch.randn((32, 80, 64, 64), generator=gen, device="cuda").bfloat16()
+    x = x_d.cpu()
+    site = Int8Site(conv, float(x.float().abs().max()) / 127.0)
+    site_d = copy.deepcopy(site).cuda()
+    xq = site.quantize_input(x)
+    assert torch.equal(site_d.sums(xq.cuda()).cpu(), site.sums(xq))
+
+
+def test_cuda_int8dw_export_roundtrip_is_bit_equal(gen, tmp_path, capsys):
+    """cli.export --quantize int8dw --calib on the card (Large, bf16,
+    symbolic batch, --check), and the loaded program at batch 1 and 3
+    against the live quantized serving module calibrated the same way."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.export import calibrate, main
+    from cabinet_tpu_torch.cli.infer import load_state_dict
+    from cabinet_tpu_torch.data.decode import save_png
+    from cabinet_tpu_torch.export import load_artifact, make_serving_fn
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.quant import make_quantized_apply
+
+    ckpt = _seeded_large(tmp_path / "l.pth")
+    rng = np.random.default_rng(2)
+    frames = [tmp_path / f"calib_{i}.png" for i in range(2)]
+    for f in frames:
+        save_png(f, rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+    out = tmp_path / "art"
+    main(["--checkpoint", str(ckpt), "--dataset", "uavid", "--out", str(out),
+          "--imgsz", "256", "--batch", "b", "--dtype", "bfloat16", "--check",
+          "--quantize", "int8dw", "--calib", str(tmp_path / "calib_*.png")])
+    printed = capsys.readouterr().out
+    assert "calibrated 64 conv sites on 2 frames" in printed
+    assert "round-trip check passed" in printed
+    serve, meta = load_artifact(out, "cuda")
+    assert meta["quantize"] == "int8dw"
+    model = CABiNet(8, "large", attention="einsum")
+    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    scales = calibrate(model, [str(f) for f in frames], meta["mean"], meta["std"], 256,
+                       torch.bfloat16, torch.device("cuda"), depthwise=True)
+    live = make_serving_fn(make_quantized_apply(model, scales), meta["mean"], meta["std"],
+                           torch.bfloat16).cuda()
+    torch.backends.cudnn.benchmark = False
+    for b in (1, 3):
+        x = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 256, (b, 256, 256, 3), dtype=np.uint8)).cuda()
+        with torch.no_grad():
+            assert torch.equal(serve(x), live(x))

@@ -158,7 +158,9 @@ def test_make_eval_forward_routes_as_jax_cli():
     """auto: the fused tail only on CUDA; true: raises where it cannot be
     honoured (f32, or a grid outside the kernels' support) and otherwise
     runs it (on the CPU, the kernels' plain versions); use_pallas sets the
-    CAB attention; quantize is not ported yet."""
+    CAB attention; act_scales runs a quantized copy (here one site, the
+    attention branch's convb) under the fused tail, and the model given
+    keeps its float convs."""
     from cabinet_tpu_torch.models.cabinet import CABiNet
 
     def model():
@@ -179,5 +181,14 @@ def test_make_eval_forward_routes_as_jax_cli():
     m = model()
     make_eval_forward(m, 256, "cpu", use_pallas=False)
     assert m.ab.a2block.global_attn.attention == "einsum"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_eval_forward(model(), 256, "cpu", quantize="int8")
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 256, 256, 3))
+                         .astype(np.float32))
+    outs = []
+    for scales in ({}, {"ab.convb": 0.05}):
+        m = model()
+        fwd = make_eval_forward(m, 256, "cpu", torch.bfloat16, fused_tail="true",
+                                act_scales=scales)
+        assert fwd.route == "fused_tail"
+        assert not any(hasattr(mod, "int8") for mod in m.modules())
+        outs.append(fwd(None, x)[0])
+    assert not torch.equal(*outs)

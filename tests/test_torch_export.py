@@ -184,8 +184,7 @@ def test_cli_export_main_check_on_cpu(tmp_path, capsys):
     assert len(meta["palette"]) == 256
 
 
-@pytest.mark.parametrize("argv,item", [(["--quantize", "int8"], "item 5"),
-                                       (["--family", "yolosem"], "item 6")])
+@pytest.mark.parametrize("argv,item", [(["--family", "yolosem"], "item 6")])
 def test_cli_export_refuses_what_is_not_ported(tmp_path, argv, item):
     from cabinet_tpu_torch.cli.export import main
 
