@@ -1,4 +1,4 @@
-"""Export a CABiNet checkpoint as a standalone serving artifact
+"""Export a CABiNet or a YOLO-sem checkpoint as a standalone serving artifact
 (counterpart of `cabinet_tpu.cli.export`).
 
 The artifact is one `torch.export` program with the weights and the
@@ -11,6 +11,13 @@ Usage (CUDA unless --device cpu):
         --out artifacts/uavid_large [--imgsz 1024] [--batch 1|b] \\
         [--mode large] [--dtype bfloat16] [--device cuda] [--check] \\
         [--quantize int8|int8dw --calib 'val/*.png']
+    python -m cabinet_tpu_torch.cli.export --family yolosem --variant n \\
+        --checkpoint exp/final.pth --dataset uavid --out artifacts/uavid_yolo26n
+
+``--family yolosem --variant n|s|m|l|x`` builds `YOLOSem` and reads a `.pth`
+(the EMA weights `cli/train_yolo.py` writes, or a state dict) or a JAX
+variables `.npz`; the JAX CLI reads only orbax checkpoints there. ``family``
+and ``variant`` go into the metadata.
 
 ``--batch b`` exports a symbolic batch dimension (one artifact, any batch).
 ``--quantize`` bakes int8 post-training quantization into the artifact
@@ -62,7 +69,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True,
                    help="reference .pth state dict, a .pth of the port's "
-                        "trainer, or a JAX variables .npz")
+                        "trainers (cli.train, cli.train_yolo), or a JAX "
+                        "variables .npz")
     p.add_argument("--dataset", required=True,
                    help="dataset name (class count + normalization stats)")
     p.add_argument("--out", required=True, help="artifact output directory")
@@ -74,8 +82,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                    choices=("cabinet", "yolosem"))
     p.add_argument("--mode", default="large", choices=("large", "small"),
                    help="CABiNet size (family=cabinet)")
-    p.add_argument("--variant", default="n",
-                   help="YOLO-sem variant (family=yolosem): n/s/m/l/x")
+    p.add_argument("--variant", default="n", choices=tuple("nsmlx"),
+                   help="YOLO-sem variant (family=yolosem)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"))
     p.add_argument("--quantize", default=None, choices=("int8", "int8dw"),
@@ -100,11 +108,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         calib_paths = sorted(glob.glob(args.calib))[:16]  # a handful saturates the absmax
         if not calib_paths:
             raise SystemExit(f"--calib matched no files: {args.calib}")
-    if args.family == "yolosem":
-        raise NotImplementedError(
-            "--family yolosem: the YOLO-sem family is not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
-
     from cabinet_tpu_torch.cli.infer import load_state_dict
     from cabinet_tpu_torch.core.device import resolve_device
     from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
@@ -116,11 +119,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         save_artifact,
     )
     from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
 
     device = resolve_device(args.device)
     ds_cls = DATASET_REGISTRY[args.dataset]
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
-    model = CABiNet(ds_cls.NUM_CLASSES, mode=args.mode, attention="einsum")
+    if args.family == "yolosem":
+        model = YOLOSem(ds_cls.NUM_CLASSES, variant=args.variant)
+    else:
+        model = CABiNet(ds_cls.NUM_CLASSES, mode=args.mode, attention="einsum")
     model.load_state_dict(load_state_dict(args.checkpoint, model), strict=True)
     if args.quantize:
         from cabinet_tpu_torch.quant import make_quantized_apply
@@ -142,7 +149,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                if args.dataset in PALETTES else None)
     out = save_artifact(program, args.out, {
         "family": args.family,
-        "variant": None,
+        "variant": args.variant if args.family == "yolosem" else None,
         "quantize": args.quantize,
         "dataset": args.dataset,
         "n_classes": ds_cls.NUM_CLASSES,

@@ -34,13 +34,13 @@ IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv"}
 
 
-def load_state_dict(checkpoint: Union[str, Path], model: CABiNet
+def load_state_dict(checkpoint: Union[str, Path], model: torch.nn.Module
                     ) -> Dict[str, torch.Tensor]:
-    """Weights for `model` from a `.pth` (a state dict, a reference training
-    checkpoint with `model_state`/`ema_state`, or a full training
-    checkpoint of the port's trainer) or a JAX variables `.npz` (nested or
-    flat keys, through `utils.convert`); `train.checkpoint.load_any_checkpoint`
-    reads them."""
+    """Weights for `model` (a CABiNet or a YOLOSem) from a `.pth` (a state
+    dict, a reference training checkpoint with `model_state`/`ema_state`,
+    or a full training checkpoint of the port's trainer) or a JAX variables
+    `.npz` (nested or flat keys, through `utils.convert`);
+    `train.checkpoint.load_any_checkpoint` reads them."""
     from cabinet_tpu_torch.train.checkpoint import load_any_checkpoint
 
     try:

@@ -86,7 +86,9 @@ class DeviceAugment:
     (`runtime.device_geometric`) and the photometric chain of its `RECIPE`,
     then the normalisation, on `device`.
 
-    The draws for a batch come from `(runtime.seed + 1, step, micro_step)`:
+    The draws for a batch come from `(seed, step, micro_step)`, `seed`
+    `runtime.seed + 1` unless given (the YOLO trainer gives its own, and
+    its chain's `aug`):
     every per-sample parameter from a numpy Generator on the host, the
     noise from a torch Generator on `device`. So a resume redraws what the
     uninterrupted run drew, no draw waits on the device, and two
@@ -94,15 +96,16 @@ class DeviceAugment:
     keys on the step alone)."""
 
     def __init__(self, cfg: Config, ds_train: Any, device: torch.device,
-                 crop_hw: Tuple[int, int]):
+                 crop_hw: Tuple[int, int], seed: Optional[int] = None,
+                 aug: Optional[Dict[str, Any]] = None):
         self.geometric = getattr(ds_train, "geometric", "host") == "device"
         self.shared = str(cfg.select("runtime.device_geometric", False)).lower() == "shared"
         self.street = getattr(ds_train, "RECIPE", "aerial") == "street"
-        self.aug = dict(ds_train.aug)
+        self.aug = dict(ds_train.aug if aug is None else aug)
         self.mean, self.std = ds_train.MEAN, ds_train.STD
         self.crop_hw = crop_hw
         self.ignore_label = int(cfg.dataset.ignore_idx)
-        self.seed = int(cfg.runtime.seed) + 1
+        self.seed = int(cfg.runtime.seed) + 1 if seed is None else int(seed)
         self.device = device
         self.noise = torch.Generator(device=device)
 

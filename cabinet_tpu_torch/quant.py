@@ -1,5 +1,5 @@
-"""Post-training int8 quantization of CABiNet's convolutions (counterpart of
-`cabinet_tpu.quant`).
+"""Post-training int8 quantization of the convolutions of CABiNet and
+YOLO-sem (counterpart of `cabinet_tpu.quant`).
 
 Scheme, as the JAX package's, step for step:
   - weights: per-output-channel symmetric scales sw = max|W_c| / 127
@@ -15,8 +15,9 @@ Sites: the model's `nn.Conv2d`s that are JAX's `nn.Conv` sites, both channel
 dims >= 16 and the class heads float by name (`default_site_predicate`),
 and, under int8dw, the `DepthwiseConv2D`s of >= 16 channels
 (`dw_site_predicate`). They are judged by their JAX site keys, through the
-key table of `utils/convert.py`; the scales are keyed by the port's module
-names (`jax_site_keys` / `port_module_names` convert).
+model family's key table in `utils/convert.py` (`site_keys`); the scales are
+keyed by the port's module names (`jax_site_keys` / `port_module_names`
+convert CABiNet's).
 
 `make_quantized_apply` returns a copy of the model in which every site named
 in the scales runs `Int8Site`, a per-instance forward swap in the place of
@@ -52,7 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cabinet_tpu_torch.models.layers import DepthwiseConv2D
-from cabinet_tpu_torch.utils.convert import jax_site_keys
+from cabinet_tpu_torch.utils.convert import site_keys
 
 # nn.Conv names (JAX's) of the class-logit projections: CABiNet's main head
 # `conv_out/conv_out` and aux head `ab/b4`, YOLO-sem's `classifier` and
@@ -92,8 +93,9 @@ def _kernel_shape(conv: nn.Conv2d) -> Tuple[int, int, int, int]:
 def quantization_sites(model: nn.Module,
                        site_predicate: Callable = default_site_predicate,
                        quantize_depthwise: bool = False) -> Dict[str, nn.Conv2d]:
-    """{module name: conv} of the sites of a CABiNet, in module order."""
-    keys = jax_site_keys(model.cfgs)
+    """{module name: conv} of the sites of a CABiNet or a YOLOSem, in
+    module order."""
+    keys = site_keys(model)
     sites = {}
     for name, m in model.named_modules():
         if not isinstance(m, nn.Conv2d):

@@ -131,8 +131,9 @@ def load_any_checkpoint(path: Union[str, Path], model: Any = None
     """A model state dict from a `.pth` (a state dict, a full training
     checkpoint of `save_full`, whose raw params and BN buffers it takes,
     or a reference training checkpoint with `model_state`/`ema_state`) or
-    from a JAX variables `.npz` (through `utils.convert`, which needs
-    `model` for its cfg table). An orbax directory raises NotImplementedError."""
+    from a JAX variables `.npz` of a CABiNet or a YOLOSem (through
+    `utils.convert`, which needs `model` for its key table: the cfg table or
+    the variant). An orbax directory raises NotImplementedError."""
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
@@ -149,10 +150,10 @@ def load_any_checkpoint(path: Union[str, Path], model: Any = None
             raise ModelLoadError(f"Unrecognized checkpoint format: {path}")
         return blob
     if path.suffix == ".npz":
-        from cabinet_tpu_torch.utils.convert import state_dict_from_jax
+        from cabinet_tpu_torch.utils.convert import model_state_dict_from_jax
 
         if model is None:
-            raise ModelLoadError(f"{path}: a JAX .npz needs the model's cfg table")
+            raise ModelLoadError(f"{path}: a JAX .npz needs the model's key table")
         with np.load(path) as data:
-            return state_dict_from_jax({k: data[k] for k in data.files}, model.cfgs)
+            return model_state_dict_from_jax({k: data[k] for k in data.files}, model)
     raise ModelLoadError(f"Unrecognized checkpoint: {path}")

@@ -1,6 +1,8 @@
-"""SGD with momentum over 4 parameter groups, linear warmup + poly decay,
-and clipping by the global norm (counterpart of the part of
-`cabinet_tpu.train.optimizer` that CABiNet's trainer uses).
+"""SGD with momentum over parameter groups, its learning rate scheduled by
+the optimizer-step count, and clipping by the global norm (counterpart of
+`cabinet_tpu.train.optimizer`): CABiNet's 4 groups with linear warmup +
+poly decay (`GroupedSGD`), and YOLO-sem's 2 groups at a uniform LR with
+linear warmup + one-cycle cosine (`build_sgd`, `warmup_cosine_schedule`).
 
 The numbers are the JAX package's (reference src/utils/optimizer.py:34-156):
   - lr(it) = warmup_start + (it/warmup) * (lr0 - warmup_start) below
@@ -15,14 +17,20 @@ The numbers are the JAX package's (reference src/utils/optimizer.py:34-156):
     buf = mu*buf + g, p -= lr*buf;
   - clipping in optax's form: g * max/|g| is (g / |g|) * max, applied when
     |g| >= max, with no epsilon (`torch.nn.utils.clip_grad_norm_` divides by
-    |g| + 1e-6).
-
-`warmup_cosine_schedule` and `build_sgd` belong to YOLO-sem and wait for it
-(ROADMAP Queue 1 item 6).
+    |g| + 1e-6);
+  - YOLO-sem (`build_sgd`): every conv kernel gets weight decay, the class
+    heads' included; biases and BN parameters get none; one LR for all;
+    lr(x) = lr0 * ((1 - cos(pi x)) / 2 * (lrf - 1) + 1), x the share of the
+    steps after warmup, clamped to [0, 1], in f32, op by op as the JAX
+    function computes it (XLA's fused program may contract a multiply-add
+    into one rounding, 1 ulp apart at some counts).
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import Callable, Dict, Iterable, List, Sequence
 
 import numpy as np
@@ -57,6 +65,41 @@ def warmup_poly_schedule(lr0: float, max_iter: int, power: float = 0.9,
     return schedule
 
 
+def warmup_cosine_schedule(lr0: float, lrf: float, total_steps: int,
+                           warmup_steps: int = 0, warmup_start_lr: float = 0.0
+                           ) -> Callable[[int], float]:
+    """count -> lr as an f32 value: linear warmup, then the ultralytics
+    one-cycle cosine down to lr0 * lrf (JAX `warmup_cosine_schedule`)."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(count)
+        if warmup_steps > 0 and c < warmup_steps:
+            return float(f32(warmup_start_lr)
+                         + (c / f32(max(warmup_steps, 1))) * f32(lr0 - warmup_start_lr))
+        x = np.clip((c - f32(warmup_steps)) / f32(max(total_steps - warmup_steps, 1)),
+                    f32(0.0), f32(1.0))
+        return float(f32(lr0) * ((f32(1.0) - _cosf(f32(np.pi) * x)) / f32(2.0)
+                                 * f32(lrf - 1.0) + f32(1.0)))
+
+    return schedule
+
+
+@functools.lru_cache(maxsize=1)
+def _libm_cosf() -> Callable[[float], float]:
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    libm.cosf.restype = ctypes.c_float
+    libm.cosf.argtypes = [ctypes.c_float]
+    return libm.cosf
+
+
+def _cosf(x: np.float32) -> np.float32:
+    """cos of an f32 as the C library's `cosf` rounds it, which is what XLA's
+    CPU backend calls for `jnp.cos` in f32 (numpy's and torch's f32 cos
+    differ from it in the last bit at some arguments)."""
+    return np.float32(_libm_cosf()(float(x)))
+
+
 def param_labels(model: nn.Module,
                  decoder_modules: Sequence[str] = DECODER_MODULES) -> Dict[str, str]:
     """{parameter name: group}, as `cabinet_tpu.train.optimizer.param_labels`
@@ -89,22 +132,18 @@ def param_groups(model: nn.Module, wd: float, lr_multiplier: float = 10.0,
     return groups
 
 
-class GroupedSGD:
-    """`torch.optim.SGD` (momentum, dampening 0, no Nesterov) over the 4
-    groups, with the lr of each group set from the optimizer-step count
-    before every step, and optax's clipping of the global norm."""
+class ScheduledSGD:
+    """`torch.optim.SGD` (momentum, dampening 0, no Nesterov) over `groups`
+    (`param_groups`' dicts), with the lr of each group, schedule(count)
+    times its `lr_scale`, set from the optimizer-step count before every
+    step, and optax's clipping of the global norm."""
 
-    def __init__(self, model: nn.Module, lr0: float, max_iter: int,
-                 momentum: float = 0.9, wd: float = 5e-4, power: float = 0.9,
-                 warmup_steps: int = 0, warmup_start_lr: float = 1e-5,
-                 lr_multiplier: float = 10.0, max_grad_norm=None,
-                 decoder_modules: Sequence[str] = DECODER_MODULES):
-        self.schedule = warmup_poly_schedule(lr0, max_iter, power, warmup_steps,
-                                             warmup_start_lr)
+    def __init__(self, groups: List[dict], schedule: Callable[[int], float],
+                 momentum: float, max_grad_norm=None):
+        self.schedule = schedule
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm else None
-        self.sgd = torch.optim.SGD(
-            param_groups(model, wd, lr_multiplier, decoder_modules), lr=0.0,
-            momentum=momentum, dampening=0.0, nesterov=False)
+        self.sgd = torch.optim.SGD(groups, lr=0.0, momentum=momentum, dampening=0.0,
+                                   nesterov=False)
 
     def set_lr(self, count: int) -> None:
         lr = np.float32(self.schedule(count))
@@ -127,6 +166,30 @@ class GroupedSGD:
 
     def load_state_dict(self, state: dict) -> None:
         self.sgd.load_state_dict(state)
+
+
+class GroupedSGD(ScheduledSGD):
+    """CABiNet's optimizer: the 4 groups with warmup + poly decay."""
+
+    def __init__(self, model: nn.Module, lr0: float, max_iter: int,
+                 momentum: float = 0.9, wd: float = 5e-4, power: float = 0.9,
+                 warmup_steps: int = 0, warmup_start_lr: float = 1e-5,
+                 lr_multiplier: float = 10.0, max_grad_norm=None,
+                 decoder_modules: Sequence[str] = DECODER_MODULES):
+        super().__init__(param_groups(model, wd, lr_multiplier, decoder_modules),
+                         warmup_poly_schedule(lr0, max_iter, power, warmup_steps,
+                                              warmup_start_lr),
+                         momentum, max_grad_norm)
+
+
+def build_sgd(model: nn.Module, schedule: Callable[[int], float],
+              momentum: float = 0.937, wd: float = 5e-4, max_grad_norm=None
+              ) -> ScheduledSGD:
+    """YOLO-sem's optimizer (JAX `build_sgd`): groups `wd` (every 4-D conv
+    kernel, the class heads' included) and `nowd` (biases, BN affine) at
+    one LR, `schedule`'s."""
+    return ScheduledSGD(param_groups(model, wd, 1.0, decoder_modules=()), schedule,
+                        momentum, max_grad_norm)
 
 
 @torch.no_grad()

@@ -1,10 +1,12 @@
-"""The training step: dual-head OHEM loss, gradient accumulation, clipping,
-grouped SGD and EMA (counterpart of `cabinet_tpu.train.trainer`, one
-device).
+"""The training step: dual-head loss, gradient accumulation, clipping,
+scheduled SGD and EMA (counterpart of `cabinet_tpu.train.trainer`, one
+device), for CABiNet and YOLO-sem.
 
 As in the JAX package (reference src/scripts/train.py:411-480):
-  - loss = OHEM(final) + OHEM(aux), each micro-batch's loss
-    scaled by 1/accum_steps before its backward;
+  - loss = seg(final) + aux_weight * seg(aux), seg OHEM (CABiNet's recipe,
+    aux_weight 1) or the weighted CE mean (`loss_type="ce"`, YOLO-sem's,
+    aux_weight 0.4), each micro-batch's loss scaled by 1/accum_steps before
+    its backward;
   - the gradients of `accum_steps` micro-batches sum in `.grad` (the JAX
     TrainState's `accum_grads`); the optimizer steps once per window, and
     `make_flush_step` applies a trailing partial window (a no-op on an
@@ -17,9 +19,10 @@ As in the JAX package (reference src/scripts/train.py:411-480):
 with no loss scaler, the counterpart of JAX's bf16 matmuls over f32 params
 (no GradScaler: bf16 has f32's exponent range).
 
-The step always runs the CAB's einsum attention, the function that the JAX
-wrapper computes off the TPU and which is differentiable: the attention
-kernel K1 has no backward (`ops/_build.refuse_grad` raises under autograd).
+The step always runs the CAB's einsum attention (on a model with a CAB),
+the function that the JAX wrapper computes off the TPU and which is
+differentiable: the attention kernel K1 has no backward
+(`ops/_build.refuse_grad` raises under autograd).
 The step sets that mode for its forward and puts the model's own back
 after it, so the val loss and the evaluations still run K1 when the model
 was built with `attention="kernel"`.
@@ -35,14 +38,14 @@ import torch
 from torch import nn
 
 from cabinet_tpu_torch.train.ema import ModelEMA
-from cabinet_tpu_torch.train.losses import ohem_cross_entropy
-from cabinet_tpu_torch.train.optimizer import GroupedSGD
+from cabinet_tpu_torch.train.losses import cross_entropy_mean, ohem_cross_entropy
+from cabinet_tpu_torch.train.optimizer import ScheduledSGD
 
 
 @dataclass
 class TrainState:
     model: nn.Module
-    optimizer: GroupedSGD
+    optimizer: ScheduledSGD
     ema: ModelEMA
     step: int = 0          # optimizer steps taken (reference optim.it)
     micro_step: int = 0    # position within the accumulation window
@@ -63,7 +66,7 @@ class TrainState:
         return self.ema.state_dict()
 
 
-def create_train_state(model: nn.Module, optimizer: GroupedSGD,
+def create_train_state(model: nn.Module, optimizer: ScheduledSGD,
                        ema_decay: float = 0.9999, ema_tau: float = 2000.0) -> TrainState:
     return TrainState(model, optimizer, ModelEMA(model, ema_decay, ema_tau))
 
@@ -84,7 +87,8 @@ def _forward(model: nn.Module, images: torch.Tensor, compute_dtype: torch.dtype
 
 @contextlib.contextmanager
 def einsum_attention(model: nn.Module):
-    """Run the CAB's global attention on its einsum path inside the block."""
+    """Run the CAB's global attention on its einsum path inside the block
+    (nothing changes on a model with no CAB)."""
     attns = [m for m in model.modules() if hasattr(m, "attention")
              and hasattr(m, "project_out")]
     saved = [m.attention for m in attns]
@@ -108,24 +112,36 @@ def _apply_update(state: TrainState) -> None:
     state.optimizer.sgd.zero_grad(set_to_none=True)
 
 
-def make_train_step(
-    n_min: int, thresh: float = 0.7, ignore_label: int = 255,
-    class_weights=None, accum_steps: int = 1,
-    compute_dtype: torch.dtype = torch.float32,
-) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
-    """`train_step(state, images NHWC, labels) -> (state, loss)`: one
-    micro-step on `state` (updated in place and returned), the loss of the
-    micro-batch unscaled, a 0-dim tensor (no host sync). The loss is
-    CABiNet's recipe, OHEM (bisect) on the final and the aux head; the JAX
-    step's `loss_type="ce"` and `aux_weight` serve YOLO-sem and wait for it
-    (ROADMAP Queue 1 item 6)."""
+def _seg_loss(loss_type: str, n_min: int, thresh: float, ignore_label: int,
+              class_weights) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """logits, labels -> the loss of one head: "ohem" (bisect) or "ce"."""
+    if loss_type not in ("ohem", "ce"):
+        raise ValueError(f"loss_type must be 'ohem' or 'ce', got {loss_type!r}")
     cw = None if class_weights is None else torch.as_tensor(class_weights,
                                                            dtype=torch.float32)
 
     def seg_loss(logits, labels):
         w = None if cw is None else cw.to(logits.device)
-        return ohem_cross_entropy(logits, labels, n_min, thresh, ignore_label, w,
-                                  method="bisect")
+        if loss_type == "ohem":
+            return ohem_cross_entropy(logits, labels, n_min, thresh, ignore_label, w,
+                                      method="bisect")
+        return cross_entropy_mean(logits, labels, ignore_label, w)
+
+    return seg_loss
+
+
+def make_train_step(
+    n_min: int, thresh: float = 0.7, ignore_label: int = 255,
+    class_weights=None, accum_steps: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
+    loss_type: str = "ohem", aux_weight: float = 1.0,
+) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
+    """`train_step(state, images NHWC, labels) -> (state, loss)`: one
+    micro-step on `state` (updated in place and returned), the loss of the
+    micro-batch unscaled, a 0-dim tensor (no host sync). The loss is
+    seg(final) + aux_weight * seg(aux), seg OHEM (bisect; CABiNet) or the
+    CE mean (`loss_type="ce"`; YOLO-sem)."""
+    seg_loss = _seg_loss(loss_type, n_min, thresh, ignore_label, class_weights)
 
     def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
                    ) -> Tuple[TrainState, torch.Tensor]:
@@ -133,7 +149,7 @@ def make_train_step(
         model.train()
         with einsum_attention(model):
             final, aux = _forward(model, images, compute_dtype)
-        loss = (seg_loss(final, labels) + seg_loss(aux, labels)) / accum_steps
+        loss = (seg_loss(final, labels) + aux_weight * seg_loss(aux, labels)) / accum_steps
         loss.backward()
         state.micro_step += 1
         if state.micro_step >= accum_steps:
@@ -158,22 +174,19 @@ def make_flush_step() -> Callable[[TrainState], TrainState]:
 def make_eval_loss_step(
     model: nn.Module, n_min: int, thresh: float = 0.7, ignore_label: int = 255,
     class_weights=None, compute_dtype: torch.dtype = torch.float32,
+    loss_type: str = "ohem", aux_weight: float = 1.0,
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Validation loss of `model`'s raw weights in eval mode, full
-    resolution (reference train.py:443-456): OHEM (bisect) on both heads,
-    under no_grad, with the model's own attention (K1 when it was built
-    with `attention="kernel"`)."""
-    cw = None if class_weights is None else torch.as_tensor(class_weights,
-                                                           dtype=torch.float32)
+    resolution (reference train.py:443-456): the train step's loss on both
+    heads (OHEM (bisect) and aux_weight 1 by default, the JAX function's),
+    under no_grad, with the model's own attention (K1 when it was built with
+    `attention="kernel"`)."""
+    seg_loss = _seg_loss(loss_type, n_min, thresh, ignore_label, class_weights)
 
     @torch.no_grad()
     def eval_loss(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         model.eval()
         final, aux = _forward(model, images, compute_dtype)
-        w = None if cw is None else cw.to(final.device)
-        return (ohem_cross_entropy(final, labels, n_min, thresh, ignore_label, w,
-                                   method="bisect")
-                + ohem_cross_entropy(aux, labels, n_min, thresh, ignore_label, w,
-                                     method="bisect"))
+        return seg_loss(final, labels) + aux_weight * seg_loss(aux, labels)
 
     return eval_loss

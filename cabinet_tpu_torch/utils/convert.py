@@ -1,14 +1,18 @@
-"""Weight bridge: JAX CABiNet variables -> the port's torch state dict.
+"""Weight bridge: JAX variables -> the port's torch state dict, for both
+model families.
 
 Carries its own copy of the key table of `cabinet_tpu.utils.torch_convert`
 (`cabinet_mapping` and its helpers), so the port needs nothing of the JAX
-package. Transforms: conv HWIO -> OIHW (depthwise (kH,kW,1,C) -> (C,1,kH,kW)
+package, and a table of YOLO-sem built from its variant
+(`yolosem_mapping`: the port's module names are the flax paths, joined by
+dots). Transforms: conv HWIO -> OIHW (depthwise (kH,kW,1,C) -> (C,1,kH,kW)
 is the same transpose), dense (in,out) -> (out,in), BatchNorm
 scale/bias/mean/var -> weight/bias/running_mean/running_var.
 
-The same table names the int8 sites both ways (`jax_site_keys`,
-`port_module_names`): the JAX package keys its activation scales by
-`"/".join(mod.path)` of each conv, the port by the conv's module name.
+The same tables name the int8 sites both ways (`site_keys`,
+`jax_site_keys`, `port_module_names`): the JAX package keys its activation
+scales by `"/".join(mod.path)` of each conv, the port by the conv's module
+name.
 """
 
 from __future__ import annotations
@@ -153,16 +157,65 @@ def cabinet_mapping(cfgs: Sequence[Sequence[float]]) -> List[MapEntry]:
     return e
 
 
-def jax_site_keys(cfgs: Sequence[Sequence[float]]) -> Dict[str, str]:
-    """{port conv module name: JAX site key}, e.g. "sb.conv_out.conv" ->
-    "sb/conv_out/conv", "mobile.features.1.conv.0" -> "mobile/block_0/dw":
-    the conv's kernel path in the table without its last part."""
+def yolosem_mapping(variant: str) -> List[MapEntry]:
+    """YOLO-sem's state-dict mapping for a variant (the module tree of
+    `cabinet_tpu.models.yolosem.YOLOSem`): every ConvBNSiLU's `conv` and
+    `bn`, and the two class heads' kernels and biases."""
+    from cabinet_tpu_torch.models.yolosem import YOLOSEM_VARIANTS, _depth
+
+    d, _, _, deep = YOLOSEM_VARIANTS[variant]
+
+    def c2f(name: str, n: int) -> List[str]:
+        inner = [f"{name}.m{i}.{cv}" for i in range(n) for cv in ("cv1", "cv2")]
+        return [f"{name}.cv1", *inner, f"{name}.cv2"]
+
+    blocks = (["stem", "down2", *c2f("c2f_2", _depth(d, 3)), "down3",
+               *c2f("c2f_3", _depth(d, 6)), "down4", *c2f("c2f_4", _depth(d, 6)),
+               "down5", *c2f("c2f_5", _depth(d, 3) + deep), "sppf.cv1", "sppf.cv2",
+               *c2f("fpn_4", _depth(d, 3)), *c2f("fpn_3", _depth(d, 3)),
+               "head0", "head1", "head2", "aux1"])
+    e: List[MapEntry] = []
+    for name in blocks:
+        e += _conv_bn_relu(name, tuple(name.split(".")))
+    for head in ("classifier", "aux_classifier"):
+        e += _conv(f"{head}.weight", (head, "kernel"))
+        e.append((f"{head}.bias", (head, "bias"), PARAM))
+    return e
+
+
+def _site_keys(mapping: List[MapEntry]) -> Dict[str, str]:
     return {torch_key[:-len(".weight")]: "/".join(flax_path[:-1])
-            for torch_key, flax_path, kind in cabinet_mapping(cfgs) if kind == CONV}
+            for torch_key, flax_path, kind in mapping if kind == CONV}
+
+
+def jax_site_keys(cfgs: Sequence[Sequence[float]]) -> Dict[str, str]:
+    """{port conv module name: JAX site key} of a CABiNet, e.g.
+    "sb.conv_out.conv" -> "sb/conv_out/conv", "mobile.features.1.conv.0" ->
+    "mobile/block_0/dw": the conv's kernel path in the table without its
+    last part."""
+    return _site_keys(cabinet_mapping(cfgs))
+
+
+def yolosem_site_keys(variant: str) -> Dict[str, str]:
+    """{port conv module name: JAX site key} of a YOLO-sem variant, e.g.
+    "c2f_2.m0.cv1.conv" -> "c2f_2/m0/cv1/conv"."""
+    return _site_keys(yolosem_mapping(variant))
+
+
+def _is_yolosem(model: Any) -> bool:
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
+
+    return isinstance(model, YOLOSem)
+
+
+def site_keys(model: Any) -> Dict[str, str]:
+    """{port conv module name: JAX site key} of a CABiNet or a YOLOSem."""
+    return yolosem_site_keys(model.variant) if _is_yolosem(model) else jax_site_keys(model.cfgs)
 
 
 def port_module_names(cfgs: Sequence[Sequence[float]]) -> Dict[str, str]:
-    """{JAX site key: port conv module name}, the inverse of `jax_site_keys`."""
+    """{JAX site key: port conv module name} of a CABiNet, the inverse of
+    `jax_site_keys`."""
     return {key: name for name, key in jax_site_keys(cfgs).items()}
 
 
@@ -195,10 +248,30 @@ def state_dict_from_jax(variables: Mapping[str, Any],
                         cfgs: Sequence[Sequence[float]]) -> Dict[str, torch.Tensor]:
     """JAX CABiNet variables (numpy arrays, nested or flat) -> the port's
     state dict, which `CABiNet.load_state_dict(strict=True)` accepts."""
+    return _state_dict(variables, cabinet_mapping(cfgs))
+
+
+def yolosem_state_dict_from_jax(variables: Mapping[str, Any],
+                                variant: str = "n") -> Dict[str, torch.Tensor]:
+    """JAX YOLOSem variables (numpy arrays, nested or flat) -> the port's
+    state dict, which `YOLOSem.load_state_dict(strict=True)` accepts."""
+    return _state_dict(variables, yolosem_mapping(variant))
+
+
+def model_state_dict_from_jax(variables: Mapping[str, Any], model: Any
+                              ) -> Dict[str, torch.Tensor]:
+    """The state dict for `model`, a CABiNet or a YOLOSem, from JAX variables."""
+    if _is_yolosem(model):
+        return yolosem_state_dict_from_jax(variables, model.variant)
+    return state_dict_from_jax(variables, model.cfgs)
+
+
+def _state_dict(variables: Mapping[str, Any], mapping: List[MapEntry]
+                ) -> Dict[str, torch.Tensor]:
     tree = _nested(variables)
     params, stats = tree["params"], tree.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
-    for torch_key, flax_path, kind in cabinet_mapping(cfgs):
+    for torch_key, flax_path, kind in mapping:
         if kind == BN:
             out[f"{torch_key}.weight"] = _get(params, flax_path + ("scale",))
             out[f"{torch_key}.bias"] = _get(params, flax_path + ("bias",))

@@ -133,11 +133,28 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               requests, each batch bit-equal to the live quantized module;
               (d) the fused-tail forward's ms/img float, int8 and int8dw at
               batch 1 and 8, in turns, back to back and from a CUDA graph
-  14. no process left: the process loader's forkserver and resource
+  14. yolo   the YOLO-sem family (models/yolosem.py; no kernel on its
+              path): (a) each of the five variants' f32 forward on the card
+              against the CPU at 256^2 (TF32 off), and yolo26n-sem's and
+              yolo26x-sem's bf16 forward ms/img at 1024^2, batch 1 and 8,
+              back to back and from a CUDA graph; (b)
+              `cli/train_yolo.py:main` on phase 12's converted UAVid tree
+              (yolo26n-sem, imgsz 1024, batch 4, bf16, nbs 8 = accum 2,
+              epochs 2, close_mosaic 1, 8 workers of the process loader),
+              then resume=true to epoch 3, then mode=val on the `final`
+              EMA weights at the native 3840x2160: s per step, loader-wait
+              share, the class counts' seconds, peak memory, finite
+              losses, the mIoU; (c) yolo26x-sem
+              train steps at batch 4, 1024^2, bf16: ms per step and peak
+              memory; (d) `cli/export.py --family yolosem --check` on
+              `final`, and the checkpoint-less server on that artifact
+              answering 8 requests, each batch bit-equal to the live
+              serving module; (e) no kernel launched in the phase
+  15. no process left: the process loader's forkserver and resource
       tracker stopped and reaped, and no process this run started (a
       child, or any process carrying the run's mark in its environment)
       still there
-  15. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  16. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -2527,7 +2544,7 @@ def processes_left() -> list:
 
 
 def stop_every_process(wait_s: float = 10.0) -> None:
-    """Phase 13: stop the process loader's servers, give what is left a
+    """Phase 15: stop the process loader's servers, give what is left a
     moment to end, and fail if any process this run started is still
     there."""
     cold_forkserver()
@@ -2998,6 +3015,196 @@ def run_quant(torch, paths, tmp: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the YOLO-sem family (no kernel on its path)
+# ---------------------------------------------------------------------------
+
+YOLO_VARIANTS = "nsmlx"
+YOLO_CHECK_SIZE, YOLO_SIZE = 256, 1024
+BOUND_YOLO_F32 = 1e-4  # card against CPU in f32 (TF32 off), of max |cpu|
+YOLO_WIDE_STEPS = 4
+
+
+def check_yolo_forwards(torch) -> dict:
+    """Phase 14a: every variant's f32 forward (seeded weights) on the card
+    against the CPU at YOLO_CHECK_SIZE^2, batch 1, logits and aux; then the
+    bf16 forward ms/img of yolo26n-sem and yolo26x-sem at 1024^2, batch 1
+    and 8, back to back (`ms`) and replayed from a CUDA graph
+    (`device_ms`)."""
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
+
+    x = torch.randn(1, 3, YOLO_CHECK_SIZE, YOLO_CHECK_SIZE,
+                    generator=torch.Generator().manual_seed(41))
+    errs = {}
+    for v in YOLO_VARIANTS:
+        torch.manual_seed(40)
+        model = YOLOSem(8, v).eval()
+        with torch.no_grad():
+            ref = model(x)
+            got = model.to(DEVICE)(x.to(DEVICE))
+        errs[v] = max(e / m for e, m in (max_err(g.cpu(), r) for g, r in zip(got, ref)))
+        check(errs[v] <= BOUND_YOLO_F32, f"yolo26{v}-sem f32 card vs CPU: {errs[v]} of max")
+    say("yolo", part="f32_card_vs_cpu", size=YOLO_CHECK_SIZE, rel_err=errs,
+        bound=BOUND_YOLO_F32)
+    gen = torch.Generator(device=DEVICE).manual_seed(43)
+    x8 = torch.randn(8, 3, YOLO_SIZE, YOLO_SIZE, generator=gen, device=DEVICE).to(torch.bfloat16)
+    out = {}
+    for v in ("n", "x"):
+        torch.manual_seed(44)
+        model = YOLOSem(8, v).to(DEVICE, torch.bfloat16).eval()
+        with torch.no_grad():
+            for b in (1, 8):
+                fn = lambda: model(x8[:b])  # noqa: E731
+                out[f"{v}_batch{b}_ms_per_img"] = time_ms(fn, iters=10) / b
+                out[f"{v}_batch{b}_device_ms_per_img"] = graph_ms(fn, iters=3, warmup=2,
+                                                                  replays=3) / b
+        del model
+    say("yolo", part="bf16_forward", size=YOLO_SIZE, **out)
+    return {"f32_rel_err": errs, **out}
+
+
+def yolo_train_argv(dst: Path, exp: Path, epochs: int, *extra) -> list:
+    """train_yolo main's overrides for phase 14: train_yolo.yaml's
+    yolo26n-sem (imgsz YOLO_SIZE = 1024, batch 4, bf16, 8 loader workers) with nbs 8
+    (accum 2), close_mosaic 1 and the process loader."""
+    return ["dataset=uavid", f"dataset.dataset_path={dst}", f"training_config.imgsz={YOLO_SIZE}",
+            "training_config.batch_size=4", "runtime.compute_dtype=bfloat16",
+            "training_config.num_workers=8", "training_config.nbs=8",
+            f"training_config.epochs={epochs}", "augmentation.close_mosaic=1",
+            "+runtime.loader=grain", f"training_config.experiments_path={exp}", *extra,
+            "--device", DEVICE]
+
+
+def run_yolo_train(torch, paths, dst: Path, exp: Path) -> dict:
+    """Phase 14b: `cli/train_yolo.py:main` on phase 12's converted UAVid
+    tree, 2 epochs, then resume=true to epoch 3 (each with a cold process
+    loader), then mode=val on the `final` EMA weights at UAVid's native
+    3840x2160."""
+    import math
+
+    from cabinet_tpu_torch.cli.train_yolo import main as yolo_main
+
+    runs = {}
+    for name, epochs, extra in (("yolo_train_main", 2, []),
+                                ("yolo_train_resume", 3, ["training_config.resume=true"])):
+        cold_forkserver()
+        torch.cuda.reset_peak_memory_stats()
+        res, main_s, _ = paths.drive(name, run_cli, yolo_main,
+                                     yolo_train_argv(dst, exp, epochs, *extra), "train_yolo", 4)
+        t = res["timing"]
+        runs[name] = {"main_seconds": main_s, "losses": res["losses"],
+                      "best_miou": res["best_miou"], "micro_steps": t["micro_steps"],
+                      "optimizer_steps": t["optimizer_steps"],
+                      "loop_seconds_per_micro_step": t["train_seconds"] / t["micro_steps"],
+                      "loop_seconds_per_optimizer_step": t["train_seconds"]
+                      / max(t["optimizer_steps"], 1),
+                      "loader_wait_share": t["loader_wait_seconds"] / t["train_seconds"],
+                      "eval_seconds": t["eval_seconds"],
+                      "class_count_seconds": t["class_count_seconds"],
+                      "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        say("yolo", part="train_main", run=name, **runs[name])
+        check(all(math.isfinite(v) for v in res["losses"]), f"{name}: losses {res['losses']}")
+    check((runs["yolo_train_main"]["micro_steps"], runs["yolo_train_main"]["optimizer_steps"])
+          == (4, 2), f"train main: {runs['yolo_train_main']}")
+    check((runs["yolo_train_resume"]["micro_steps"], runs["yolo_train_resume"]["optimizer_steps"])
+          == (2, 1), f"resume: {runs['yolo_train_resume']}")
+    res, val_s, lines = paths.drive("yolo_val_main", run_cli, yolo_main, yolo_train_argv(
+        dst, exp, 3, "mode=val", f"weights={exp / 'final'}"), "val", 3)
+    check(0.0 <= res["mIoU"] <= 1.0 and any("metrics.json snippet" in ln for ln in lines),
+          f"val: {res['mIoU']}")
+    runs["yolo_val_main"] = {"main_seconds": val_s, "mIoU": res["mIoU"],
+                             "accuracy": res["accuracy"]}
+    say("yolo", part="val_main", **runs["yolo_val_main"])
+    return runs
+
+
+def yolo_wide_steps(torch, steps: int = YOLO_WIDE_STEPS, batch: int = 4) -> dict:
+    """Phase 14c: yolo26x-sem, the widest variant at full width: train
+    steps (CE, aux 0.4, build_sgd, bf16 autocast) at batch 4, 1024^2, on
+    one seeded batch; ms per step after one warm-up step, peak memory."""
+    import math
+
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.optimizer import build_sgd, warmup_cosine_schedule
+
+    torch.manual_seed(45)
+    model = YOLOSem(8, "x").to(DEVICE)
+    state = T.create_train_state(model, build_sgd(
+        model, warmup_cosine_schedule(0.01, 0.01, 100), max_grad_norm=10.0))
+    step = T.make_train_step(n_min=1, loss_type="ce", aux_weight=0.4,
+                             compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=DEVICE).manual_seed(46)
+    x = torch.randn(batch, YOLO_SIZE, YOLO_SIZE, 3, generator=gen, device=DEVICE)
+    y = torch.randint(0, 8, (batch, YOLO_SIZE, YOLO_SIZE), generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(state, x, y)[1]]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        losses.append(step(state, x, y)[1])
+    end.record()
+    torch.cuda.synchronize()
+    out = {"variant": "x", "batch": batch, "size": YOLO_SIZE,
+           "ms_per_step": start.elapsed_time(end) / steps,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": [float(v) for v in losses]}
+    say("yolo", part="wide_steps", **out)
+    check(all(math.isfinite(v) for v in out["losses"]), f"yolo26x-sem losses {out['losses']}")
+    return out
+
+
+def run_yolo_export(torch, paths, ckpt: Path, tmp: Path) -> dict:
+    """Phase 14d: `cli/export.py --family yolosem` on the `final` weights
+    (1024^2, bf16, symbolic batch, --check on the card), then the
+    checkpoint-less server on that artifact answering 8 requests, each
+    batch bit-equal to the live serving module."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli import export as cli_export
+    from cabinet_tpu_torch.cli.infer import load_state_dict
+    from cabinet_tpu_torch.data.decode import encode_png
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
+
+    art = tmp / "artifact_yolo26n"
+    _, seconds, lines = paths.drive("yolo_export_main", run_cli, cli_export.main, [
+        "--family", "yolosem", "--variant", "n", "--checkpoint", str(ckpt),
+        "--dataset", "uavid", "--out", str(art), "--imgsz", str(SERVE_SIZE), "--batch", "b",
+        "--dtype", "bfloat16", "--device", DEVICE, "--check"], "export")
+    check(any("round-trip check passed" in ln for ln in lines), "export --check (yolosem)")
+    meta = json.loads((art / "metadata.json").read_text())
+    check((meta["family"], meta["variant"]) == ("yolosem", "n"), f"metadata {meta}")
+    model = YOLOSem(8, "n")
+    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    frames = serve_frames(np, 8, SERVE_H, SERVE_W, seed=77)
+    served = paths.drive("yolo_serve_artifact", run_artifact_server, torch, art, ckpt,
+                         frames, [encode_png(f) for f in frames], model)
+    out = {"export_s": seconds, "artifact_bytes": sum(f.stat().st_size for f in art.iterdir()),
+           "batches": served["batches"]}
+    say("yolo", part="export_serve", **out)
+    return out
+
+
+def run_yolo(torch, paths, dst: Path, tmp: Path) -> dict:
+    """Phase 14: (a) the forwards, (b) train, resume and val mains on
+    phase 12's converted tree `dst`, (c) yolo26x-sem's steps, (d) export
+    and serve; (e) no kernel launched anywhere in the phase: every part
+    runs as a driven path named yolo_*, so its launches are counted from 0
+    and read just after it."""
+    t0 = time.perf_counter()
+    out = {"forward": paths.drive("yolo_forwards", check_yolo_forwards, torch)}
+    exp = tmp / "exp_yolo"
+    out["train"] = run_yolo_train(torch, paths, dst, exp)
+    out["wide"] = paths.drive("yolo_wide_steps", yolo_wide_steps, torch)
+    out["export"] = run_yolo_export(torch, paths, exp / "final.pth", tmp)
+    launched = {k: c for k, c in paths.per_path.items()
+                if k.startswith("yolo_") and any(c.values())}
+    check(not launched, f"phase 14 launched kernels: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     os.environ[RUN_MARK] = str(os.getpid())
@@ -3102,17 +3309,34 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         served = run_serve(torch, paths, Path(tmp))
     say_serve(smi, served)
-    with tempfile.TemporaryDirectory() as tmp:
-        data = run_data(torch, paths, Path(tmp))
-    say_data(smi, data)
-    with tempfile.TemporaryDirectory() as tmp:
-        quant = run_quant(torch, paths, Path(tmp))
-    say("quant", card=smi, **quant["forward"],
-        evaluate_main_seconds_per_frame={k: v["main_seconds_per_frame"]
-                                         for k, v in quant["evaluate"].items()},
-        moved_share={k: v["moved_share"] for k, v in quant["evaluate"].items()
-                     if "moved_share" in v},
-        export_s=quant["export"]["export_s"], sites=quant["sites"]["sites"])
+    with tempfile.TemporaryDirectory() as data_tmp:  # phase 14 trains on its tree
+        data = run_data(torch, paths, Path(data_tmp))
+        say_data(smi, data)
+        with tempfile.TemporaryDirectory() as tmp:
+            quant = run_quant(torch, paths, Path(tmp))
+        say("quant", card=smi, **quant["forward"],
+            evaluate_main_seconds_per_frame={k: v["main_seconds_per_frame"]
+                                             for k, v in quant["evaluate"].items()},
+            moved_share={k: v["moved_share"] for k, v in quant["evaluate"].items()
+                         if "moved_share" in v},
+            export_s=quant["export"]["export_s"], sites=quant["sites"]["sites"])
+        with tempfile.TemporaryDirectory() as tmp:
+            yolo = run_yolo(torch, paths, Path(data_tmp) / "uavid", Path(tmp))
+    train_runs = yolo["train"]
+    say("yolo", card=smi, seconds=yolo["seconds"], **yolo["forward"],
+        train_loop_seconds_per_optimizer_step={
+            k: v["loop_seconds_per_optimizer_step"] for k, v in train_runs.items()
+            if "micro_steps" in v},
+        train_loader_wait_share={k: v["loader_wait_share"] for k, v in train_runs.items()
+                                 if "micro_steps" in v},
+        train_peak_allocated_gib={k: v["peak_allocated_gib"] for k, v in train_runs.items()
+                                  if "micro_steps" in v},
+        val_mIoU=train_runs["yolo_val_main"]["mIoU"],
+        train_class_count_seconds={k: v["class_count_seconds"]
+                                   for k, v in train_runs.items() if "micro_steps" in v},
+        x_ms_per_step=yolo["wide"]["ms_per_step"],
+        x_peak_allocated_gib=yolo["wide"]["peak_allocated_gib"],
+        export_s=yolo["export"]["export_s"])
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")

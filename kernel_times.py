@@ -50,6 +50,16 @@ prints one JSON line per run: the loop's s per optimizer step and
 loader-wait share over all steps, each epoch's wait for its first batch,
 and the steady state, the steps after an epoch's first batch and before
 its last (host clock). The batches are not checked here (phase 12 does).
+
+With `--class-counts`, it times `cli/train_yolo.py`'s class counts over
+the train set of `chip_smoke.py` phase 14's train main (phase 12's raw
+UAVid tree through `cli.convert`; yolo26n-sem's mosaic-wrapped set at
+imgsz 1024, epoch 0), four ways, each after the process loader's servers
+are stopped: `get_class_pixel_counts` in this thread (the JAX package's
+way), the thread loader with the config's 8 workers, and
+`class_pixel_counts` with runtime.loader=thread and =grain (8 worker
+processes, their start-up included). One JSON line per way, host clock,
+with whether its counts equal the first way's.
 """
 
 from __future__ import annotations
@@ -264,6 +274,64 @@ def time_loaders(torch, label: str, smi: str, root: Path) -> int:
     return 0
 
 
+def time_class_counts(label: str, smi: str) -> int:
+    """`--class-counts`: train_yolo's class counts four ways (see the
+    module's docstring)."""
+    import tempfile
+    import time
+
+    import numpy as np
+
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.cli.convert import main as convert_main
+    from cabinet_tpu_torch.cli.train_yolo import class_pixel_counts, mosaic_train_set
+    from cabinet_tpu_torch.data.class_weights import get_class_pixel_counts
+    from cabinet_tpu_torch.data.loader import DataLoader
+
+    cs = chip_smoke
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src, dst = tmp / "uavid_raw", tmp / "uavid"
+        cs.write_uavid_raw(np, src, cs.UAVID_H, cs.UAVID_W)
+        cs.run_cli(convert_main, ["uavid", "--src", str(src), "--dst", str(dst),
+                                  "--workers", "8"], "convert", 1)
+        argv = [a for a in cs.yolo_train_argv(dst, tmp / "exp", 2) if "runtime.loader" not in a]
+        cfg, _ = common.parse_cli(argv, "train_yolo", "class counts")
+        grain, _ = common.parse_cli(["+runtime.loader=grain", *argv], "train_yolo",
+                                    "class counts")
+        nc, ignore = cfg.dataset.num_classes, cfg.dataset.ignore_idx
+        batch, workers = int(cfg.training_config.batch_size), int(cfg.training_config.num_workers)
+
+        def threads(ds):
+            counts = np.zeros(nc, np.int64)
+            for _, labels in DataLoader(ds, batch, num_workers=workers):
+                valid = labels[labels != ignore]
+                counts += np.bincount(valid.astype(np.int64), minlength=nc)[:nc]
+            return counts
+
+        ways = (("get_class_pixel_counts", lambda ds: get_class_pixel_counts(ds, nc, ignore)),
+                ("thread_loader_8_threads", threads),
+                ("class_pixel_counts_thread",
+                 lambda ds: class_pixel_counts(cfg, ds, nc, ignore, batch, workers)),
+                ("class_pixel_counts_grain",
+                 lambda ds: class_pixel_counts(grain, ds, nc, ignore, batch, workers)))
+        first = None
+        for way, count in ways:
+            cs.cold_forkserver()
+            ds = mosaic_train_set(cfg)
+            t0 = time.perf_counter()
+            counts = count(ds)
+            seconds = time.perf_counter() - t0
+            first = counts if first is None else first
+            equal = bool(np.array_equal(counts, first))
+            print(json.dumps({"label": label, "card": smi, "name": "class_counts", "way": way,
+                              "samples": len(ds), "seconds": seconds,
+                              "equal_to_first": equal}), flush=True)
+            if not equal:
+                return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent)
@@ -276,6 +344,8 @@ def main() -> int:
                     help="time the checkpoint server instead")
     ap.add_argument("--loader", action="store_true",
                     help="time train main's loop on each loader instead")
+    ap.add_argument("--class-counts", action="store_true",
+                    help="time train_yolo's class counts instead")
     ap.add_argument("--loader-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("overrides", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -296,6 +366,8 @@ def main() -> int:
         return time_server(torch, args.label, card())
     if args.loader:
         return time_loaders(torch, args.label, card(), args.root.resolve())
+    if args.class_counts:
+        return time_class_counts(args.label, card())
     from cabinet_tpu_torch.ops import attention as attn
     from cabinet_tpu_torch.ops import decoder_tail as dt
     from cabinet_tpu_torch.ops import early_stage as es

@@ -961,3 +961,94 @@ def test_cuda_int8dw_export_roundtrip_is_bit_equal(gen, tmp_path, capsys):
             0, 256, (b, 256, 256, 3), dtype=np.uint8)).cuda()
         with torch.no_grad():
             assert torch.equal(serve(x), live(x))
+
+
+# ---------------------------------------------------------------------------
+# YOLO-sem (no kernel: cuDNN and cuBLAS under the port's own modules)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["n", "x"])
+def test_yolosem_f32_forward_on_cuda_matches_cpu(gen, variant):
+    """The f32 forward of a seeded YOLOSem on the card (TF32 off) against
+    the same on the CPU at 128^2, batch 2: logits and aux within 1e-4 of
+    max |cpu|."""
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
+
+    torch.manual_seed(0)
+    model = YOLOSem(8, variant).eval()
+    x = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = model(x)
+        got = model.cuda()(x.cuda())
+    for g, r in zip(got, ref):
+        _close(g.cpu(), r, 1e-4)
+
+
+def _uavid_tree(root, n=4, hw=(72, 120)):
+    import numpy as np
+
+    from cabinet_tpu_torch.data.decode import save_png
+
+    rng = np.random.default_rng(0)
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "masks" / split).mkdir(parents=True)
+        for i in range(n):
+            save_png(root / "images" / split / f"s{i}.png",
+                     rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+            save_png(root / "masks" / split / f"s{i}.png",
+                     rng.integers(0, 8, hw, dtype=np.uint8))
+    return root
+
+
+def test_train_yolo_main_on_cuda(gen, tmp_path):
+    """cli/train_yolo.py main on the card (bf16, accum 2, close_mosaic,
+    device augs): finite losses, a resume one epoch on, and mode=val on
+    `final` at the native 72x120."""
+    import math
+
+    from cabinet_tpu_torch.cli.train_yolo import main
+
+    data = _uavid_tree(tmp_path / "data")
+    exp = tmp_path / "exp"
+    argv = ["dataset=uavid", f"dataset.dataset_path={data}", "training_config.imgsz=64",
+            "training_config.batch_size=2", "training_config.nbs=4",
+            "training_config.num_workers=2", "augmentation.close_mosaic=1",
+            "validation_config.num_workers=0", "+runtime.device_augs=true",
+            f"training_config.experiments_path={exp}"]
+    res = main(argv + ["training_config.epochs=2", "--device", "cuda"])
+    assert len(res["losses"]) == 2 and all(math.isfinite(v) for v in res["losses"])
+    res = main(argv + ["training_config.epochs=3", "training_config.resume=true",
+                       "--device", "cuda"])
+    assert res["timing"]["micro_steps"] == 2 and math.isfinite(res["losses"][0])
+    val = main(argv + ["mode=val", f"weights={exp / 'final'}", "--device", "cuda"])
+    assert 0.0 <= val["mIoU"] <= 1.0
+
+
+def test_yolosem_cuda_export_roundtrip_is_bit_equal(gen, tmp_path, capsys):
+    """cli.export --family yolosem on the card (yolo26n-sem, bf16, symbolic
+    batch, --check), and the loaded program at batch 1 and 3 against the
+    live serving module."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.export import main
+    from cabinet_tpu_torch.export import load_artifact, make_serving_fn
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
+
+    torch.manual_seed(0)
+    model = YOLOSem(8, "n")
+    torch.save(model.state_dict(), tmp_path / "final.pth")
+    out = tmp_path / "art"
+    main(["--family", "yolosem", "--variant", "n", "--checkpoint", str(tmp_path / "final.pth"),
+          "--dataset", "uavid", "--out", str(out), "--imgsz", "256", "--batch", "b",
+          "--dtype", "bfloat16", "--check"])
+    assert "round-trip check passed" in capsys.readouterr().out
+    serve, meta = load_artifact(out, "cuda")
+    assert (meta["family"], meta["variant"]) == ("yolosem", "n")
+    live = make_serving_fn(model, meta["mean"], meta["std"], torch.bfloat16).cuda()
+    torch.backends.cudnn.benchmark = False
+    for b in (1, 3):
+        x = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 256, (b, 256, 256, 3), dtype=np.uint8)).cuda()
+        with torch.no_grad():
+            assert torch.equal(serve(x), live(x))

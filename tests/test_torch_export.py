@@ -1,7 +1,8 @@
 """The port's serving export (cabinet_tpu_torch/export.py, cli/export.py)
 against the JAX package's (cabinet_tpu/export.py, cli/export.py) on the
 CPU: the serving function's masks, the artifact's round trip, its
-metadata, and the CLI's refusals."""
+metadata, and the CLI with CABiNet and with YOLO-sem (`--family yolosem`,
+whose artifact the server serves)."""
 
 import ast
 import json
@@ -184,10 +185,119 @@ def test_cli_export_main_check_on_cpu(tmp_path, capsys):
     assert len(meta["palette"]) == 256
 
 
-@pytest.mark.parametrize("argv,item", [(["--family", "yolosem"], "item 6")])
-def test_cli_export_refuses_what_is_not_ported(tmp_path, argv, item):
-    from cabinet_tpu_torch.cli.export import main
+def test_yolosem_serving_fn_matches_jax():
+    """make_serving_fn on a YOLOSem (n variant, f32) against the JAX
+    package's on the same seeded uint8 batch, weights through the bridge:
+    masks equal on every pixel whose JAX top-2 margin exceeds 1e-3, and on
+    at least 99% of all pixels."""
+    from cabinet_tpu.models.yolosem import YOLOSem as JaxYOLOSem
+    from torch_port_utils import yolo_port_model, yolo_variables
 
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--checkpoint", str(tmp_path / "unused.pth"), "--dataset", "uavid",
-              "--out", str(tmp_path / "art"), "--device", "cpu", *argv])
+    v = yolo_variables(8, "n", size=IMGSZ, seed=6)
+    jm = JaxYOLOSem(n_classes=8, variant="n")
+    x = _random_u8(2, seed=7)
+    want = np.asarray(jax.jit(jax_serving_fn(jm, v, MEAN, STD))(jnp.asarray(x)))
+    with torch.no_grad():
+        got = make_serving_fn(yolo_port_model(v, 8, "n"), MEAN, STD,
+                              torch.float32)(torch.from_numpy(x)).numpy()
+    norm = (x.astype(np.float32) / 255.0 - np.float32(0.5)) / np.float32(0.25)
+    top2 = np.sort(np.asarray(jm.apply(v, jnp.asarray(norm), train=False)[0]), axis=-1)[..., -2:]
+    sure = (top2[..., 1] - top2[..., 0]) > 1e-3
+    assert sure.mean() > 0.9
+    np.testing.assert_array_equal(got[sure], want[sure])
+    assert (got == want).mean() >= 0.99
+
+
+@pytest.fixture(scope="module")
+def yolo_artifacts(tmp_path_factory):
+    """`cli/export.py --family yolosem --variant n --check` on the CPU from
+    a `.pth` of the port's state dict and from the JAX variables `.npz` it
+    was converted from (float32, symbolic batch, 32^2), and with
+    `--quantize int8 --calib`: (directory, {name: (artifact, printed)})."""
+    import contextlib
+    import io
+
+    from cabinet_tpu_torch.cli.export import main
+    from cabinet_tpu_torch.data.decode import save_png
+    from cabinet_tpu_torch.utils.convert import yolosem_state_dict_from_jax
+    from torch_port_utils import yolo_variables
+
+    base = tmp_path_factory.mktemp("yolo_export")
+    v = yolo_variables(8, "n", size=32, seed=8)
+    np.savez(base / "vars.npz", **{"/".join(str(getattr(k, "key", k)) for k in path): a
+                                   for path, a in jax.tree_util.tree_flatten_with_path(v)[0]})
+    torch.save(yolosem_state_dict_from_jax(v, "n"), base / "final.pth")
+    rng = np.random.default_rng(4)
+    for i in range(2):
+        save_png(base / f"calib_{i}.png", rng.integers(0, 256, (40, 56, 3), np.uint8))
+    runs = {"pth": ["--checkpoint", str(base / "final.pth")],
+            "npz": ["--checkpoint", str(base / "vars.npz")],
+            "int8": ["--checkpoint", str(base / "final.pth"), "--quantize", "int8",
+                     "--calib", str(base / "calib_*.png")]}
+    out = {}
+    for name, argv in runs.items():
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            main(argv + ["--family", "yolosem", "--variant", "n", "--dataset", "uavid",
+                         "--out", str(base / name), "--imgsz", "32", "--batch", "b",
+                         "--dtype", "float32", "--device", "cpu", "--check"])
+        out[name] = (base / name, printed.getvalue())
+    return base, out
+
+
+def test_cli_export_yolosem_check_on_cpu(yolo_artifacts):
+    """Each artifact loads back bit-equal to its live module (--check); the
+    metadata has the JAX CLI's keys with family yolosem and variant n; the
+    .npz and the .pth give the same masks; the int8 one reports its
+    sites."""
+    _, runs = yolo_artifacts
+    for name, (art, printed) in runs.items():
+        assert "round-trip check passed" in printed, name
+        meta = json.loads((art / METADATA_NAME).read_text())
+        assert set(meta) == _jax_cli_metadata_keys() | {"device"}
+        assert (meta["family"], meta["variant"], meta["n_classes"], meta["imgsz"]) == (
+            "yolosem", "n", 8, 32)
+    assert "int8 PTQ: calibrated" in runs["int8"][1]
+    assert json.loads((runs["int8"][0] / METADATA_NAME).read_text())["quantize"] == "int8"
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (3, 32, 32, 3), np.uint8))
+    with torch.no_grad():
+        masks = {n: load_artifact(runs[n][0], "cpu")[0](x) for n in ("pth", "npz")}
+    assert torch.equal(masks["pth"], masks["npz"])
+
+
+def test_server_answers_with_the_yolosem_artifacts_masks(yolo_artifacts):
+    """The checkpoint-less server on the YOLO-sem artifact, as it serves a
+    CABiNet one: /healthz shows its metadata and /segment answers 32x32
+    frames with the artifact's own masks."""
+    import threading
+    import urllib.request
+
+    from cabinet_tpu_torch.cli.serve import _Engine, make_server
+    from cabinet_tpu_torch.data.decode import decode_png, encode_png, png_mask
+
+    _, runs = yolo_artifacts
+    art = runs["pth"][0]
+    engine = _Engine(str(art), None, None, "large", 32, "float32", max_batch=2,
+                     deadline_ms=5.0, queue_depth=8, device="cpu")
+    srv = make_server(engine, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            meta = json.loads(r.read())
+        assert meta["family"] == "yolosem" and meta["status"] == "ok"
+        serve, _ = load_artifact(art, "cpu")
+        rng = np.random.default_rng(9)
+        for _ in range(2):
+            rgb = rng.integers(0, 256, (32, 32, 3), np.uint8)
+            req = urllib.request.Request(f"{url}/segment", data=encode_png(rgb), method="POST",
+                                         headers={"Content-Type": "image/png"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                mask = png_mask(decode_png(r.read()))
+            with torch.no_grad():
+                want = serve(torch.from_numpy(rgb)[None])[0].numpy()
+            np.testing.assert_array_equal(mask, want)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.batcher.close()

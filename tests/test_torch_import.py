@@ -32,7 +32,8 @@ required = {"cabinet_tpu_torch." + m for m in (
     "train.losses", "train.optimizer", "train.ema", "train.early_stopping",
     "train.trainer", "train.checkpoint", "ops.photometric", "ops.geometric",
     "export", "cli.export", "cli.serve", "data.grain_loader", "data.converters",
-    "data.stats", "cli.convert", "cli.compute_stats")}
+    "data.stats", "cli.convert", "cli.compute_stats", "models.yolosem", "data.mosaic",
+    "cli.train_yolo")}
 assert required <= set(names), sorted(required - set(names))
 """
 
@@ -68,7 +69,8 @@ def test_no_kernel_build_at_import():
 @pytest.mark.parametrize("entry", ["segmenter", "fused_tail", "fused_apply",
                                    "msc_eval", "eval_forward", "evaluate_main",
                                    "resolve_device", "train_main", "train_and_evaluate",
-                                   "export_serving", "export_main", "serve_engine"])
+                                   "export_serving", "export_main", "serve_engine",
+                                   "train_yolo_main", "train_yolo_val", "yolo_export_main"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without device="cpu" the entry points ask for CUDA, and raise where
     there is none instead of running on the CPU."""
@@ -114,6 +116,14 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         elif entry == "export_main":
             export_main(["--checkpoint", str(tmp_path / "unused.pth"), "--dataset",
                          "uavid", "--out", str(tmp_path / "art")])
+        elif entry in ("train_yolo_main", "train_yolo_val"):
+            from cabinet_tpu_torch.cli.train_yolo import main as train_yolo_main
+
+            mode = "val" if entry == "train_yolo_val" else "train"
+            train_yolo_main([f"dataset.dataset_path={tmp_path}", f"mode={mode}"])
+        elif entry == "yolo_export_main":
+            export_main(["--family", "yolosem", "--checkpoint", str(tmp_path / "unused.pth"),
+                         "--dataset", "uavid", "--out", str(tmp_path / "art")])
         elif entry == "serve_engine":
             _Engine(None, str(tmp_path / "unused.pth"), "uavid", "large", 64,
                     "bfloat16")

@@ -518,3 +518,65 @@ def test_server_answers_with_the_int8_artifacts_masks(int8_artifact):
         srv.shutdown()
         srv.server_close()
         engine.batcher.close()
+
+
+# ---------------------------------------------------------------------------
+# YOLO-sem (tests/unit/test_quant.py:186-206)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def yolo():
+    """yolo26n-sem (3 classes, as JAX's case) with seeded noise on its
+    variables: JAX variables, the port's model, a (2, 64, 64, 3) batch
+    and JAX's int8 scales on it."""
+    from cabinet_tpu.models.yolosem import YOLOSem as JaxYOLOSem
+    from torch_port_utils import yolo_port_model, yolo_variables
+
+    v = yolo_variables(3, "n", size=64, seed=5)
+    batch = np.random.default_rng(5).normal(size=(2, 64, 64, 3)).astype(np.float32)
+    jmodel = JaxYOLOSem(n_classes=3, variant="n")
+    scales = jquant.collect_act_scales(jmodel, v, [jnp.asarray(batch)])
+    return jmodel, v, yolo_port_model(v, 3, "n"), batch, scales
+
+
+def test_yolosem_sites_and_scales_match_jax(yolo):
+    """The port's sites of yolo26n-sem are JAX's calibrated sites through
+    the YOLO-sem key map, the class heads float by name, and the port's
+    scales within the f32 bound of JAX's."""
+    from cabinet_tpu_torch.utils.convert import yolosem_site_keys
+
+    _, _, model, batch, jscales = yolo
+    keys = yolosem_site_keys("n")
+    sites = quant.quantization_sites(model)
+    assert {keys[n] for n in sites} == set(jscales)
+    assert not {"classifier", "aux_classifier"} & set(sites)
+    assert all(min(m.in_channels, m.out_channels) >= 16 for m in sites.values())
+    scales = quant.collect_act_scales(model, [nchw(batch)])
+    assert set(scales) == set(sites)
+    for name, s in scales.items():
+        assert abs(s - jscales[keys[name]]) <= F32_REL * jscales[keys[name]], name
+
+
+def test_yolosem_quantized_forward_matches_jax_on_jax_scales(yolo):
+    """The port's quantized yolo26n-sem, fed JAX's scales, against JAX's
+    make_quantized_apply in f32 (FORWARD_REL of max |ref|, argmax on
+    99.9%); and against its own float forward as JAX's case holds it:
+    argmax agreement > 0.95, mean |delta| < 0.25 of the logits' spread."""
+    from cabinet_tpu_torch.utils.convert import yolosem_site_keys
+
+    jmodel, v, model, batch, jscales = yolo
+    q_apply = jquant.make_quantized_apply(jmodel, jscales)
+    ref, ref_aux = (np.asarray(t) for t in jax.jit(lambda v, x: q_apply(v, x, train=False))(
+        v, jnp.asarray(batch)))
+    names = {key: name for name, key in yolosem_site_keys("n").items()}
+    scales = {names[k]: s for k, s in jscales.items()}
+    with torch.no_grad():
+        got, got_aux = (nhwc(t) for t in quant.make_quantized_apply(model, scales)(nchw(batch)))
+    for g, r in ((got, ref), (got_aux, ref_aux)):
+        assert np.abs(g - r).max() <= FORWARD_REL * np.abs(r).max()
+    assert (got.argmax(-1) == ref.argmax(-1)).mean() >= 0.999
+    report = quant.quantization_report(model, scales, nchw(batch))
+    assert report["argmax_agreement"] > 0.95
+    with torch.no_grad():
+        spread = float(model(nchw(batch))[0].std())
+    assert report["mean_abs_logit_delta"] < 0.25 * spread

@@ -82,10 +82,11 @@ def load_large_fixture():
     return flat, nested
 
 
-def jax_tree_from_state_dict(sd, cfgs):
+def jax_tree_from_state_dict(sd, cfgs, mapping=None):
     """The inverse of the weight bridge: the port's state dict (tensors or
     arrays) -> nested JAX variables {"params", "batch_stats"} of numpy
-    arrays, through the port's copy of the key table."""
+    arrays, through the port's copy of the key table (CABiNet's of `cfgs`,
+    or the `mapping` given, e.g. `yolosem_mapping(variant)`)."""
     from cabinet_tpu_torch.utils.convert import BN, CONV, LINEAR, cabinet_mapping
 
     tree = {"params": {}, "batch_stats": {}}
@@ -97,7 +98,7 @@ def jax_tree_from_state_dict(sd, cfgs):
         node[path[-1]] = np.asarray(value.detach().cpu() if hasattr(value, "detach")
                                     else value)
 
-    for torch_key, flax_path, kind in cabinet_mapping(cfgs):
+    for torch_key, flax_path, kind in mapping or cabinet_mapping(cfgs):
         if kind == BN:
             if f"{torch_key}.weight" in sd:
                 put("params", flax_path + ("scale",), sd[f"{torch_key}.weight"])
@@ -139,3 +140,30 @@ def assert_updates_close(got, ref, start, rel, ulps=2.0 ** -21):
             worst, where = ratio, (k, err, d)
     assert worst <= 1.0, f"{where}: error {worst:.3g} x its bound"
     return worst
+
+
+def yolo_variables(n_classes, variant="n", size=64, seed=0, scale=0.05):
+    """Numpy copy of JAX YOLOSem variables (init at size^2) with seeded noise
+    on every array and the BN variances kept positive."""
+    from cabinet_tpu.models.yolosem import YOLOSem
+
+    v = to_numpy_tree(YOLOSem(n_classes=n_classes, variant=variant).init(
+        jax.random.PRNGKey(seed), np.zeros((1, size, size, 3), np.float32), train=False))
+    rng = np.random.default_rng(seed)
+
+    def noisy(path, a):
+        a = a + scale * rng.standard_normal(a.shape).astype(a.dtype)
+        return np.abs(a) + 0.5 if getattr(path[-1], "key", "") == "var" else a
+
+    return jax.tree_util.tree_map_with_path(noisy, v)
+
+
+def yolo_port_model(variables, n_classes, variant="n"):
+    """The port's YOLOSem holding `variables` (through the weight bridge),
+    in eval mode."""
+    from cabinet_tpu_torch.models.yolosem import YOLOSem
+    from cabinet_tpu_torch.utils.convert import yolosem_state_dict_from_jax
+
+    model = YOLOSem(n_classes, variant)
+    model.load_state_dict(yolosem_state_dict_from_jax(variables, variant), strict=True)
+    return model.eval()
