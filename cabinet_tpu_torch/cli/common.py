@@ -1,11 +1,10 @@
 """Shared CLI plumbing (counterpart of `cabinet_tpu.cli.common`): config
-composition, seeding, model, dataset and loader construction, checkpoint
-loading, the warm start and the pretrained backbone, and the eval settings.
+composition (a legacy JSON too), seeding, model, dataset and loader
+construction, checkpoint loading, the warm start and the pretrained
+backbone, and the eval settings.
 
-Not ported here, each waiting for its ROADMAP item: `--legacy-config`
-(Queue 1 item 8), the thread loader's multi-process `shard` and
-`eval_tile_mesh` (Queue 1 item 7; the port runs on one device). Orbax
-checkpoint directories raise: the JAX package's
+Not ported here: `eval_tile_mesh` (tile-sharded eval, ROADMAP Queue 1
+item 7). Orbax checkpoint directories raise: the JAX package's
 `cli/convert_checkpoint.py` turns them into a `.pth` or `.npz`.
 """
 
@@ -32,21 +31,27 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def parse_cli(argv: Optional[Sequence[str]], default_config: str,
               description: str) -> Tuple[Config, argparse.Namespace]:
     """Hydra-style CLI: positional key=value overrides, --config-name, and
-    --device (CUDA unless "cpu" is asked for)."""
+    --device (CUDA unless "cpu" is asked for).
+
+    ``--legacy-config path.json`` instead migrates a pre-Hydra legacy JSON
+    (reference legacy/train_*.json) onto the modern ``train`` tree;
+    positional overrides still apply on top (`core.legacy_config`)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config-name", default=default_config)
     p.add_argument("--config-dir", default=str(CONFIG_DIR))
     p.add_argument("--legacy-config", default=None, metavar="JSON",
-                   help="pre-Hydra legacy JSON config (not ported yet)")
+                   help="pre-Hydra legacy JSON config to migrate and run")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     p.add_argument("overrides", nargs="*", help="key=value overrides")
     args = p.parse_args(argv)
     if args.legacy_config:
-        raise NotImplementedError(
-            "--legacy-config is not ported yet (core/legacy_config.py, "
-            "ROADMAP Queue 1 item 8)")
-    return compose(args.config_dir, args.config_name, args.overrides), args
+        from cabinet_tpu_torch.core.legacy_config import load_legacy_config
+
+        cfg = load_legacy_config(args.legacy_config, args.config_dir, args.overrides)
+    else:
+        cfg = compose(args.config_dir, args.config_name, args.overrides)
+    return cfg, args
 
 
 def seed_everything(seed: int) -> None:
@@ -168,9 +173,10 @@ def make_loader(cfg: Config, dataset: Any, batch_size: int, *,
                 shard: Any = None) -> Any:
     """The input pipeline of `runtime.loader`: `thread` (data/loader.py, the
     default) or `grain` (data/grain_loader.py, worker processes), with the
-    JAX package's batch order for `shuffle`, `drop_last` and `seed`.
-    `shard=(index, count)` is the process loader's; the thread loader's
-    waits for ROADMAP Queue 1 item 7."""
+    JAX package's batch order for `shuffle`, `drop_last`, `seed` and
+    `shard=(index, count)`: the thread loader takes every count-th sample
+    of the order from `index` on (the JAX loader's), the process loader a
+    contiguous share (grain's)."""
     kind = str(cfg.select("runtime.loader", "thread")).lower()
     if kind == "grain":
         from cabinet_tpu_torch.data.grain_loader import GrainLoader
@@ -180,14 +186,10 @@ def make_loader(cfg: Config, dataset: Any, batch_size: int, *,
     if kind != "thread":
         raise ConfigurationError(
             f"runtime.loader must be 'thread' or 'grain', got {kind!r}")
-    if shard is not None:
-        raise NotImplementedError(
-            "the thread loader's shard is not ported yet (ROADMAP Queue 1 item 7); "
-            "use runtime.loader=grain")
     from cabinet_tpu_torch.data.loader import DataLoader
 
     return DataLoader(dataset, batch_size, shuffle=shuffle, drop_last=drop_last,
-                      num_workers=num_workers, seed=seed)
+                      num_workers=num_workers, seed=seed, shard=shard)
 
 
 def eval_tile_batch(cfg: Config) -> int:

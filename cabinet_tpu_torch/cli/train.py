@@ -36,17 +36,34 @@ rematerialises backbone blocks in the backward.
 
 `runtime.loader=grain` reads the train split on worker processes
 (`data/grain_loader.py`), which stop when training ends.
+`--legacy-config legacy/train_citys.json` runs a pre-Hydra JSON config
+(`core/legacy_config.py`).
+
+Data parallelism across processes: started by torchrun, e.g.
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m cabinet_tpu_torch.cli.train dataset=cityscapes ...
+each rank joins the process group (`core/mesh.py`; `+runtime.dist_backend=
+auto|nccl|gloo`, `+runtime.dist_timeout_s`) on its own card.
+`training_config.batch_size` is the global batch: each of R ranks loads
+B/R images (R must divide B), every R-th sample of the epoch's order from
+its rank on, so that the ranks' batches together are the 1-rank run's
+global batch; OHEM's n_min is sized from B. The step is the global batch's
+(`train/trainer.py`), `DeviceAugment` draws the global batch's parameters
+and each rank takes its samples'. Each rank scores a disjoint share of
+the val frames; the confusion matrices and the val losses are summed
+over the ranks. Rank 0 alone writes the logs, `metrics.jsonl`, the
+checkpoints and the config; every rank reads a resume; the early-stopping
+verdict is rank 0's.
 
 Not ported, each raising with the ROADMAP item it waits for:
-`runtime.pipeline`, `runtime.model_axis > 1`, `runtime.spatial_axis`,
-multi-process training (Queue 1 item 7) and `--legacy-config` (item 8).
+`runtime.pipeline`, `runtime.model_axis > 1` and `runtime.spatial_axis`
+(Queue 1 item 7, its model-parallel half).
 """
 
 from __future__ import annotations
 
 import json
 import math
-import os
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -64,21 +81,40 @@ from cabinet_tpu_torch.core.logging import is_primary_process, setup_logger
 def refuse_unported(cfg: Config) -> None:
     """Raise for the settings whose code is not ported, naming the ROADMAP
     item each waits for."""
+    item = "Queue 1 item 7, its model-parallel half"
     checks = [
         (int(cfg.select("runtime.pipeline", 0) or 0) > 0,
-         "runtime.pipeline (pipeline parallelism)", "Queue 1 item 7"),
+         "runtime.pipeline (pipeline parallelism)"),
         (int(cfg.select("runtime.model_axis", 1) or 1) > 1,
-         "runtime.model_axis > 1 (tensor parallelism)", "Queue 1 item 7"),
+         "runtime.model_axis > 1 (tensor parallelism)"),
         (bool(cfg.select("runtime.spatial_axis", False)),
-         "runtime.spatial_axis (spatial partitioning)", "Queue 1 item 7"),
-        (int(os.environ.get("WORLD_SIZE", "1")) > 1
-         or (torch.distributed.is_available() and torch.distributed.is_initialized()
-             and torch.distributed.get_world_size() > 1),
-         "multi-process training", "Queue 1 item 7"),
+         "runtime.spatial_axis (spatial partitioning)"),
     ]
-    for on, what, item in checks:
+    for on, what in checks:
         if on:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def join_ranks(cfg: Config, device: Union[str, torch.device]) -> torch.device:
+    """This rank's device, the process group joined when torchrun started
+    several (`core/mesh.py:setup`, `runtime.dist_backend`,
+    `runtime.dist_timeout_s`); raises unless the rank count divides the
+    global batch `training_config.batch_size`."""
+    from cabinet_tpu_torch.core import mesh
+
+    device = mesh.setup(resolve_device(device),
+                        str(cfg.select("runtime.dist_backend", "auto")),
+                        float(cfg.select("runtime.dist_timeout_s", mesh.DEFAULT_TIMEOUT_S)))
+    mesh.local_batch_size(int(cfg.training_config.batch_size))
+    return device
+
+
+def epoch_batches(loader: Any) -> int:
+    """Batches an epoch takes: the fewest any rank's loader gives, so that
+    every rank steps as often (a shard may hold one sample more)."""
+    from cabinet_tpu_torch.core import mesh
+
+    return int(mesh.all_reduce_(mesh.host_tensor(len(loader), torch.int64), op="min"))
 
 
 class DeviceAugment:
@@ -93,11 +129,19 @@ class DeviceAugment:
     noise from a torch Generator on `device`. So a resume redraws what the
     uninterrupted run drew, no draw waits on the device, and two
     micro-batches of one accumulation window draw apart (the JAX package
-    keys on the step alone)."""
+    keys on the step alone).
+
+    With `shard=(rank, R)` (data parallelism; the loader's interleaved
+    shard, so this rank's sample i sits at position rank + R*i of the
+    global batch) the draws are the global batch's and this rank takes its
+    positions', and mixup's partner (the sample before) comes from the
+    rank that holds it: the ranks' batches together are, bit for bit, the
+    global batch of a 1-rank run."""
 
     def __init__(self, cfg: Config, ds_train: Any, device: torch.device,
                  crop_hw: Tuple[int, int], seed: Optional[int] = None,
-                 aug: Optional[Dict[str, Any]] = None):
+                 aug: Optional[Dict[str, Any]] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         self.geometric = getattr(ds_train, "geometric", "host") == "device"
         self.shared = str(cfg.select("runtime.device_geometric", False)).lower() == "shared"
         self.street = getattr(ds_train, "RECIPE", "aerial") == "street"
@@ -108,6 +152,7 @@ class DeviceAugment:
         self.seed = int(cfg.runtime.seed) + 1 if seed is None else int(seed)
         self.device = device
         self.noise = torch.Generator(device=device)
+        self.rank, self.ranks = shard if shard is not None else (0, 1)
 
     def draws(self, step: int, micro_step: int) -> np.random.Generator:
         """The host Generator of a batch; seeds the noise Generator too."""
@@ -118,27 +163,60 @@ class DeviceAugment:
     def __call__(self, batch, step: int, micro_step: int):
         """(normalised images (B, Hc, Wc, 3) f32, labels int64) on the
         device, from a loader batch: (canvas u8, label canvas u8, (h, w)) or
-        (raw images, labels)."""
+        (raw images, labels). The draws are the global batch's, in the
+        1-rank order, and this rank takes its positions'."""
         from cabinet_tpu_torch.ops import geometric as G
         from cabinet_tpu_torch.ops import photometric as P
 
         rng = self.draws(step, micro_step)
         staged = [torch.from_numpy(a).to(self.device, non_blocking=True) for a in batch[:2]]
+        mine = slice(self.rank, None, self.ranks)
         if self.geometric:
             images, labels = G.geometric_pipeline(*staged, batch[2], rng, self.aug,
                                                   self.crop_hw, self.ignore_label,
-                                                  shared_linear=self.shared)
+                                                  shared_linear=self.shared,
+                                                  shard=(self.rank, self.ranks))
         else:
             images, labels = staged
-        B, H, W = images.shape[:3]
+        b, H, W, C = images.shape
+        B = b * self.ranks
+        z = torch.randn((B, H, W, C), generator=self.noise, device=self.device)[mine]
         if self.street:
-            params, chain = (P.sample_street_photometric(rng, B, H, W),
-                             P.street_photometric_pipeline)
-        else:
-            params, chain = P.sample_photometric(rng, B, H, W, self.aug), P.photometric_pipeline
-        z = torch.randn(images.shape, generator=self.noise, device=self.device)
-        return chain(images, labels, P.params_to_device(params, self.device), z,
-                     self.mean, self.std)
+            params = P.sample_street_photometric(rng, B, H, W)
+            return P.street_photometric_pipeline(
+                images, labels, P.params_to_device(P.take_rows(params, mine), self.device),
+                z, self.mean, self.std)
+        params = P.sample_photometric(rng, B, H, W, self.aug)
+        blend = np.flatnonzero(params["mixup"]["apply"])
+        partners = (None if self.ranks == 1
+                    else lambda x, lb: self._partners(x, lb, blend, B))
+        return P.photometric_pipeline(
+            images, labels, P.params_to_device(P.take_rows(params, mine), self.device), z,
+            self.mean, self.std, partners=partners)
+
+    def _partners(self, x: torch.Tensor, labels: torch.Tensor, blend: np.ndarray, B: int):
+        """Mixup's partners of this rank's samples: for every global
+        position p that blends, the sample at p - 1 (mod B), sent by the
+        rank that holds it through one all-reduce of a buffer that only
+        that rank fills; other rows keep this rank's own (not read)."""
+        from cabinet_tpu_torch.core import mesh
+
+        if blend.size == 0:
+            return x, labels
+        r, R = self.rank, self.ranks
+        img_buf = x.new_zeros((blend.size,) + tuple(x.shape[1:]))
+        lbl_buf = labels.new_zeros((blend.size,) + tuple(labels.shape[1:]))
+        for j, p in enumerate(blend):
+            q = (int(p) - 1) % B
+            if q % R == r:
+                img_buf[j], lbl_buf[j] = x[q // R], labels[q // R]
+        mesh.all_reduce_(img_buf, tag="mixup")
+        mesh.all_reduce_(lbl_buf, tag="mixup")
+        img, lbl = x.clone(), labels.clone()
+        for j, p in enumerate(blend):
+            if int(p) % R == r:
+                img[int(p) // R], lbl[int(p) // R] = img_buf[j], lbl_buf[j]
+        return img, lbl
 
 
 class _DeviceClock:
@@ -179,13 +257,15 @@ def _metrics_line(path: Path, record: Dict[str, Any]) -> None:
 
 def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                        ) -> Dict[str, Any]:
-    """Train `cfg` on one device and return {"best_miou", "final" (the
-    final multi-scale eval's result), "timing"}. `timing` holds the
-    training loops' seconds, the part of them spent waiting on the train
-    loader and the seconds of device augmentation in them, the micro-steps
-    and optimizer steps this call took, and the seconds of the val losses
-    and evaluations."""
+    """Train `cfg` on one device (one rank of several under torchrun) and
+    return {"best_miou", "final" (the final multi-scale eval's result),
+    "timing"}. `timing` holds the training loops' seconds, the part of them
+    spent waiting on the train loader and the seconds of device
+    augmentation in them, the micro-steps and optimizer steps this call
+    took, the seconds of the val losses and evaluations, and the calls and
+    host seconds of this rank's collectives by kind (`collectives`)."""
     from cabinet_tpu_torch.cli.evaluate import make_eval_forward
+    from cabinet_tpu_torch.core import mesh
     from cabinet_tpu_torch.core.constants import OHEM_DIVISOR
     from cabinet_tpu_torch.data.class_weights import (
         compute_class_weights,
@@ -210,7 +290,9 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             "with runtime.spatial_axis (the warp gathers across the full "
             "image height). Use the host pipeline for spatial partitioning.")
     refuse_unported(cfg)
-    device = resolve_device(device)
+    device = join_ranks(cfg, device)
+    rank, ranks = mesh.world()
+    shard = (rank, ranks) if ranks > 1 else None
     tc, vc = cfg.training_config, cfg.validation_config
     logger = setup_logger("cabinet_tpu_torch.train", tc.experiments_path)
     common.seed_everything(cfg.runtime.seed)
@@ -218,10 +300,11 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     # ---- datasets ------------------------------------------------------
     ds_train, ds_val = common.build_datasets(cfg, ["train", "val"])
     common.guard_val_batch(cfg, ds_val, vc.batch_size)
-    dl_train = common.make_loader(cfg, ds_train, tc.batch_size, shuffle=True,
-                                  drop_last=True, num_workers=tc.num_workers,
-                                  seed=cfg.runtime.seed)
-    dl_val = DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers)
+    dl_train = common.make_loader(cfg, ds_train, mesh.local_batch_size(tc.batch_size),
+                                  shuffle=True, drop_last=True,
+                                  num_workers=tc.num_workers, seed=cfg.runtime.seed,
+                                  shard=shard)
+    dl_val = DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers, shard=shard)
 
     # ---- model ----------------------------------------------------------
     n_classes = cfg.dataset.num_classes
@@ -242,6 +325,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         keys = common.warm_start(model, tc.pretrained_ckpt_path)
         logger.info(f"Warm-started {len(keys)} tensors from {tc.pretrained_ckpt_path}")
     model.to(device)
+    mesh.broadcast_module_(model)
 
     # ---- class weights ---------------------------------------------------
     class_weights = None
@@ -251,7 +335,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         logger.info(f"Class weights: {np.round(class_weights, 3).tolist()}")
 
     # ---- optimizer / state ----------------------------------------------
-    batches_per_epoch = len(dl_train)
+    batches_per_epoch = epoch_batches(dl_train)
     accum = int(tc.accum_steps)
     max_iter = tc.get("max_iterations") or math.ceil(tc.epochs * batches_per_epoch / accum)
     optimizer = GroupedSGD(
@@ -285,7 +369,8 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             stopper.load_state_dict({"best_fitness": restored["early_stop_best_fitness"],
                                      "best_epoch": restored["early_stop_best_epoch"]})
             logger.info(f"Resumed from epoch {restored['epoch']} (step {state.step})")
-    logger.info(f"Device {device}; max_iter={max_iter}; n_min={n_min}; accum={accum}")
+    logger.info(f"Device {device}; rank {rank} of {ranks}; max_iter={max_iter}; "
+                f"n_min={n_min}; accum={accum}")
 
     # ---- evaluation on a copy of the EMA weights --------------------------
     eval_model = common.build_model(cfg, n_classes)
@@ -307,13 +392,13 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         return (torch.from_numpy(images).to(device, non_blocking=True),
                 torch.from_numpy(labels).to(device, non_blocking=True))
 
-    augment = (DeviceAugment(cfg, ds_train, device, (crop_h, crop_w))
+    augment = (DeviceAugment(cfg, ds_train, device, (crop_h, crop_w), shard=shard)
                if getattr(ds_train, "photometric", "host") == "device" else None)
     aug_clock = _DeviceClock(device)
 
     # metrics.jsonl: resumed runs append to the same file, so every run opens
     # with a marker line and tags its epoch lines with its id.
-    write_metrics = is_primary_process()
+    write_metrics = primary = is_primary_process()
     run_id = time.strftime("%Y%m%d-%H%M%S")
     metrics_path = Path(tc.experiments_path) / "metrics.jsonl"
     if write_metrics:
@@ -323,6 +408,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
               "device_aug_seconds": 0.0, "micro_steps": 0, "optimizer_steps": 0,
               "eval_seconds": 0.0}
     step0 = state.step
+    comm0 = {k: dict(v) for k, v in mesh.COMM.items()}
     results: Dict[str, Any] = {"best_miou": best_miou}
     try:
         for epoch in range(start_epoch, int(tc.epochs)):
@@ -332,6 +418,9 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             tl = time.perf_counter()
             batches, i = iter(dl_train), 0
             while True:
+                if i >= batches_per_epoch:  # a longer shard's extra batch
+                    batches.close()
+                    break
                 tw = time.perf_counter()
                 batch = next(batches, None)
                 timing["loader_wait_seconds"] += time.perf_counter() - tw
@@ -358,7 +447,9 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
 
             te = time.perf_counter()
             val_losses = [float(eval_loss_step(*to_device(im, lb))) for im, lb in dl_val]
-            val_loss = float(np.mean(val_losses)) if val_losses else float("nan")
+            total, count = mesh.all_reduce_(mesh.host_tensor(
+                [sum(val_losses), len(val_losses)], torch.float64)).tolist()
+            val_loss = float(total / count) if count else float("nan")
             best_loss = min(best_loss, val_loss)
 
             fitness = None
@@ -369,7 +460,9 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                             f"({time.time() - t0:.1f}s)")
                 if fitness > best_miou:
                     best_miou = fitness
-                    ckpt.save_variables(f"{tc.model_save_name}_best", state.ema_variables)
+                    if primary:
+                        ckpt.save_variables(f"{tc.model_save_name}_best",
+                                            state.ema_variables)
             timing["eval_seconds"] += time.perf_counter() - te
 
             if write_metrics:
@@ -380,9 +473,11 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                     "mIoU": fitness, "step": int(state.step),
                     "seconds": round(time.time() - t0, 2)})
 
-            should_stop = stopper(epoch, fitness)
-            ckpt.save_full("checkpoint_last", state, epoch, best_miou, best_loss,
-                           stopper.state_dict())
+            should_stop = bool(mesh.broadcast_(mesh.host_tensor(
+                int(stopper(epoch, fitness)), torch.int64)))  # rank 0's verdict
+            if primary:
+                ckpt.save_full("checkpoint_last", state, epoch, best_miou, best_loss,
+                               stopper.state_dict())
             if should_stop:
                 logger.info(f"Early stopping at epoch {epoch} (best "
                             f"{stopper.best_fitness:.4f} @ {stopper.best_epoch})")
@@ -392,15 +487,17 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     finally:  # the workers start in the loop (runtime.loader=grain)
         dl_train.close()
 
-    ckpt.save_variables(tc.model_save_name, state.ema_variables)
-    save_config(cfg, Path(tc.experiments_path) / "config.yaml")
+    if primary:
+        ckpt.save_variables(tc.model_save_name, state.ema_variables)
+        save_config(cfg, Path(tc.experiments_path) / "config.yaml")
 
     te = time.perf_counter()
     final = evaluator(vc.eval_scales, bool(vc.flip),
                       cfg.select("validation_config.eval_pad_to", None)
-                      ).evaluate(None, dl_val, progress=True)
+                      ).evaluate(None, dl_val, progress=primary)
     timing["final_eval_seconds"] = time.perf_counter() - te
     timing["optimizer_steps"] = state.step - step0
+    timing["collectives"] = mesh.comm_since(comm0)
     logger.info(f"Final multi-scale mIoU: {final['mIoU']:.4f} acc {final['accuracy']:.4f}")
     results.update(best_miou=best_miou, final=final, timing=timing)
     return results
@@ -410,12 +507,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Print the composed config, train, and print the final metrics as
     one JSON line {"best_miou", "mIoU", "accuracy"}; returns the result of
     `train_and_evaluate`."""
+    from cabinet_tpu_torch.core import mesh
+
     cfg, args = common.parse_cli(argv, "train", "Train CABiNet on the GPU")
-    print("Composed config:")
-    print(to_yaml(cfg), flush=True)
-    res = train_and_evaluate(cfg, device=args.device)
-    print(json.dumps({"best_miou": res["best_miou"], "mIoU": res["final"]["mIoU"],
-                      "accuracy": res["final"]["accuracy"]}), flush=True)
+    primary = mesh.env_world()[0] == 0
+    if primary:
+        print("Composed config:")
+        print(to_yaml(cfg), flush=True)
+    try:
+        res = train_and_evaluate(cfg, device=args.device)
+    finally:
+        mesh.teardown()
+    if primary:
+        print(json.dumps({"best_miou": res["best_miou"], "mIoU": res["final"]["mIoU"],
+                          "accuracy": res["final"]["accuracy"]}), flush=True)
     return res
 
 

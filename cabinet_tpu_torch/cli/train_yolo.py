@@ -26,7 +26,11 @@ keyed on (runtime.seed + 11, epoch, batch)). `+runtime.loader=grain` reads
 the train split on worker processes (`data/grain_loader.py`).
 `runtime.device_geometric` raises ConfigurationError, as in the JAX
 package; `runtime.pipeline` raises NotImplementedError (ROADMAP Queue 1
-item 7).
+item 7, its model-parallel half).
+
+Under torchrun each rank trains on its share of the global batch
+`training_config.batch_size`, as `cli/train.py` does (data parallelism,
+`core/mesh.py`); rank 0 alone writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from cabinet_tpu_torch.cli import common
+from cabinet_tpu_torch.core import mesh
 from cabinet_tpu_torch.core.config import Config
 from cabinet_tpu_torch.core.device import resolve_device
 from cabinet_tpu_torch.core.logging import setup_logger
@@ -75,7 +80,9 @@ class YoloEval:
     to the native size by nearest sampling, and the confusion matrix on the
     device. `model` is held as a copy on `device` in the compute dtype;
     `evaluate(variables, loader)` loads `variables` (a state dict, e.g. the
-    EMA weights) into it first, unless None."""
+    EMA weights) into it first, unless None; inside a process group of
+    several ranks (each scoring its share of the frames) the confusion
+    matrix is summed over the ranks."""
 
     def __init__(self, model: torch.nn.Module, n_classes: int, imgsz: int,
                  ignore_label: int, dtype: torch.dtype, device: torch.device):
@@ -125,7 +132,11 @@ class YoloEval:
         for images, labels in dataloader:
             hist += self.hist(torch.from_numpy(images).to(self.device, non_blocking=True),
                               torch.from_numpy(labels).to(self.device, non_blocking=True))
-        return metrics_from_hist(hist.cpu().numpy().astype(np.float64))
+        hist = hist.cpu()
+        if mesh.is_distributed():  # each rank scored its share of the frames
+            hist = mesh.all_reduce_(mesh.host_tensor(hist.numpy(), torch.int64),
+                                    tag="eval").cpu()
+        return metrics_from_hist(hist.numpy().astype(np.float64))
 
 
 def mosaic_train_set(cfg: Config):
@@ -192,12 +203,19 @@ def class_pixel_counts(cfg: Config, dataset: Any, n_classes: int, ignore_label: 
 
 
 def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
-    """Train YOLO-sem on one device; returns {"best_miou", "losses" (each
+    """Train YOLO-sem on one device (one rank of several under torchrun);
+    returns {"best_miou", "losses" (each
     epoch's last micro-batch loss), "timing"} (the training loops' seconds,
     the part of them spent waiting on the train loader, the micro-steps and
     optimizer steps this call took, the evaluations' seconds and the class
-    counts' seconds)."""
-    from cabinet_tpu_torch.cli.train import DeviceAugment, refuse_unported
+    counts' seconds, and the calls and host seconds of this rank's
+    collectives by kind)."""
+    from cabinet_tpu_torch.cli.train import (
+        DeviceAugment,
+        epoch_batches,
+        join_ranks,
+        refuse_unported,
+    )
     from cabinet_tpu_torch.core.exceptions import ConfigurationError
     from cabinet_tpu_torch.data.class_weights import compute_class_weights
     from cabinet_tpu_torch.data.loader import DataLoader
@@ -216,7 +234,10 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
             "(mosaic/copy-paste compose decoded crops on the host); use "
             "runtime.device_augs for the photometric chain")
     refuse_unported(cfg)
-    device = resolve_device(device)
+    device = join_ranks(cfg, device)
+    rank, ranks = mesh.world()
+    shard = (rank, ranks) if ranks > 1 else None
+    primary = rank == 0
     tc, vc = cfg.training_config, cfg.validation_config
     logger = setup_logger("cabinet_tpu_torch.train_yolo", tc.experiments_path)
     common.seed_everything(cfg.runtime.seed)
@@ -229,13 +250,15 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
     device_augs = getattr(base, "photometric", "host") == "device"
     aug = cfg.get("augmentation")
     close_mosaic = int(aug.get("close_mosaic", 0))
-    dl_train = common.make_loader(cfg, ds_train, tc.batch_size, shuffle=True, drop_last=True,
-                                  num_workers=tc.num_workers, seed=cfg.runtime.seed)
-    dl_val = DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers)
+    dl_train = common.make_loader(cfg, ds_train, mesh.local_batch_size(tc.batch_size),
+                                  shuffle=True, drop_last=True, num_workers=tc.num_workers,
+                                  seed=cfg.runtime.seed, shard=shard)
+    dl_val = DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers, shard=shard)
 
     n_classes, ignore = cfg.dataset.num_classes, cfg.dataset.ignore_idx
     dtype = common.compute_dtype_of(cfg)
     model = _build_model(cfg).to(device)
+    mesh.broadcast_module_(model)
 
     class_weights, tc0 = None, time.perf_counter()
     if float(tc.get("cls_pw", 0)) > 0:
@@ -245,7 +268,7 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
         logger.info(f"Class weights: {np.round(class_weights, 3).tolist()}")
     class_count_seconds = time.perf_counter() - tc0
 
-    batches = len(dl_train)
+    batches = epoch_batches(dl_train)
     accum = max(round(int(tc.nbs) / int(tc.batch_size)), 1)
     total_steps = math.ceil(int(tc.epochs) * batches / accum)
     warmup_steps = math.ceil(float(tc.warmup_epochs) * batches / accum)
@@ -260,7 +283,8 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
                            compute_dtype=dtype)
     flush = make_flush_step()
     augment = (DeviceAugment(cfg, base, device, (imgsz, imgsz), seed=int(cfg.runtime.seed) + 11,
-                             aug={**base.aug, "mixup": float(aug.get("mixup", 0.1))})
+                             aug={**base.aug, "mixup": float(aug.get("mixup", 0.1))},
+                             shard=shard)
                if device_augs else None)
 
     evaluator = YoloEval(model, n_classes, imgsz, ignore, dtype, device)
@@ -282,6 +306,7 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
               "optimizer_steps": 0, "eval_seconds": 0.0,
               "class_count_seconds": class_count_seconds}
     step0, losses, mosaic_on = state.step, [], True
+    comm0 = {k: dict(v) for k, v in mesh.COMM.items()}
     try:
         for epoch in range(start_epoch, int(tc.epochs)):
             t0 = time.time()
@@ -294,6 +319,9 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
             tl = time.perf_counter()
             it, i = iter(dl_train), 0
             while True:
+                if i >= batches:  # a longer shard's extra batch
+                    it.close()
+                    break
                 tw = time.perf_counter()
                 batch = next(it, None)
                 timing["loader_wait_seconds"] += time.perf_counter() - tw
@@ -322,17 +350,22 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
                         f"acc {res['accuracy']:.4f} ({time.time() - t0:.1f}s)")
             if fitness > best_miou:
                 best_miou = fitness
-                ckpt.save_variables("best", ema_vars)
-            should_stop = stopper(epoch, fitness)
-            ckpt.save_full("last", state, epoch, best_miou, 0.0, stopper.state_dict())
+                if primary:
+                    ckpt.save_variables("best", ema_vars)
+            should_stop = bool(mesh.broadcast_(mesh.host_tensor(
+                int(stopper(epoch, fitness)), torch.int64)))  # rank 0's verdict
+            if primary:
+                ckpt.save_full("last", state, epoch, best_miou, 0.0, stopper.state_dict())
             if should_stop:
                 logger.info(f"Early stopping at epoch {epoch}")
                 break
     finally:  # the workers start in the loop (runtime.loader=grain)
         dl_train.close()
 
-    ckpt.save_variables("final", state.ema_variables)
+    if primary:
+        ckpt.save_variables("final", state.ema_variables)
     timing["optimizer_steps"] = state.step - step0
+    timing["collectives"] = mesh.comm_since(comm0)
     return {"best_miou": best_miou, "losses": losses, "timing": timing}
 
 
@@ -387,8 +420,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     cfg, args = common.parse_cli(argv, "train_yolo", "Train/eval YOLO-sem on the GPU")
     if cfg.get("mode", "train") == "val":
         return validate(cfg, device=args.device)
-    res = train(cfg, device=args.device)
-    print(json.dumps({"best_miou": res["best_miou"], "losses": res["losses"]}), flush=True)
+    try:
+        res = train(cfg, device=args.device)
+    finally:
+        mesh.teardown()
+    if mesh.env_world()[0] == 0:
+        print(json.dumps({"best_miou": res["best_miou"], "losses": res["losses"]}),
+              flush=True)
     return res
 
 

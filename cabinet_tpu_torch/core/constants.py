@@ -26,3 +26,6 @@ MODEL_CONFIG: Dict[str, Dict[str, Any]] = {
 # Training constants.
 OHEM_DIVISOR = 16  # n_min = batch * crop_h * crop_w // OHEM_DIVISOR
 DEFAULT_SCORE_THRESHOLD = 0.7  # OHEM loss threshold
+
+# Most samples `cli/visualize.py` writes.
+VISUALIZATION_SAMPLE_LIMIT = 50

@@ -2,10 +2,10 @@
 reference src/utils/logger.py:17-119).
 
 `setup_logger` gives a logger that writes timestamped lines to stderr and,
-on the primary process, to `run-<time>.log` under `logpth`. The port runs
-one process (multi-process training waits for ROADMAP Queue 1 item 7), so
-the primary-process rule is always true here; it reads torch.distributed's
-rank once a process group exists. No rich: the CLI prints plain text.
+on the primary process, to `run-<time>.log` under `logpth`. The primary
+process is rank 0 of torch.distributed's process group once one exists
+(multi-process training, `core/mesh.py`), and the only process without
+one. No rich: the CLI prints plain text.
 """
 
 from __future__ import annotations

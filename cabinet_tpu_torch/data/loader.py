@@ -4,8 +4,7 @@
 Worker threads decode (zlib and numpy release the GIL for the heavy parts),
 a bounded in-order window of futures keeps `prefetch` batches ready, and
 batches come out as stacked NHWC numpy arrays. The batch order is the JAX
-package's for any `shuffle`, `seed` and `set_epoch` (its multi-host
-`shard` waits for ROADMAP Queue 1 item 7); when the
+package's for any `shuffle`, `seed`, `set_epoch` and `shard`; when the
 consumer stops early, the futures not yet started are cancelled and the
 pool is shut down.
 """
@@ -13,7 +12,7 @@ pool is shut down.
 from __future__ import annotations
 
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -29,6 +28,8 @@ class DataLoader:
         drop_last: drop the trailing partial batch.
         num_workers: decode threads (0 = synchronous).
         prefetch: batches kept ready beyond the one being consumed.
+        shard: (index, count): this process reads every count-th sample of
+            the epoch's order from `index` on (multi-process loading).
     """
 
     def __init__(
@@ -40,6 +41,7 @@ class DataLoader:
         num_workers: int = 4,
         seed: int = 0,
         prefetch: int = 2,
+        shard: Optional[Tuple[int, int]] = None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -48,6 +50,7 @@ class DataLoader:
         self.num_workers = int(num_workers)
         self.seed = seed
         self.prefetch = max(1, int(prefetch))
+        self.shard = shard
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -60,6 +63,9 @@ class DataLoader:
         order = np.arange(n)
         if self.shuffle:
             order = np.random.default_rng([self.seed, self.epoch]).permutation(n)
+        if self.shard is not None:
+            pid, nproc = self.shard
+            order = order[pid::nproc]
         return order
 
     def __len__(self) -> int:

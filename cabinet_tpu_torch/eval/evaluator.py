@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cabinet_tpu_torch.core import mesh
 from cabinet_tpu_torch.core.constants import DEFAULT_IGNORE_LABEL, EVAL_STRIDE_RATE
 from cabinet_tpu_torch.core.device import resolve_device
 from cabinet_tpu_torch.eval.metrics import confusion_matrix, metrics_from_hist
@@ -249,7 +250,9 @@ class MscEval:
         queue of 2. A stop event keeps the worker from blocking on a full
         queue after the consumer failed; the worker's exceptions reach the
         consumer. The confusion matrix is the sum of what `hist_batch` gives
-        batch by batch, each copied back as it is done. `progress` prints a
+        batch by batch, each copied back as it is done, and, inside a process
+        group of several ranks (each scoring its share of the frames),
+        summed over the ranks. `progress` prints a
         plain line now and then. The result's `timing` holds the loop's
         seconds, the seconds the consumer waited on the worker (in all, and
         before each batch and the end), and the frame count."""
@@ -323,6 +326,9 @@ class MscEval:
                 except queue.Empty:
                     pass
                 worker.join(timeout=0.1)
+        if mesh.is_distributed():  # each rank scored its share of the frames
+            hist = mesh.all_reduce_(mesh.host_tensor(hist, torch.int64),
+                                    tag="eval").cpu().numpy()
         result = metrics_from_hist(hist)
         result["timing"] = {"seconds": time.perf_counter() - t0,
                             "loader_wait_seconds": sum(waits),

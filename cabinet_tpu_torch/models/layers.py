@@ -4,7 +4,9 @@ Counterpart of `cabinet_tpu.models.layers`. Module and attribute names follow
 the reference torch state-dict keys, so a reference `.pth` loads with
 `load_state_dict(strict=True)`. BatchNorm uses eps 1e-5 and torch momentum 0.1
 (flax momentum 0.9), as in the JAX package; in train mode the running
-variance takes the biased batch variance, as flax's does.
+variance takes the biased batch variance, as flax's does. Inside a process
+group of more than one rank, train-mode statistics are taken over every
+rank's batch (data parallelism: the statistics of the global batch).
 """
 
 from __future__ import annotations
@@ -59,11 +61,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance is corrected on the C channels alone: torch added
     momentum * var * n/(n-1), flax adds momentum * var, so 1/n of the added
     term comes off. Eval mode, the state-dict keys (`num_batches_tracked`
-    included) and the momentum are torch's."""
+    included) and the momentum are torch's.
+
+    Inside a process group of more than one rank (`core/mesh.py`), a
+    train-mode forward takes its statistics over the global batch
+    (`_global_forward`). `torch.nn.SyncBatchNorm` does not serve: it runs
+    on CUDA tensors only and keeps torch's unbiased running variance."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        from cabinet_tpu_torch.core import mesh
+
+        if mesh.is_distributed():
+            return self._global_forward(x)
         before = self.running_var.clone()
         y = super().forward(x)
         with torch.no_grad():
@@ -72,6 +83,44 @@ class BatchNorm2d(nn.BatchNorm2d):
             added = self.running_var - (1.0 - self.momentum) * before
             self.running_var = self.running_var - added / n
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over every rank's pixels. Each rank takes its pixels'
+        count, mean and sum of squared deviations per channel in f32; one
+        differentiable all-reduce of a buffer with a row per rank (the
+        other rows zero) gives every rank all of them, and Chan's parallel
+        formula merges them (mean of the means by count; the deviations
+        plus count * (rank mean - mean)^2), so that no E[x^2] - E[x]^2
+        cancels: a channel of small variance and large mean would lose its
+        variance to rounding there, and rounding in another order on R
+        ranks would then move the gradients by percents. Gradients flow
+        back through the all-reduce to every rank; the running averages
+        take the biased variance, as flax's do; the output is in x's
+        dtype."""
+        from cabinet_tpu_torch.core import mesh
+
+        rank, ranks = mesh.world()
+        C = x.shape[1]
+        xf = x.float()
+        m = xf.mean(dim=(0, 2, 3))
+        m2 = ((xf - m[None, :, None, None]) ** 2).sum(dim=(0, 2, 3))
+        mine = torch.cat([m, m2, xf.new_full((1,), float(xf.numel() // C))])
+        zero = torch.zeros_like(mine)
+        rows = mesh.all_reduce_grad(torch.stack([mine if r == rank else zero
+                                                 for r in range(ranks)]), tag="batch_norm")
+        means, m2s, counts = rows[:, :C], rows[:, C:2 * C], rows[:, 2 * C:]
+        n = counts.sum()
+        mean = (counts * means).sum(dim=0) / n
+        var = (m2s.sum(dim=0) + (counts * (means - mean) ** 2).sum(dim=0)) / n
+        inv = torch.rsqrt(var + self.eps)
+        y = ((xf - mean[None, :, None, None]) * (inv * self.weight)[None, :, None, None]
+             + self.bias[None, :, None, None])
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

@@ -7,10 +7,16 @@ edited source or header is rebuilt. Nothing is compiled or loaded when
 this module is imported: `load` builds on the first launch of a kernel,
 and `build_all` builds every source at once, one `nvcc` process per
 source, all started together.
+
+`count_flops()` tallies the arithmetic of the kernels launched while it is
+entered (`add_flops`, called by each wrapper beside its launch count):
+`torch.utils.flop_counter.FlopCounterMode` sees aten operators, not a
+ctypes launch, so `utils/profiler.py` adds this tally to its count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -28,6 +34,25 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_FLOPS: Optional[Dict[str, int]] = None
+
+
+@contextlib.contextmanager
+def count_flops() -> Iterator[Dict[str, int]]:
+    """While entered, {kernel: FLOPs} of the kernels launched, counted as
+    FlopCounterMode counts their plain versions: 2 per multiply-add of the
+    products and convolutions, nothing for elementwise work."""
+    global _FLOPS
+    saved, _FLOPS = _FLOPS, {}
+    try:
+        yield _FLOPS
+    finally:
+        _FLOPS = saved
+
+
+def add_flops(kernel: str, flops: int) -> None:
+    if _FLOPS is not None:
+        _FLOPS[kernel] = _FLOPS.get(kernel, 0) + int(flops)
 
 
 def _nvcc() -> str:

@@ -129,6 +129,7 @@ def fused_global_attention(q: torch.Tensor, k: torch.Tensor,
         fused_global_attention.launches_f32 += 1
     else:
         fused_global_attention.launches += 1
+    _build.add_flops("attention_f32" if f32 else "attention", 2 * B * N * N * (K + V))
     return out
 
 

@@ -171,6 +171,7 @@ def ffm_pointwise(fsp, fcp, w1_sp, w1_cp, b1):
         _build.stream_ptr(dev))
     _build.check_launch(rc, "ffm_pointwise")
     ffm_pointwise.launches += 1
+    _build.add_flops("ffm_pointwise", 2 * B * P * (C_SP + C_CP) * C_MID)
     return feat, sums
 
 
@@ -222,6 +223,7 @@ def head_conv3x3(feat, scale, w3, b3, wc, n_classes):
         _build.stream_ptr(dev))
     _build.check_launch(rc, "head_conv3x3")
     head_conv3x3.launches += 1
+    _build.add_flops("head_conv3x3", 2 * B * H * W * C_MID * (9 * C_MID + n_classes))
     return out
 
 

@@ -196,6 +196,7 @@ def fused_stem_block0(x: torch.Tensor, wstem: torch.Tensor,
         int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check_launch(rc, "stem_block0")
     fused_stem_block0.launches += 1
+    _build.add_flops("stem_block0", 2 * B * (H // 2) * (W // 2) * C * (27 + 9 + C))
     return out
 
 

@@ -37,9 +37,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from cabinet_tpu_torch.ops.photometric import params_to_device
+from cabinet_tpu_torch.ops.photometric import params_to_device, take_rows
 
 Params = Dict[str, np.ndarray]
+SHARED_LINEAR = ("theta", "scale")  # one value a batch with shared_linear
 
 
 def sample_geometric_params(rng: np.random.Generator, batch: int, aug: Dict,
@@ -325,13 +326,21 @@ def apply_geometric_shared(images: torch.Tensor, labels: torch.Tensor,
 def geometric_pipeline(images: torch.Tensor, labels: torch.Tensor, src_hw: np.ndarray,
                        rng: np.random.Generator, aug: Optional[Dict],
                        crop_hw: Tuple[int, int], ignore_label: int = 255,
-                       shared_linear: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                       shared_linear: bool = False,
+                       shard: Tuple[int, int] = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw the params from `rng` on the host (src_hw: the batch's (B, 2)
     valid sizes, numpy) and apply them on the canvas' device: the training
     entry point. `shared_linear` picks `apply_geometric_shared`
-    (`runtime.device_geometric=shared`)."""
-    params = sample_geometric_params(rng, images.shape[0], aug or {}, src_hw,
+    (`runtime.device_geometric=shared`). `shard=(rank, R)`: the batch is
+    rows rank, rank + R, ... of a global batch R times its size; the draws
+    are the global batch's and these rows' are applied."""
+    rank, ranks = shard
+    hw = np.ones((images.shape[0] * ranks, 2), np.int32)  # other rows: drawn, not read
+    hw[rank::ranks] = src_hw
+    params = sample_geometric_params(rng, hw.shape[0], aug or {}, hw,
                                      shared_linear=shared_linear)
-    params, hw = params_to_device((params, np.asarray(src_hw, np.int32)), images.device)
+    params = take_rows(params, slice(rank, None, ranks),
+                       shared=SHARED_LINEAR if shared_linear else ())
+    params, hw = params_to_device((params, hw[rank::ranks]), images.device)
     fn = apply_geometric_shared if shared_linear else apply_geometric
     return fn(images, labels, hw, params, crop_hw, ignore_label)

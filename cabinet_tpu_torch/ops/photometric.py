@@ -49,6 +49,16 @@ def params_to_device(tree: Any, device: torch.device) -> Any:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def take_rows(tree: Any, rows: Any, shared: Sequence[str] = ()) -> Any:
+    """The rows `rows` (an index or a slice) of a sampler's parameters: every
+    leaf is per-sample (batch first) but those named in `shared`, which hold
+    one value for the batch and come back as they are."""
+    if isinstance(tree, dict):
+        return {k: v if k in shared else take_rows(v, rows, shared)
+                for k, v in tree.items()}
+    return np.asarray(tree)[rows]
+
+
 def _per_sample(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """(B,) -> (B, 1, ..., 1) with `ndim` dims in all."""
     return v.reshape(v.shape[:1] + (1,) * (ndim - 1))
@@ -206,12 +216,16 @@ def cutout(images: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
 
 
 def mixup(images: torch.Tensor, labels: torch.Tensor, apply: torch.Tensor,
-          r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+          r: torch.Tensor, partner: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blend each sample where `apply` with its rolled partner (the one
     before it), x * r + partner * (1 - r); the partner's label where it has
-    the larger share (r < 0.5)."""
-    partner_img = torch.roll(images, 1, dims=0)
-    partner_lbl = torch.roll(labels, 1, dims=0)
+    the larger share (r < 0.5). `partner` gives the partners' images and
+    labels instead (data parallelism: the sample before may be another
+    rank's)."""
+    if partner is None:
+        partner = (torch.roll(images, 1, dims=0), torch.roll(labels, 1, dims=0))
+    partner_img, partner_lbl = partner
     r_img = _per_sample(r, 4)
     blended = images * r_img + partner_img * (1.0 - r_img)
     out_img = torch.where(_per_sample(apply, 4), blended, images)
@@ -249,18 +263,20 @@ def sample_photometric(rng: np.random.Generator, batch: int, height: int, width:
 
 
 def photometric_pipeline(images: torch.Tensor, labels: torch.Tensor, params: Params,
-                         z: torch.Tensor, mean=None, std=None
+                         z: torch.Tensor, mean=None, std=None, partners=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The aerial recipe's tail: HSV -> contrast -> gamma -> noise -> cutout
     -> mixup -> normalize (when mean and std are given). `images` are raw
     [0, 1] RGB, `params` `sample_photometric`'s on the images' device, `z`
-    the noise's standard normal values."""
+    the noise's standard normal values. `partners(x, labels)`, when given,
+    returns mixup's partners of the cut-out batch (`mixup`'s `partner`)."""
     x = hsv(images, **params["hsv"])
     x = contrast(x, **params["contrast"])
     x = gamma(x, **params["gamma"])
     x = noise(x, z, params["noise"]["apply"], 0.03)
     x = cutout(x, **params["cutout"], size=64)
-    x, labels = mixup(x, labels, **params["mixup"])
+    x, labels = mixup(x, labels, **params["mixup"],
+                      partner=None if partners is None else partners(x, labels))
     if mean is not None:
         x = normalize(x, mean, std)
     return x, labels

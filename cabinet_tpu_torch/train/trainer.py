@@ -19,6 +19,16 @@ As in the JAX package (reference src/scripts/train.py:411-480):
 with no loss scaler, the counterpart of JAX's bf16 matmuls over f32 params
 (no GradScaler: bf16 has f32's exponent range).
 
+Inside a process group of R > 1 ranks (`core/mesh.py`; data parallelism)
+each rank steps on its share of the global batch: the losses are the
+global batch's (`share=True`: the OHEM cut and the CE divisor span every
+rank's pixels), BatchNorm's statistics too (`models/layers.py`), the
+window's summed gradients are all-reduced once at the update, before the
+clipping, and the optimizer, EMA and counters then advance identically on
+every rank. The loss a step returns is the global one. The model is not
+wrapped in `DistributedDataParallel`, which would reduce at every
+backward.
+
 The step always runs the CAB's einsum attention (on a model with a CAB),
 the function that the JAX wrapper computes off the TPU and which is
 differentiable: the attention kernel K1 has no backward
@@ -37,6 +47,7 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from cabinet_tpu_torch.core import mesh
 from cabinet_tpu_torch.train.ema import ModelEMA
 from cabinet_tpu_torch.train.losses import cross_entropy_mean, ohem_cross_entropy
 from cabinet_tpu_torch.train.optimizer import ScheduledSGD
@@ -101,10 +112,23 @@ def einsum_attention(model: nn.Module):
             m.attention = a
 
 
+def _all_reduce_grads(params) -> None:
+    """Sum the `.grad` of `params` over every rank, in one flat buffer."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    mesh.all_reduce_(flat, tag="grad_all_reduce")
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def _apply_update(state: TrainState) -> None:
     for p in state.optimizer.parameters():
         if p.grad is None:  # a parameter off the graph still decays, as in optax
             p.grad = torch.zeros_like(p)
+    if mesh.is_distributed():
+        _all_reduce_grads(state.optimizer.parameters())
     state.optimizer.step(state.step)
     state.ema.update(state.model)
     state.step += 1
@@ -113,19 +137,21 @@ def _apply_update(state: TrainState) -> None:
 
 
 def _seg_loss(loss_type: str, n_min: int, thresh: float, ignore_label: int,
-              class_weights) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """logits, labels -> the loss of one head: "ohem" (bisect) or "ce"."""
+              class_weights, ohem_method: str = "bisect"
+              ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """logits, labels -> the loss of one head: "ohem" (`ohem_method`) or
+    "ce"."""
     if loss_type not in ("ohem", "ce"):
         raise ValueError(f"loss_type must be 'ohem' or 'ce', got {loss_type!r}")
     cw = None if class_weights is None else torch.as_tensor(class_weights,
                                                            dtype=torch.float32)
 
-    def seg_loss(logits, labels):
+    def seg_loss(logits, labels, share=False):
         w = None if cw is None else cw.to(logits.device)
         if loss_type == "ohem":
             return ohem_cross_entropy(logits, labels, n_min, thresh, ignore_label, w,
-                                      method="bisect")
-        return cross_entropy_mean(logits, labels, ignore_label, w)
+                                      method=ohem_method, share=share)
+        return cross_entropy_mean(logits, labels, ignore_label, w, share=share)
 
     return seg_loss
 
@@ -134,27 +160,36 @@ def make_train_step(
     n_min: int, thresh: float = 0.7, ignore_label: int = 255,
     class_weights=None, accum_steps: int = 1,
     compute_dtype: torch.dtype = torch.float32,
-    loss_type: str = "ohem", aux_weight: float = 1.0,
+    loss_type: str = "ohem", aux_weight: float = 1.0, ohem_method: str = "bisect",
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
     """`train_step(state, images NHWC, labels) -> (state, loss)`: one
     micro-step on `state` (updated in place and returned), the loss of the
     micro-batch unscaled, a 0-dim tensor (no host sync). The loss is
-    seg(final) + aux_weight * seg(aux), seg OHEM (bisect; CABiNet) or the
-    CE mean (`loss_type="ce"`; YOLO-sem)."""
-    seg_loss = _seg_loss(loss_type, n_min, thresh, ignore_label, class_weights)
+    seg(final) + aux_weight * seg(aux), seg OHEM (`ohem_method`, bisect by
+    default, as in JAX; CABiNet) or the
+    CE mean (`loss_type="ce"`; YOLO-sem). In a group of several ranks,
+    `images` and `labels` are this rank's share of the global batch and
+    the loss is the global batch's; `n_min` is sized from the global
+    batch."""
+    seg_loss = _seg_loss(loss_type, n_min, thresh, ignore_label, class_weights, ohem_method)
 
     def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
                    ) -> Tuple[TrainState, torch.Tensor]:
         model = state.model
         model.train()
+        share = mesh.is_distributed()
         with einsum_attention(model):
             final, aux = _forward(model, images, compute_dtype)
-        loss = (seg_loss(final, labels) + aux_weight * seg_loss(aux, labels)) / accum_steps
+        loss = (seg_loss(final, labels, share)
+                + aux_weight * seg_loss(aux, labels, share)) / accum_steps
         loss.backward()
         state.micro_step += 1
         if state.micro_step >= accum_steps:
             _apply_update(state)
-        return state, loss.detach() * accum_steps
+        loss = loss.detach() * accum_steps
+        if share:
+            loss = mesh.all_reduce_(loss, tag="loss")
+        return state, loss
 
     return train_step
 

@@ -286,3 +286,117 @@ def _state_dict(variables: Mapping[str, Any], mapping: List[MapEntry]
             tensor = tensor.t()
         out[torch_key] = tensor.contiguous()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The other direction, numpy only: the counterparts of the JAX package's
+# `torch_to_flax` (utils/torch_convert.py:196) and `flax_to_torch` (:257)
+# ---------------------------------------------------------------------------
+
+
+def _np(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _set_path(tree: Dict[str, Any], path: Tuple[str, ...], value: np.ndarray) -> None:
+    node = tree
+    for part in path[:-1]:
+        node = node.setdefault(part, {})
+    node[path[-1]] = value
+
+
+def jax_variables_from_state_dict(state_dict: Mapping[str, Any],
+                                  cfgs: Sequence[Sequence[float]],
+                                  strict: bool = True) -> Dict[str, Any]:
+    """A reference (or the port's) CABiNet state dict -> JAX variables
+    {"params": ..., "batch_stats": ...} of numpy arrays, as
+    `cabinet_tpu.utils.torch_convert.torch_to_flax` gives them. With
+    strict=False, missing keys are skipped; with strict=True they raise, as
+    does a key the table does not consume (the backbone's ImageNet
+    classifier and the BN step counters aside)."""
+    from cabinet_tpu_torch.core.exceptions import ModelLoadError
+
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    consumed = set()
+    for torch_key, flax_path, kind in cabinet_mapping(cfgs):
+        if kind == BN:
+            names = {"scale": f"{torch_key}.weight", "bias": f"{torch_key}.bias",
+                     "mean": f"{torch_key}.running_mean", "var": f"{torch_key}.running_var"}
+            missing = [k for k in names.values() if k not in sd]
+            if missing:
+                if strict:
+                    raise ModelLoadError(f"Missing BN tensors: {missing}")
+                continue
+            _set_path(params, flax_path + ("scale",), sd[names["scale"]])
+            _set_path(params, flax_path + ("bias",), sd[names["bias"]])
+            _set_path(stats, flax_path + ("mean",), sd[names["mean"]])
+            _set_path(stats, flax_path + ("var",), sd[names["var"]])
+            consumed.update(names.values())
+            continue
+        if torch_key not in sd:
+            if strict:
+                raise ModelLoadError(f"Missing torch key: {torch_key}")
+            continue
+        tensor = sd[torch_key]
+        consumed.add(torch_key)
+        if kind == CONV:
+            tensor = tensor.transpose(2, 3, 1, 0)
+        elif kind == LINEAR:
+            tensor = tensor.transpose(1, 0)
+        _set_path(params, flax_path, tensor)
+    if strict:
+        leftovers = [k for k in sd if k not in consumed
+                     and not k.startswith("mobile.classifier")
+                     and "num_batches_tracked" not in k]
+        if leftovers:
+            raise ModelLoadError(f"Unconsumed torch keys: {leftovers[:8]}")
+    return {"params": params, "batch_stats": stats}
+
+
+def reference_state_dict(variables: Mapping[str, Any],
+                         cfgs: Sequence[Sequence[float]]) -> Dict[str, np.ndarray]:
+    """JAX CABiNet variables (nested or flat) -> a reference-compatible
+    state dict of numpy arrays, in the table's order and without BN step
+    counters, as `cabinet_tpu.utils.torch_convert.flax_to_torch` gives it."""
+    tree = _nested(variables)
+    params, stats = tree["params"], tree.get("batch_stats", {})
+
+    def get(coll: Mapping[str, Any], path: Tuple[str, ...]) -> np.ndarray:
+        node: Any = coll
+        for part in path:
+            node = node[part]
+        return _np(node)  # dtype kept, as flax_to_torch keeps it
+
+    out: Dict[str, np.ndarray] = {}
+    for torch_key, flax_path, kind in cabinet_mapping(cfgs):
+        if kind == BN:
+            for name, coll, leaf in (("weight", params, "scale"), ("bias", params, "bias"),
+                                     ("running_mean", stats, "mean"),
+                                     ("running_var", stats, "var")):
+                out[f"{torch_key}.{name}"] = get(coll, flax_path + (leaf,))
+            continue
+        tensor = get(params, flax_path)
+        if kind == CONV:
+            tensor = tensor.transpose(3, 2, 0, 1)
+        elif kind == LINEAR:
+            tensor = tensor.transpose(1, 0)
+        out[torch_key] = tensor
+    return out
+
+
+def flat_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Nested JAX variables -> the flat "params/a/b" keys of a `.npz`."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node: Any, prefix: str) -> None:
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else str(k))
+        else:
+            out[prefix] = np.ascontiguousarray(np.asarray(node))
+    walk(variables, "")
+    return out

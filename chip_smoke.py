@@ -109,10 +109,11 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               link; `cli/compute_stats.py` on images/train against a numpy
               recomputation; the process loader's first batches (worker
               start-up); `cli/train.py:main` (CABiNet-Large, bf16,
-              use_pallas, crop 1024, epochs 2, 8 loader workers) with
-              runtime.loader=thread and =grain in turns, once each, on the
-              host recipe and on the device canvas (device_geometric=true),
-              the batches its steps take bit-equal between the loaders,
+              use_pallas, crop 1024, 8 loader workers) with
+              runtime.loader=thread (1 epoch) and =grain (2 epochs) in
+              turns, once each, on the host recipe and on the device canvas
+              (device_geometric=true), the batches of the epoch both take
+              bit-equal between the loaders,
               with each run's loop s per step and loader-wait share; and
               `cli/evaluate.py:main` on the EMA weights (bf16, use_pallas,
               K1-K3) with each loader, the confusion matrices equal
@@ -150,11 +151,39 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               `final`, and the checkpoint-less server on that artifact
               answering 8 requests, each batch bit-equal to the live
               serving module; (e) no kernel launched in the phase
-  15. no process left: the process loader's forkserver and resource
+  15. tools  (a) `cli/visualize.py:main` on phase 9's EMA weights over 2 of
+              phase 7's 2048x1024 frames (bf16, use_pallas, six scales with
+              flip): the four PNGs of each frame, the pred PNG equal to
+              evaluate's argmax colours, K1-K3 launched; (b)
+              `cli/convert_checkpoint.py` export then import of those
+              weights, bit-equal and loaded strict; (c)
+              `PerformanceProfiler.run_full_benchmark` on Segmenter's bf16
+              forward at 1024^2, batch 1 (K1-K3) and 8 (K1-K4), its FLOPs
+              equal to FlopCounterMode's count of the plain route; then a
+              `trace` of 10 batch-8 forwards: the top 10 device ops and
+              the device's busy share; (d) `cli/train.py:main
+              --legacy-config legacy/train_citys.json` on phase 9's split,
+              batch 4, 2 optimizer steps
+  16. dp     `cli/train.py:main` under torchrun (`--rank-main`, below) on
+              phase 9's split, global batch 4, 2 epochs of 2 steps, f32 with
+              TF32 off: R=1 on NCCL, R=2 on gloo sharing the card; the
+              losses and weights of R=2 held against R=1's, the ranks'
+              weights and EMA bit-equal, one set of outputs (rank 0's), K1
+              in the evaluations and in no step; each step's ms and its
+              collectives' host ms; then 2 steps of `cli/train_yolo.py:main`
+              on 2 ranks; no rank left. Two ranks on one card through gloo
+              stage every collective through the host: not a multi-card
+              figure
+  17. no process left: the process loader's forkserver and resource
       tracker stopped and reaped, and no process this run started (a
       child, or any process carrying the run's mark in its environment)
       still there
-  16. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  18. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+
+`python3 chip_smoke.py --rank-main MODULE OUT ARGV...` is one rank of
+phase 16 (torchrun starts it): `cabinet_tpu_torch.cli.MODULE.main(ARGV)`
+with its steps timed, its launches counted, and its weights written to
+OUT.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -169,6 +198,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -631,12 +661,20 @@ class MainPaths:
     def drive(self, name, fn, *args):
         reset_counts()
         out = fn(*args)
-        counts = kernel_counts()
+        self._add(name, kernel_counts())
+        return out
+
+    def record(self, name, ranks):
+        """A path driven in other processes (ranks under torchrun), each
+        counting from 0 at its start and reporting its counts at its end:
+        the sum over the ranks."""
+        self._add(name, {k: sum(r["launches"][k] for r in ranks) for k in self.totals})
+
+    def _add(self, name, counts):
         self.per_path[name] = counts
         for k, n in counts.items():
             self.totals[k] += n
         say("main", path=name, launches=counts)
-        return out
 
 
 def fixture_model(torch, attention: str = "kernel", gamma=None, seed: int = 0):
@@ -2408,6 +2446,7 @@ DATA_PER_SEQ = {"train": 4, "val": 2}
 DATA_UNKNOWN = ((1, 2, 3), (250, 250, 250))
 DATA_PATCH = 64
 DATA_RUNS = 1  # thread and grain train mains per recipe, in turns
+DATA_THREAD_EPOCHS = 1  # the thread mains' epochs (grain's 2): held on the first
 
 
 def write_uavid_raw(np, src: Path, h: int, w: int, seed: int = 81):
@@ -2544,7 +2583,7 @@ def processes_left() -> list:
 
 
 def stop_every_process(wait_s: float = 10.0) -> None:
-    """Phase 15: stop the process loader's servers, give what is left a
+    """Phase 17: stop the process loader's servers, give what is left a
     moment to end, and fail if any process this run started is still
     there."""
     cold_forkserver()
@@ -2646,7 +2685,7 @@ def recording_steps(trainer_mod, batches):
     return recording
 
 
-def data_train_run(torch, paths, name: str, argv, exp: Path) -> dict:
+def data_train_run(torch, paths, name: str, argv, exp: Path, steps: int = 4) -> dict:
     """One `cli/train.py:main` run driven as a main path: the hashes of the
     batches its steps took, its losses, its loop's s per optimizer step and
     loader-wait share, and each epoch's wait for its first batch (with the
@@ -2682,7 +2721,7 @@ def data_train_run(torch, paths, name: str, argv, exp: Path) -> dict:
            "k1_launches": paths.per_path[name]["attention"], "hashes": hashes}
     say("data", part="train_main", run=name,
         **{k: v for k, v in out.items() if k != "hashes"}, batch_sha1=[h[:12] for h in hashes])
-    check(t["optimizer_steps"] == 4 and len(hashes) == 4,
+    check(t["optimizer_steps"] == steps and len(hashes) == steps,
           f"{name}: {t['optimizer_steps']} steps, {len(hashes)} batches")
     check(all(math.isfinite(v) for v in out["train_losses"]), f"{name}: losses {lines}")
     check(out["k1_launches"] > 0, f"{name}: K1 never launched")
@@ -2728,10 +2767,13 @@ def run_data(torch, paths, tmp: Path) -> dict:
             name = f"data_{recipe}_{loader}_{k}"
             if loader == "grain":
                 cold_forkserver()
-            runs[name] = data_train_run(torch, paths, name, data_train_argv(dst, recipe, loader),
-                                        tmp / f"exp_{name}")
+            epochs = DATA_THREAD_EPOCHS if loader == "thread" else 2
+            runs[name] = data_train_run(torch, paths, name,
+                                        data_train_argv(dst, recipe, loader, epochs),
+                                        tmp / f"exp_{name}", steps=2 * epochs)
         first = runs[f"data_{recipe}_thread_0"]["hashes"]
-        differ = [n for n, r in runs.items() if recipe in n and r["hashes"] != first]
+        differ = [n for n, r in runs.items()
+                  if recipe in n and r["hashes"][:len(first)] != first]
         check(not differ, f"{recipe}: batches differ from the thread loader's in {differ}")
 
     ckpt = tmp / "exp_data_host_grain_1" / "cabinet.pth"
@@ -3205,6 +3247,453 @@ def run_yolo(torch, paths, dst: Path, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the tools (visualize, checkpoint conversion, profiler, legacy config)
+# ---------------------------------------------------------------------------
+
+VIZ_FRAMES = 2      # the first frames of phase 7's split
+TRACE_FORWARDS = 10  # batch-8 forwards in the profiler's trace
+PROFILE_SIZE = 1024  # Segmenter's imgsz under the profiler
+
+
+def visualize_reference(torch, argv, frames: int):
+    """The colours of evaluate's argmax on the first `frames` frames:
+    `MscEval` over `make_eval_forward`, built from the config as
+    `cli/evaluate.py:evaluate_checkpoint` builds them."""
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.cli.evaluate import make_eval_forward
+    from cabinet_tpu_torch.core.config import compose
+    from cabinet_tpu_torch.data.palettes import PALETTES, colorize_mask
+    from cabinet_tpu_torch.eval.evaluator import MscEval
+
+    cfg = compose(common.CONFIG_DIR, "evaluate", [a for a in argv if "=" in a])
+    (dataset,) = common.build_datasets(cfg, ["val"])
+    model = common.build_model(cfg, cfg.dataset.num_classes)
+    model.load_state_dict(common.load_model_variables(cfg.checkpoint_path, model), strict=True)
+    crop, dtype = max(cfg.dataset.cropsize), common.compute_dtype_of(cfg)
+    vc = cfg.validation_config
+    ev = MscEval(make_eval_forward(model, crop, DEVICE, dtype, use_pallas=True),
+                 cfg.dataset.num_classes, ignore_label=cfg.dataset.ignore_idx,
+                 scales=tuple(vc.eval_scales), flip=bool(vc.flip), cropsize=crop,
+                 compute_dtype=dtype, tile_batch=common.eval_tile_batch(cfg),
+                 acc_dtype=common.eval_acc_dtype(cfg), device=DEVICE)
+    out = []
+    for i in range(frames):
+        image, labels = dataset[i]
+        preds, _ = ev.evaluate_batch(None, image[None], labels[None])
+        out.append(colorize_mask(preds[0], PALETTES[cfg.dataset.name]))
+    return out
+
+
+def run_visualize(torch, paths, ckpt: Path, frames_root: Path, out: Path) -> dict:
+    """`cli/visualize.py:main` on the EMA weights over phase 7's frames
+    (bf16, use_pallas, evaluate.yaml's six scales with flip): the four
+    PNGs of each frame, the pred PNG equal to evaluate's argmax colours,
+    K1-K3 launched and no K4 or f32 K1."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.visualize import main as visualize_main
+    from cabinet_tpu_torch.data.decode import open_rgb
+
+    argv = ["dataset=cityscapes", f"dataset.dataset_path={frames_root}",
+            f"checkpoint_path={ckpt}", "runtime.compute_dtype=bfloat16",
+            "runtime.use_pallas=true", f"+num_samples={VIZ_FRAMES}", f"+output_dir={out}"]
+    if EVAL_MAIN_CROP != 1024:
+        argv.append(f"dataset.cropsize=[{EVAL_MAIN_CROP},{EVAL_MAIN_CROP}]")
+    _, seconds, _ = paths.drive("tools_visualize", run_cli, visualize_main,
+                                argv + ["--device", DEVICE], "visualize", 2)
+    counts = paths.per_path["tools_visualize"]
+    check(all(counts[k] > 0 for k in TAIL), f"visualize launched {counts}")
+    check(counts["attention_f32"] == 0 and counts["stem_block0"] == 0,
+          f"visualize launched the f32 K1 or K4: {counts}")
+    names = sorted(p.name for p in out.iterdir())
+    want = sorted(f"{i:04d}_{k}.png" for i in range(VIZ_FRAMES)
+                  for k in ("input", "pred", "overlay", "gt"))
+    check(names == want, f"visualize wrote {names}")
+    refs = visualize_reference(torch, argv, VIZ_FRAMES)
+    same = [float((open_rgb(out / f"{i:04d}_pred.png") == ref).all(-1).mean())
+            for i, ref in enumerate(refs)]
+    res = {"main_seconds": seconds, "seconds_per_frame": seconds / VIZ_FRAMES,
+           "launches": counts, "pred_equal_share": same}
+    say("tools", part="visualize", **res)
+    check(min(same) == 1.0, f"visualize's pred PNGs differ from evaluate's argmax: {same}")
+    check(all(np.asarray(open_rgb(out / n)).shape == (FRAME_H, FRAME_W, 3) for n in names),
+          "visualize's PNGs are not the frames' size")
+    return res
+
+
+def run_convert_round_trip(torch, ckpt: Path, tmp: Path, n_classes: int) -> dict:
+    """`cli/convert_checkpoint.py` export then import of a `.pth`: every
+    tensor back bit for bit, the result loaded strict into CABiNet-Large."""
+    from cabinet_tpu_torch.cli.convert_checkpoint import main as convert_main
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    t0 = time.perf_counter()
+    run_cli(convert_main, ["export", str(ckpt), str(tmp / "reference.pth"), "--mode", "large",
+                           "--n-classes", str(n_classes)], "convert", 1)
+    t1 = time.perf_counter()
+    run_cli(convert_main, ["import", str(tmp / "reference.pth"), str(tmp / "back.pth")],
+            "convert", 1)
+    t2 = time.perf_counter()
+    orig = torch.load(ckpt, map_location="cpu")
+    back = torch.load(tmp / "back.pth", map_location="cpu")
+    floats = [k for k, v in orig.items() if v.is_floating_point()]
+    differ = [k for k in floats if k not in back or not torch.equal(back[k], orig[k])]
+    model = CABiNet(n_classes, "large")
+    nbt = {k: v for k, v in model.state_dict().items() if k.endswith("num_batches_tracked")}
+    model.load_state_dict({**nbt, **back}, strict=True)
+    res = {"export_s": t1 - t0, "import_s": t2 - t1, "tensors": len(back),
+           "reference_mb": (tmp / "reference.pth").stat().st_size / 1e6}
+    say("tools", part="convert_checkpoint", **res)
+    check(not differ and len(back) == len(floats),
+          f"checkpoint round trip: {len(differ)} tensors differ, {len(back)} of {len(floats)}")
+    return res
+
+
+def plain_flops(torch, ckpt: Path, x) -> int:
+    """FlopCounterMode's count of the plain route's forward: the seeded
+    model with the einsum attention, its own forward, bf16."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cabinet_tpu_torch.cli.infer import load_state_dict
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    model = CABiNet(8, "large", attention="einsum")
+    model.load_state_dict(load_state_dict(ckpt, model), strict=True)
+    model.to(device=DEVICE, dtype=torch.bfloat16).eval()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(x.to(torch.bfloat16).permute(0, 3, 1, 2))
+    del model
+    return counter.get_total_flops()
+
+
+def run_profiler(torch, paths, peaks, ckpt: Path, tmp: Path) -> dict:
+    """`PerformanceProfiler.run_full_benchmark` on Segmenter's bf16 forward
+    at batch 1 (K1-K3) and 8 (K1-K4), its FLOPs equal to FlopCounterMode's
+    count of the plain route; then `trace` of TRACE_FORWARDS batch-8
+    forwards: the top 10 device ops and the device's busy share."""
+    from cabinet_tpu_torch.cli.infer import Segmenter
+    from cabinet_tpu_torch.utils.profiler import PerformanceProfiler
+
+    out = {}
+    prof = PerformanceProfiler(warmup=3, repeats=5, chain=10)
+    for batch, kernels in ((1, TAIL), (8, TAIL + ("stem_block0",))):
+        seg = Segmenter(str(ckpt), "uavid", mode="large", imgsz=PROFILE_SIZE,
+                        dtype_name="bfloat16", batch=batch, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(batch)
+        x = torch.randn(batch, PROFILE_SIZE, PROFILE_SIZE, 3, generator=gen, device=DEVICE)
+        name = f"tools_profiler_batch{batch}"
+        res = paths.drive(name, prof.run_full_benchmark,
+                          lambda v, img: seg._forward(img), seg.model, x)
+        counts = paths.per_path[name]
+        check(all(counts[k] > 0 for k in kernels), f"{name} launched {counts}")
+        check(set(prof.last_kernel_flops) == set(kernels),
+              f"{name}: kernel FLOPs of {sorted(prof.last_kernel_flops)}")
+        plain = plain_flops(torch, ckpt, x)
+        lat = res["latency"]
+        out[batch] = {
+            "latency_ms": {k: lat[k] for k in ("mean_ms", "median_ms", "min_ms", "max_ms")},
+            "fps": lat["fps"], "gflops": res["flops"]["gflops"],
+            "kernel_gflops": {k: v / 1e9 for k, v in prof.last_kernel_flops.items()},
+            "plain_route_gflops": plain / 1e9, "memory": res["memory"],
+            "params_millions": res["params"]["total_millions"],
+            "tflops_per_s": res["flops"]["flops"] / (lat["median_ms"] / 1e3) / 1e12,
+            "share_of_bf16_peak": res["flops"]["flops"] / (lat["median_ms"] / 1e3)
+            / peaks.flops}
+        say("tools", part="profiler", batch=batch, launches=counts, **out[batch])
+        check(res["flops"]["flops"] == plain,
+              f"{name}: {res['flops']['flops']} FLOPs, the plain route's {plain}")
+        if batch == 8:
+            def traced():
+                with torch.no_grad(), prof.trace(str(tmp / "trace")) as p:
+                    for _ in range(TRACE_FORWARDS):
+                        seg._forward(x)
+                return prof.device_breakdown(p)
+            brk = paths.drive("tools_trace", traced)
+            out["trace"] = {**brk, "forwards": TRACE_FORWARDS,
+                            "trace_mb": (tmp / "trace" / "trace.pt.trace.json").stat().st_size
+                            / 1e6}
+            say("tools", part="trace", batch=8, forwards=TRACE_FORWARDS,
+                busy_share=brk["busy_share"], busy_ms=brk["busy_ms"],
+                window_ms=brk["window_ms"], device_ops=brk["device_ops"])
+            for op in brk["top_ops"]:
+                print(f"  trace| {op['ms']:10.3f} ms {op['count']:6d}x  {op['name'][:110]}")
+            check(brk["device_ops"] > 0 and brk["busy_share"] is not None,
+                  "the profiler's trace holds no device op")
+        del seg
+    return out
+
+
+def run_legacy_train(torch, paths, split: Path, exp: Path) -> dict:
+    """`cli/train.py:main --legacy-config legacy/train_citys.json` (the
+    reference's pre-Hydra Cityscapes config: Large, 19 classes, crop 1024,
+    its optimizer numbers) on phase 9's split, cut to batch 4 and one
+    epoch (2 optimizer steps) with one eval scale."""
+    import math
+
+    from cabinet_tpu_torch.cli.train import main as train_main
+
+    argv = ["--legacy-config", str(ROOT / "legacy" / "train_citys.json"),
+            f"dataset.dataset_path={split}", "training_config.batch_size=4",
+            "training_config.epochs=1", "training_config.num_workers=8",
+            "training_config.log_iter=1",
+            f"training_config.experiments_path={exp}", "validation_config.eval_scales=[1.0]",
+            "validation_config.flip=false", "runtime.use_pallas=true", "--device", DEVICE]
+    res, seconds, _ = paths.drive("tools_legacy_train", run_cli, train_main, argv, "legacy", 2)
+    from cabinet_tpu_torch.core.config import load_yaml
+
+    config = load_yaml(exp / "config.yaml")
+    lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()
+             if '"epoch"' in ln]
+    out = {"main_seconds": seconds, "optimizer_steps": res["timing"]["optimizer_steps"],
+           "train_loss": lines[0]["train_loss"] if lines else None,
+           "launches": paths.per_path["tools_legacy_train"]}
+    say("tools", part="legacy_train", **out)
+    check(out["optimizer_steps"] == 2, f"legacy train main took {out['optimizer_steps']} steps")
+    check(out["train_loss"] is not None and math.isfinite(out["train_loss"]),
+          f"legacy train main's loss {out['train_loss']}")
+    tc = config["training_config"]
+    check(tc["warmup_steps"] == 4000 and tc["max_iterations"] == 200000
+          and config["model"]["mode"] == "large" and config["dataset"]["num_classes"] == 19,
+          f"the legacy JSON did not reach config.yaml: {tc}")
+    check((exp / "cabinet_citys_1024x1024.pth").is_file(),
+          "legacy train main wrote no cabinet_citys_1024x1024.pth")
+    return out
+
+
+def run_tools(torch, paths, peaks, keep: Path, tmp: Path) -> dict:
+    """Phase 15."""
+    ema = keep / "train" / "experiment" / "cabinet.pth"
+    seeded = tmp / "uavid_large_seeded.pth"
+    seeded_uavid_checkpoint(torch, seeded)
+    return {
+        "visualize": run_visualize(torch, paths, ema, keep / "evaluate" / "cityscapes",
+                                   tmp / "viz"),
+        "convert": run_convert_round_trip(torch, ema, tmp, N_CLASSES_TRAIN),
+        "profiler": run_profiler(torch, paths, peaks, seeded, tmp),
+        "legacy": run_legacy_train(torch, paths, keep / "train" / "cityscapes",
+                                   tmp / "legacy"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: data parallelism across processes
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT_S = 420
+#  R=2 on gloo against R=1 on NCCL, one card, f32 with TF32 off, 4 steps at
+#  1024² from the same seed: the first step's loss within 1e-5 of |R=1|,
+#  the later ones' within 1e-3, and every tensor of the weights and the EMA within 0.1 of its own update
+#  plus 4 f32 ulps of its magnitude plus 1e-4 of the largest update of its
+#  kind, the card-vs-CPU bound of phase 8 (cuDNN picks other algorithms at
+#  batch 2 than at 4, and the 2-rank BN merges the ranks' statistics where
+#  one rank takes cuDNN's, so the sums differ in order; train-mode BN
+#  amplifies that through the backward).
+BOUND_DP_FIRST_LOSS = 1e-5  # the first step: the same weights and global batch
+BOUND_DP_LOSS = 1e-3        # later steps, after updates that BN amplifies
+
+
+def rank_main(args) -> int:
+    """One rank under torchrun: `--rank-main MODULE OUT ARGV...` runs
+    `cabinet_tpu_torch.cli.MODULE.main(ARGV)`, each train step timed by
+    CUDA events and its collectives by `core/mesh.py`'s tally, the kernel
+    launches counted inside the steps and in all, and writes the rank's
+    weights, EMA, per-step losses and times to OUT/rank<r>.pt."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cabinet_tpu_torch.core import mesh
+    from cabinet_tpu_torch.train import trainer as trainer_mod
+
+    module, out = args[0], Path(args[1])
+    cli = importlib.import_module(f"cabinet_tpu_torch.cli.{module}")
+    inside = dict.fromkeys(_counters(), 0)
+    held, steps = {}, []
+    make_step = trainer_mod.make_train_step
+
+    def timed(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(state, images, labels):
+            before, comm = kernel_counts(), {t: dict(v) for t, v in mesh.COMM.items()}
+            if images.is_cuda:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+            t0 = time.perf_counter()
+            result = step(state, images, labels)
+            if images.is_cuda:
+                end.record()
+                end.synchronize()
+            ms = start.elapsed_time(end) if images.is_cuda else (time.perf_counter() - t0) * 1e3
+            for name, n in kernel_counts().items():
+                inside[name] += n - before[name]
+            steps.append({"ms": ms, "loss": float(result[1]),
+                          "collectives": mesh.comm_since(comm)})
+            held["state"] = state
+            return result
+        return run
+
+    trainer_mod.make_train_step = timed
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli.main(args[2:])
+    state = held["state"]
+    rank = int(os.environ.get("RANK", "0"))
+    torch.save({"rank": rank, "seconds": time.perf_counter() - t0, "steps": steps,
+                "launches": kernel_counts(), "launches_in_steps": inside,
+                "timing": res["timing"],
+                "weights": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                "ema": {k: v.cpu() for k, v in state.ema.state_dict().items()}},
+               out / f"rank{rank}.pt")
+    return 0
+
+
+def torchrun(torch, ranks: int, module: str, out: Path, argv) -> list:
+    """`python -m torch.distributed.run --standalone --nproc_per_node R
+    chip_smoke.py --rank-main MODULE OUT ARGV...`, under a time limit, its
+    output shown by prefix; returns each rank's record."""
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(ranks), str(ROOT / "chip_smoke.py"), "--rank-main",
+           module, str(out), *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for ln in (proc.stdout.strip().splitlines()[-3:] + proc.stderr.strip().splitlines()[-3:]):
+        print(f"  torchrun| {ln[:200]}")
+    check(proc.returncode == 0, f"torchrun {module} x{ranks} exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    recs = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(ranks)]
+    for rec in recs:
+        rec["torchrun_seconds"] = seconds
+    return recs
+
+
+def dp_argv(split: Path, exp: Path, backend: str):
+    crop = [f"dataset.cropsize=[{EVAL_MAIN_CROP},{EVAL_MAIN_CROP}]"] \
+        if EVAL_MAIN_CROP != 1024 else []
+    return ["dataset=cityscapes", f"dataset.dataset_path={split}",
+            "training_config.batch_size=4", "training_config.epochs=2",
+            "training_config.warmup_steps=2", "training_config.log_iter=1",
+            "training_config.num_workers=4", "validation_config.num_workers=4",
+            "validation_config.eval_scales=[1.0]", "validation_config.flip=false",
+            "runtime.compute_dtype=float32", "runtime.use_pallas=true", *crop,
+            f"+runtime.dist_backend={backend}", "+runtime.dist_timeout_s=300",
+            f"training_config.experiments_path={exp}", "--device", DEVICE]
+
+
+def held_against(torch, got, ref, start) -> float:
+    """The largest ratio, over the tensors of `ref`, of |got - ref| to its
+    bound: 0.1 of the tensor's update from `start` + 4 f32 ulps of its
+    magnitude + 1e-4 of the largest update (BOUND_DP_*)."""
+    floats = [k for k, v in ref.items() if v.is_floating_point()]
+    ups = {k: float((ref[k].float() - start[k].float()).abs().max()) for k in floats}
+    largest = max(ups.values())
+    worst = 0.0
+    for k in floats:
+        err = float((got[k].float() - ref[k].float()).abs().max())
+        bound = (BOUND_TRAIN_UPDATE * ups[k] + TRAIN_ULPS * float(ref[k].abs().max())
+                 + 1e-4 * largest)
+        worst = max(worst, err / bound if bound > 0 else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def dp_steps(recs) -> dict:
+    """Steps 2 on (the first holds cuDNN's set-up): median ms, and the
+    median host ms of each kind of collective."""
+    import numpy as np
+
+    steady = recs[0]["steps"][1:]
+    kinds = sorted({k for s in steady for k in s["collectives"]})
+    return {"step_ms": float(np.median([s["ms"] for s in steady])),
+            "collective_ms": {k: float(np.median([s["collectives"].get(k, {}).get("seconds", 0.0)
+                                                  * 1e3 for s in steady])) for k in kinds},
+            "collective_calls": {k: steady[-1]["collectives"].get(k, {}).get("calls", 0)
+                                 for k in kinds}}
+
+
+def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
+    """Phase 16: `cli/train.py:main` under torchrun on phase 9's split, R=1
+    on NCCL and R=2 on gloo sharing the card (global batch 4, 2 epochs of
+    2 steps, f32): losses and weights held, the ranks bit-equal, one set
+    of outputs, K1 in the evaluations and in no step; then two steps of
+    `cli/train_yolo.py:main` on 2 ranks; no process left."""
+    import math
+
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.core.config import compose
+
+    split = keep / "train" / "cityscapes"
+    runs = {}
+    for name, ranks, backend in (("dp_nccl_r1", 1, "nccl"), ("dp_gloo_r2", 2, "gloo")):
+        recs = torchrun(torch, ranks, "train", tmp / f"{name}_ranks",
+                        dp_argv(split, tmp / name, backend))
+        paths.record(name, recs)
+        runs[name] = recs
+        for rec in recs:
+            check(rec["launches"]["attention_f32"] > 0,
+                  f"{name} rank {rec['rank']}: K1 f32 never launched {rec['launches']}")
+            check(all(n == 0 for n in rec["launches_in_steps"].values()),
+                  f"{name} rank {rec['rank']}: a kernel launched in a step "
+                  f"{rec['launches_in_steps']}")
+            check(len(rec["steps"]) == 4 and all(math.isfinite(s["loss"]) for s in rec["steps"]),
+                  f"{name} rank {rec['rank']}: steps {rec['steps']}")
+    one, two = runs["dp_nccl_r1"][0], runs["dp_gloo_r2"]
+    errs = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+            for a, b in zip(one["steps"], two[0]["steps"])]
+    cfg = compose(common.CONFIG_DIR, "train",
+                  [a for a in dp_argv(split, tmp, "gloo") if "=" in a])
+    common.seed_everything(cfg.runtime.seed)
+    start = common.build_model(cfg, cfg.dataset.num_classes).state_dict()
+    held = {k: held_against(torch, two[0][k], one[k], start) for k in ("weights", "ema")}
+    identical = all(torch.equal(two[0][k][t], two[1][k][t])
+                    for k in ("weights", "ema") for t in two[0][k])
+    files = {n: sorted("run-*.log" if p.name.startswith("run-") else p.name
+                       for p in (tmp / n).iterdir()) for n in runs}
+    out = {"r1_nccl": {**dp_steps([one]), "torchrun_s": one["torchrun_seconds"]},
+           "r2_gloo": {**dp_steps(two), "torchrun_s": two[0]["torchrun_seconds"]},
+           "loss_rel_err": errs, "weights_bound_ratio": held["weights"],
+           "ema_bound_ratio": held["ema"], "ranks_bit_identical": identical,
+           "losses_r1": [s["loss"] for s in one["steps"]],
+           "losses_r2": [s["loss"] for s in two[0]["steps"]],
+           "launches": {n: [r["launches"] for r in recs] for n, recs in runs.items()}}
+    say("dp", part="train_main", **out)
+    check(errs[0] <= BOUND_DP_FIRST_LOSS and max(errs[1:]) <= BOUND_DP_LOSS,
+          f"R=2 losses {errs} from R=1's")
+    check(max(held.values()) <= 1.0, f"R=2 weights from R=1's: {held} x their bound")
+    check(identical, "the two ranks' weights or EMA differ")
+    check(files["dp_gloo_r2"] == files["dp_nccl_r1"]
+          and files["dp_gloo_r2"].count("run-*.log") == 1,
+          f"R=2 wrote {files['dp_gloo_r2']}, R=1 {files['dp_nccl_r1']}")
+    check(out["r2_gloo"]["collective_calls"].get("grad_all_reduce") == 1,
+          f"R=2 collectives a step {out['r2_gloo']['collective_calls']}")
+
+    yolo = torchrun(torch, 2, "train_yolo", tmp / "dp_yolo_ranks", [
+        "dataset=cityscapes", f"dataset.dataset_path={split}", "training_config.imgsz=512",
+        "training_config.batch_size=4", "training_config.nbs=4", "training_config.epochs=1",
+        "training_config.num_workers=4", "validation_config.num_workers=4",
+        f"training_config.experiments_path={tmp / 'dp_yolo'}", "+runtime.dist_backend=gloo",
+        "--device", DEVICE])
+    paths.record("dp_yolo_r2", yolo)
+    out["yolo"] = {"steps": len(yolo[0]["steps"]), "step_ms": [s["ms"] for s in yolo[0]["steps"]],
+                   "losses": [s["loss"] for s in yolo[0]["steps"]],
+                   "torchrun_s": yolo[0]["torchrun_seconds"],
+                   "files": sorted(p.name for p in (tmp / "dp_yolo").iterdir())}
+    say("dp", part="train_yolo", **out["yolo"])
+    check(all(r["timing"]["optimizer_steps"] == 2 for r in yolo), "YOLO ranks' steps")
+    check(all(math.isfinite(v) for v in out["yolo"]["losses"]), "YOLO losses")
+    check(all(torch.equal(yolo[0]["weights"][t], yolo[1]["weights"][t]) for t in yolo[0]["weights"]),
+          "the YOLO ranks' weights differ")
+    left = [p for p in processes_left() if "--rank-main" in p or "torch.distributed.run" in p]
+    check(not left, f"ranks left running: {left}")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     os.environ[RUN_MARK] = str(os.getpid())
@@ -3284,15 +3773,15 @@ def main() -> int:
 
     paths.drive("eval_f32_reference", run_eval_reference, torch)
     paths.drive("eval_bf16_kernels", run_eval_kernels, torch)
-    with tempfile.TemporaryDirectory() as tmp:
-        measured = run_evaluate_main(torch, paths, Path(tmp))
+    # phase 7's split and phase 9's run are kept for phases 15 and 16
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    measured = run_evaluate_main(torch, paths, keep / "evaluate")
     say("evaluate_main", card=smi, **measured)
 
     run_train_card_vs_cpu(torch)
     full = paths.drive("train_step_full_width", run_train_full_width, torch)
     say("train_step", card=smi, **full)
-    with tempfile.TemporaryDirectory() as tmp:
-        trained = run_train_main(torch, paths, Path(tmp))
+    trained = run_train_main(torch, paths, keep / "train")
     say("train_main", card=smi, main_seconds=trained["main_seconds"],
         loop_seconds_per_optimizer_step=trained["loop_seconds_per_optimizer_step"],
         loader_wait_share=trained["loader_wait_share"],
@@ -3337,6 +3826,25 @@ def main() -> int:
         x_ms_per_step=yolo["wide"]["ms_per_step"],
         x_peak_allocated_gib=yolo["wide"]["peak_allocated_gib"],
         export_s=yolo["export"]["export_s"])
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = run_tools(torch, paths, peaks, keep, Path(tmp))
+    say("tools", card=smi, visualize_seconds_per_frame=tools["visualize"]["seconds_per_frame"],
+        convert_s=tools["convert"]["export_s"] + tools["convert"]["import_s"],
+        profiler_median_ms={b: tools["profiler"][b]["latency_ms"]["median_ms"] for b in (1, 8)},
+        profiler_gflops={b: tools["profiler"][b]["gflops"] for b in (1, 8)},
+        profiler_peak_temp_mb={b: tools["profiler"][b]["memory"]["temp_size_mb"]
+                               for b in (1, 8)},
+        trace_busy_share=tools["profiler"]["trace"]["busy_share"],
+        legacy_main_s=tools["legacy"]["main_seconds"])
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = run_dp(torch, paths, keep, Path(tmp))
+    say("dp", card=smi, r1_nccl_step_ms=dp["r1_nccl"]["step_ms"],
+        r2_gloo_step_ms=dp["r2_gloo"]["step_ms"],
+        r2_gloo_collective_ms=dp["r2_gloo"]["collective_ms"],
+        loss_rel_err=dp["loss_rel_err"], weights_bound_ratio=dp["weights_bound_ratio"],
+        note="two ranks share one card through gloo, which stages through the host: "
+             "not a multi-card figure")
+    shutil.rmtree(keep, ignore_errors=True)
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")
@@ -3373,6 +3881,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-main"]:
+        sys.exit(rank_main(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -117,7 +117,8 @@ def test_train_main_refuses_what_is_not_ported(tmp_path):
                         ("runtime.spatial_axis=true", "Queue 1 item 7")):
         with pytest.raises(NotImplementedError, match=item):
             main(base + [extra, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # --legacy-config runs (core/legacy_config.py); a missing file is refused
+    with pytest.raises(ConfigurationError, match="legacy config not found"):
         main(["--legacy-config", "old.json", "--device", "cpu"])
     # the JAX package's refusals of the device pipeline's knobs
     with pytest.raises(ConfigurationError, match="spatial_axis"):

@@ -1052,3 +1052,171 @@ def test_yolosem_cuda_export_roundtrip_is_bit_equal(gen, tmp_path, capsys):
             0, 256, (b, 256, 256, 3), dtype=np.uint8)).cuda()
         with torch.no_grad():
             assert torch.equal(serve(x), live(x))
+
+
+# ---------------------------------------------------------------------------
+# The tools and data parallelism on the card
+# ---------------------------------------------------------------------------
+
+_DP_RANK = """
+import sys, torch
+from cabinet_tpu_torch.core import mesh
+from cabinet_tpu_torch.models.layers import batch_norm
+from cabinet_tpu_torch.train.losses import ohem_cross_entropy
+device = mesh.setup("cuda", "gloo", timeout_s=60)
+rank, ranks = mesh.world()
+inp = torch.load(sys.argv[1])
+bn = batch_norm(inp["x"].shape[1]).to(device)
+bn.load_state_dict(inp["state"])
+x = inp["x"][rank::ranks].to(device).requires_grad_(True)
+with torch.autocast("cuda", dtype=torch.bfloat16):
+    y = bn(x.bfloat16())
+(y.float() * inp["g"][rank::ranks].to(device)).sum().backward()
+logits = inp["logits"][rank::ranks].to(device).requires_grad_(True)
+loss = ohem_cross_entropy(logits, inp["labels"][rank::ranks].to(device), inp["n_min"],
+                          method="bisect", share=True)
+loss.backward()
+torch.save({"y": y.detach().cpu(), "x_grad": x.grad.cpu(), "state": {k: v.cpu() for k, v in
+            bn.state_dict().items()}, "loss": loss.cpu(), "l_grad": logits.grad.cpu()},
+           sys.argv[1] + f".{rank}")
+mesh.teardown()
+"""
+
+
+def _two_ranks_on_one_card(script, arg, timeout=180):
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = str(Path(__file__).resolve().parents[1])
+    procs = []
+    try:
+        for r in range(2):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       PYTHONPATH=repo)
+            procs.append(subprocess.Popen([sys.executable, "-c", script, arg], env=env,
+                                          cwd=repo, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+
+
+def test_dp_batch_norm_and_ohem_on_one_card_gloo(gen, tmp_path):
+    """Two ranks sharing the card under gloo (CUDA tensors): BatchNorm
+    under bf16 autocast (statistics in f32) and OHEM (bisect) over the
+    global batch against one process on the concatenated batch: the
+    outputs within one bf16 rounding, the input gradients (through the
+    bf16 cast back to f32) within two, the running statistics and OHEM's
+    gradients within the f32 bound, the losses' shares summing to the loss
+    within 1e-5, the two ranks' statistics bit-equal."""
+    from cabinet_tpu_torch.models.layers import batch_norm
+    from cabinet_tpu_torch.train.losses import ohem_cross_entropy
+
+    x = torch.randn(4, 16, 24, 20, generator=gen, device="cuda").cpu() * 3 + 2
+    g = torch.randn(4, 16, 24, 20, generator=gen, device="cuda").cpu()
+    logits = torch.randn(4, 6, 24, 20, generator=gen, device="cuda").cpu() * 2
+    labels = torch.randint(0, 6, (4, 24, 20), generator=gen, device="cuda").cpu()
+    labels[0, :12] = 255
+    bn = batch_norm(16)
+    state = {k: v.clone() for k, v in bn.state_dict().items()}
+    n_min = 4 * 24 * 20 // 16
+    path = tmp_path / "inputs.pt"
+    torch.save({"x": x, "g": g, "state": state, "logits": logits, "labels": labels,
+                "n_min": n_min}, path)
+    _two_ranks_on_one_card(_DP_RANK, str(path))
+    got = [torch.load(f"{path}.{r}") for r in range(2)]
+
+    ref = bn.cuda().train()
+    xr = x.cuda().requires_grad_(True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = ref(xr.bfloat16())
+    (y.float() * g.cuda()).sum().backward()
+    lr = logits.cuda().requires_grad_(True)
+    loss = ohem_cross_entropy(lr, labels.cuda(), n_min, method="bisect")
+    loss.backward()
+
+    def inter(key):
+        out = torch.empty_like(got[0][key].repeat(2, *[1] * (got[0][key].dim() - 1)))
+        out[0::2], out[1::2] = got[0][key], got[1][key]
+        return out
+    _close(inter("y"), y.detach().cpu(), ONE_ROUNDING)
+    _close(inter("x_grad"), xr.grad.cpu(), TWO_ROUNDINGS)
+    for k in ("running_mean", "running_var"):
+        _close(got[0]["state"][k], ref.state_dict()[k].cpu(), 2e-4)
+        assert torch.equal(got[0]["state"][k], got[1]["state"][k])
+    total = float(got[0]["loss"]) + float(got[1]["loss"])
+    assert abs(total - float(loss)) <= 1e-5 * abs(float(loss))
+    _close(inter("l_grad"), lr.grad.cpu(), 2e-4)
+
+
+def test_tools_profiler_counts_the_kernels_flops_on_cuda(gen, tmp_path):
+    """PerformanceProfiler on the bf16 fused-tail forward of CABiNet-Large
+    at 512^2, batch 2 (K1-K3 launched): its FLOPs equal FlopCounterMode's
+    count of the plain route (the einsum attention and the model's own
+    tail), the latency keys are JAX's, the memory peak is measured, and
+    the trace holds device ops and a busy share."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.models.fused import make_fused_tail_apply
+    from cabinet_tpu_torch.utils.profiler import PerformanceProfiler
+
+    torch.manual_seed(0)
+    model = CABiNet(8, "large", attention="kernel")
+    x = torch.randn(2, 512, 512, 3, generator=gen, device="cuda")
+    fwd = make_fused_tail_apply(model, "cuda", torch.bfloat16)
+    prof = PerformanceProfiler(warmup=1, repeats=2, chain=2)
+    res = prof.run_full_benchmark(lambda v, img: fwd(img), model, x)
+    assert set(prof.last_kernel_flops) == {"attention", "ffm_pointwise", "head_conv3x3"}
+    plain = CABiNet(8, "large", attention="einsum").cuda().eval()
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        plain(x.permute(0, 3, 1, 2))
+    assert res["flops"]["flops"] == counter.get_total_flops()
+    assert sorted(res["latency"]) == ["fps", "max_ms", "mean_ms", "median_ms", "min_ms",
+                                      "std_ms"]
+    assert res["memory"]["temp_size_mb"] > 0 and res["memory"]["generated_code_size_mb"] > 0
+    with torch.no_grad(), prof.trace(str(tmp_path)) as p:
+        fwd(x)
+    brk = prof.device_breakdown(p)
+    assert brk["device_ops"] > 0 and 0 < brk["busy_share"] <= 1 and brk["top_ops"]
+    assert (tmp_path / "trace.pt.trace.json").is_file()
+
+
+def test_tools_visualize_main_on_cuda(gen, tmp_path):
+    """cli/visualize.py main on the card (bf16, use_pallas: K1-K3 on the
+    tile forwards) over a tiny UAVid tree: the four PNGs of each sample,
+    the pred PNG in the palette's colours."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli.visualize import main
+    from cabinet_tpu_torch.data.decode import open_rgb
+    from cabinet_tpu_torch.data.palettes import PALETTES, trainid_palette
+
+    data = _uavid_tree(tmp_path / "data")
+    ckpt = _seeded_large(tmp_path / "ck.pth")
+    before = attn.fused_global_attention.launches
+    out = main([f"checkpoint_path={ckpt}", "dataset=uavid", f"dataset.dataset_path={data}",
+                "dataset.cropsize=[64,64]", "validation_config.eval_scales=[1.0]",
+                "runtime.compute_dtype=bfloat16", "runtime.use_pallas=true",
+                "+num_samples=2", f"+output_dir={tmp_path / 'viz'}", "--device", "cuda"])
+    assert attn.fused_global_attention.launches > before
+    names = sorted(p.name for p in out.iterdir())
+    assert names == sorted(f"{i:04d}_{k}.png" for i in range(2)
+                           for k in ("input", "pred", "overlay", "gt"))
+    pred = open_rgb(out / "0000_pred.png")
+    colours = {tuple(c) for c in trainid_palette(PALETTES["uavid"]).tolist()}
+    assert {tuple(c) for c in pred.reshape(-1, 3).tolist()} <= colours
+    assert np.isfinite(pred).all()

@@ -490,7 +490,11 @@ def test_parse_cli_and_checkpoints_not_ported_raise(tmp_path):
                                  "evaluate", "test")
     assert cfg.dataset.name == "vdd" and args.device == "cpu"
     assert common.parse_cli(["checkpoint_path=a"], "evaluate", "t")[1].device == "cuda"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    legacy = common.REPO_ROOT / "legacy" / "train_uavid.json"
+    cfg, args = common.parse_cli(["--legacy-config", str(legacy), "--device", "cpu"],
+                                 "train", "test")
+    assert cfg.dataset.name == "uavid" and cfg.training_config.warmup_steps == 3000
+    with pytest.raises(ConfigurationError, match="legacy config not found"):
         common.parse_cli(["--legacy-config", "old.json"], "train", "test")
     with pytest.raises(NotImplementedError, match="orbax"):
         common.load_model_variables(str(tmp_path), None)

@@ -199,10 +199,13 @@ def test_make_loader_builds_the_process_loader():
     ref = jcommon.make_loader(jcfg, ToyDataset(10), 2, **kw)
     assert isinstance(port, GrainLoader) and len(port) == len(ref) == 2
     assert sorted(_ids(port)) == sorted(_ids(ref)) == [3, 4, 5]
-    thread = ["checkpoint_path=x"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        common.make_loader(compose(common.CONFIG_DIR, "evaluate", thread),
-                           ToyDataset(4), 2, shard=(0, 2))
+    thread = ["checkpoint_path=x"]  # the thread loader's shard is the JAX loader's
+    port = common.make_loader(compose(common.CONFIG_DIR, "evaluate", thread), ToyDataset(10),
+                              2, **kw)
+    ref = jcommon.make_loader(jcompose(jcommon.CONFIG_DIR, "evaluate", thread),
+                              ToyDataset(10), 2, **kw)
+    assert not isinstance(port, GrainLoader) and len(port) == len(ref) == 2
+    assert _ids(port) == _ids(ref)
     with pytest.raises(ValueError, match="shard"):
         GrainLoader(ToyDataset(4), 2, shard=(2, 2))
 

@@ -33,7 +33,8 @@ required = {"cabinet_tpu_torch." + m for m in (
     "train.trainer", "train.checkpoint", "ops.photometric", "ops.geometric",
     "export", "cli.export", "cli.serve", "data.grain_loader", "data.converters",
     "data.stats", "cli.convert", "cli.compute_stats", "models.yolosem", "data.mosaic",
-    "cli.train_yolo")}
+    "cli.train_yolo", "core.legacy_config", "core.mesh", "cli.convert_checkpoint",
+    "cli.visualize", "utils.profiler")}
 assert required <= set(names), sorted(required - set(names))
 """
 
@@ -70,7 +71,8 @@ def test_no_kernel_build_at_import():
                                    "msc_eval", "eval_forward", "evaluate_main",
                                    "resolve_device", "train_main", "train_and_evaluate",
                                    "export_serving", "export_main", "serve_engine",
-                                   "train_yolo_main", "train_yolo_val", "yolo_export_main"])
+                                   "train_yolo_main", "train_yolo_val", "yolo_export_main",
+                                   "visualize_main"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without device="cpu" the entry points ask for CUDA, and raise where
     there is none instead of running on the CPU."""
@@ -124,6 +126,11 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         elif entry == "yolo_export_main":
             export_main(["--family", "yolosem", "--checkpoint", str(tmp_path / "unused.pth"),
                          "--dataset", "uavid", "--out", str(tmp_path / "art")])
+        elif entry == "visualize_main":
+            from cabinet_tpu_torch.cli.visualize import main as visualize_main
+
+            visualize_main([f"checkpoint_path={tmp_path / 'unused.pth'}",
+                            f"dataset.dataset_path={tmp_path}"])
         elif entry == "serve_engine":
             _Engine(None, str(tmp_path / "unused.pth"), "uavid", "large", 64,
                     "bfloat16")
