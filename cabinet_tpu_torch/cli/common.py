@@ -3,9 +3,9 @@ composition (a legacy JSON too), seeding, model, dataset and loader
 construction, checkpoint loading, the warm start and the pretrained
 backbone, and the eval settings.
 
-Not ported here: `eval_tile_mesh` (tile-sharded eval, ROADMAP Queue 1
-item 7). Orbax checkpoint directories raise: the JAX package's
-`cli/convert_checkpoint.py` turns them into a `.pth` or `.npz`.
+`eval_tile_mesh` gives the rank group that shares each image's tiles in
+`MscEval` (tile-sharded eval). Orbax checkpoint directories raise: the JAX
+package's `cli/convert_checkpoint.py` turns them into a `.pth` or `.npz`.
 """
 
 from __future__ import annotations
@@ -218,3 +218,15 @@ def eval_pad_to(cfg: Config) -> Any:
     dataset's declared bucket (dataset.eval_pad_to), or None."""
     return (cfg.select("validation_config.eval_pad_to", None)
             or cfg.select("dataset.eval_pad_to", None))
+
+
+def eval_tile_mesh(cfg: Config) -> Optional[Tuple[int, int]]:
+    """The rank group `(rank, R)` whose ranks share each image's tile grid in
+    `MscEval` (tile-sharded eval), when this process is one of R > 1 ranks
+    and runtime.tile_parallel_eval is true (the default); else None, and
+    each rank scores its share of the frames."""
+    from cabinet_tpu_torch.core import mesh
+
+    if not bool(cfg.select("runtime.tile_parallel_eval", True)) or not mesh.is_distributed():
+        return None
+    return mesh.world()

@@ -15,6 +15,14 @@ forward; `runtime.use_pallas=true` alone runs the float32 K1.
 `runtime.calib_batches` (default 2) batches of the split; `int8dw` also
 quantizes the depthwise convs.
 `checkpoint_path` takes a reference `.pth` or a JAX variables `.npz`.
+
+Under torchrun (`python -m torch.distributed.run --nproc_per_node R -m
+cabinet_tpu_torch.cli.evaluate ...`, `+runtime.dist_backend=gloo` for ranks
+sharing a card or the CPU) the ranks join a process group and share each
+image's tiles (tile-sharded eval, `eval/evaluator.py`; every rank holds
+the same confusion matrix); with `runtime.tile_parallel_eval=false` each
+rank scores its share of the frames instead and the matrices are summed.
+Rank 0 prints.
 """
 
 from __future__ import annotations
@@ -135,7 +143,10 @@ def calibration_scales(model: CABiNet, loader: Iterable, n_batches: int, crop: i
 def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Multi-scale metrics of `cfg.checkpoint_path` on `cfg.split` of
     `cfg.dataset`, as `cabinet_tpu.cli.evaluate.evaluate_checkpoint` gives
-    them, on one device: the result of `MscEval.evaluate`."""
+    them, on this process's device (one rank of several under torchrun):
+    the result of `MscEval.evaluate`."""
+    from cabinet_tpu_torch.cli.train import join_ranks
+    from cabinet_tpu_torch.core import mesh
     from cabinet_tpu_torch.eval.evaluator import MscEval
 
     split = cfg.get("split", "val")
@@ -144,13 +155,16 @@ def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[
         # (reference evaluate.py:280-286).
         raise ConfigurationError(
             "split=train is not supported for evaluation; use val or test.")
-    device = resolve_device(device)
+    device = join_ranks(cfg, device)
+    rank, ranks = mesh.world()
+    tile_mesh = common.eval_tile_mesh(cfg)
 
     vc = cfg.validation_config
     (dataset,) = common.build_datasets(cfg, [split])
     common.guard_val_batch(cfg, dataset, vc.batch_size)
-    dl = common.make_loader(cfg, dataset, vc.batch_size,
-                            num_workers=vc.num_workers)
+    shard = (rank, ranks) if ranks > 1 and tile_mesh is None else None
+    dl = common.make_loader(cfg, dataset, vc.batch_size, num_workers=vc.num_workers,
+                            shard=shard)
 
     n_classes = cfg.dataset.num_classes
     model = common.build_model(cfg, n_classes)
@@ -165,9 +179,16 @@ def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[
     try:  # stops runtime.loader=grain's worker processes at the end
         act_scales = None
         if quantize in ("int8", "int8dw"):
-            act_scales, n_calib = calibration_scales(
-                model, dl, int(cfg.select("runtime.calib_batches", 2)), crop, device,
-                dtype, depthwise=quantize == "int8dw")
+            # every rank calibrates on the split's first batches, not its share's
+            calib = dl if shard is None else common.make_loader(
+                cfg, dataset, vc.batch_size, num_workers=vc.num_workers)
+            try:
+                act_scales, n_calib = calibration_scales(
+                    model, calib, int(cfg.select("runtime.calib_batches", 2)), crop,
+                    device, dtype, depthwise=quantize == "int8dw")
+            finally:
+                if calib is not dl:
+                    calib.close()
             print(f"[info] int8 PTQ: {len(act_scales)} convs quantized, calibrated "
                   f"on {n_calib} batches", flush=True)
         try:
@@ -189,8 +210,9 @@ def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[
                             # into bucketing with validation_config.eval_pad_to
                             pad_to=cfg.select("validation_config.eval_pad_to", None),
                             tile_batch=common.eval_tile_batch(cfg),
-                            acc_dtype=common.eval_acc_dtype(cfg), device=device)
-        return evaluator.evaluate(None, dl, progress=True)
+                            acc_dtype=common.eval_acc_dtype(cfg), device=device,
+                            tile_mesh=tile_mesh)
+        return evaluator.evaluate(None, dl, progress=rank == 0)
     finally:
         dl.close()
 
@@ -198,11 +220,18 @@ def evaluate_checkpoint(cfg, device: Union[str, torch.device] = "cuda") -> Dict[
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Print the metrics of a checkpoint, ending with the JAX CLI's JSON
     line {"mIoU", "accuracy", "iou_per_class"}; returns the full result."""
+    from cabinet_tpu_torch.core import mesh
+
     t0 = time.perf_counter()
     cfg, args = common.parse_cli(argv, "evaluate", "Evaluate a CABiNet checkpoint")
-    res = evaluate_checkpoint(cfg, device=args.device)
+    try:
+        res = evaluate_checkpoint(cfg, device=args.device)
+    finally:
+        mesh.teardown()
     timing = res["timing"]
     timing["main_seconds"] = time.perf_counter() - t0
+    if mesh.env_world()[0] != 0:
+        return res
     print(f"mIoU: {res['mIoU']:.4f}  accuracy: {res['accuracy']:.4f}")
     for k, v in res["iou_per_class"].items():
         print(f"  {k}: {v:.4f}")

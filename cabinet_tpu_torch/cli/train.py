@@ -55,9 +55,30 @@ over the ranks. Rank 0 alone writes the logs, `metrics.jsonl`, the
 checkpoints and the config; every rank reads a resume; the early-stopping
 verdict is rank 0's.
 
-Not ported, each raising with the ROADMAP item it waits for:
-`runtime.pipeline`, `runtime.model_axis > 1` and `runtime.spatial_axis`
-(Queue 1 item 7, its model-parallel half).
+Tile-sharded eval: with R > 1 ranks and `runtime.tile_parallel_eval=true`
+(the default) the per-epoch and final evaluations share each image's
+tiles over the ranks (`eval/evaluator.py`, `cli/common.py:eval_tile_mesh`):
+every rank scores every frame and holds the same confusion matrix. With
+`runtime.tile_parallel_eval=false` each rank scores its share of the
+frames and the matrices are summed.
+
+Pipeline parallelism (`runtime.pipeline=2`, `train/pipeline.py`): the
+backbone and the decoder are two stages, stage i on cuda:(i mod the card
+count) (sharing a card where there are fewer); one loader batch is one
+microbatch and `accum_steps` microbatches are one optimizer step, the
+update the fused trainer's. Device augmentation runs on stage 0's device,
+its draws keyed as the fused trainer's. The val loss and the evaluations
+run on the stages' weights merged device to device; the checkpoint keeps
+one tree a stage (`train/checkpoint.py:save_pipeline_full`), and the
+`_best` and final `.pth` hold the merged EMA weights. Under torchrun each
+rank runs the whole pipeline on its card over its share of every
+microbatch (`runtime.pipeline_dp`: the rank count; JAX refuses the
+pipeline across processes).
+
+Not ported, each raising NotImplementedError with the ROADMAP item it
+waits for: `runtime.model_axis > 1`, `runtime.spatial_axis`,
+`runtime.pipeline_tp > 1` and `runtime.eval_model_axis > 1` (Queue 1 item
+7, its tensor-partitioning half).
 """
 
 from __future__ import annotations
@@ -81,10 +102,9 @@ from cabinet_tpu_torch.core.logging import is_primary_process, setup_logger
 def refuse_unported(cfg: Config) -> None:
     """Raise for the settings whose code is not ported, naming the ROADMAP
     item each waits for."""
-    item = "Queue 1 item 7, its model-parallel half"
+    from cabinet_tpu_torch.core.mesh import TENSOR_PARTITIONING
+
     checks = [
-        (int(cfg.select("runtime.pipeline", 0) or 0) > 0,
-         "runtime.pipeline (pipeline parallelism)"),
         (int(cfg.select("runtime.model_axis", 1) or 1) > 1,
          "runtime.model_axis > 1 (tensor parallelism)"),
         (bool(cfg.select("runtime.spatial_axis", False)),
@@ -92,20 +112,77 @@ def refuse_unported(cfg: Config) -> None:
     ]
     for on, what in checks:
         if on:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+            raise NotImplementedError(f"{what} is not ported yet ({TENSOR_PARTITIONING})")
+
+
+def pipeline_stages(cfg: Config, family: str = "cabinet") -> int:
+    """`runtime.pipeline`'s stage count (0: no pipeline) after the JAX
+    package's refusals (ConfigurationError): CABiNet takes 2 stages,
+    YOLO-sem 2 or 3; CABiNet's pipeline takes no model or spatial axis;
+    `runtime.pipeline_dp` must divide the batch. The port's intra-stage
+    data parallelism is one process a rank, so a `pipeline_dp` other than
+    the rank count raises too; `runtime.pipeline_tp > 1` and
+    `runtime.eval_model_axis > 1` (tensor parallelism) raise
+    NotImplementedError."""
+    from cabinet_tpu_torch.core import mesh
+
+    n = int(cfg.select("runtime.pipeline", 0) or 0)
+    if not n:
+        return 0
+    if family == "cabinet":
+        if n != 2:
+            raise ConfigurationError(
+                f"runtime.pipeline={n}: CABiNet pins at 2 stages (backbone | decode "
+                "— stage_keys partition top-level modules and its backbone is the "
+                "single 'mobile' module). The engine itself is N-stage: deep trunks "
+                "use e.g. YOLOSEM_STAGE_KEYS_3 (train/pipeline.py), "
+                "equivalence-tested at 3 stages.")
+        if int(cfg.select("runtime.model_axis", 1) or 1) > 1 or bool(
+                cfg.select("runtime.spatial_axis", False)):
+            raise ConfigurationError(
+                "runtime.pipeline cannot combine with runtime.model_axis or "
+                "runtime.spatial_axis: pipeline stages own disjoint sub-meshes (use "
+                "runtime.pipeline_dp for intra-stage DP).")
+        for key, what in (("runtime.pipeline_tp", "runtime.pipeline_tp > 1 (tensor-"
+                           "parallel pipeline stages)"),
+                          ("runtime.eval_model_axis", "runtime.eval_model_axis > 1 "
+                           "(model-sharded eval)")):
+            if int(cfg.select(key, 1) or 1) > 1:
+                raise NotImplementedError(
+                    f"{what} is not ported yet ({mesh.TENSOR_PARTITIONING})")
+    elif n not in (2, 3):
+        raise ConfigurationError(
+            f"runtime.pipeline={n}: YOLO-sem ships 2-stage (trunk | neck+heads) and "
+            "3-stage (trunk front | trunk back | neck+heads) splits")
+    pp_dp = int(cfg.select("runtime.pipeline_dp", 0) or 0)
+    if pp_dp:
+        batch = int(cfg.training_config.batch_size)
+        if batch % pp_dp:
+            raise ConfigurationError(
+                f"runtime.pipeline_dp={pp_dp} must divide the per-microbatch "
+                f"batch_size ({batch})")
+        ranks = mesh.env_world()[1]
+        if pp_dp != ranks:
+            raise ConfigurationError(
+                f"runtime.pipeline_dp={pp_dp}: a pipeline stage's data parallelism "
+                f"is one process a rank here, and {ranks} rank(s) run; start "
+                f"{pp_dp} under torchrun, or leave runtime.pipeline_dp at 0")
+    return n
 
 
 def join_ranks(cfg: Config, device: Union[str, torch.device]) -> torch.device:
     """This rank's device, the process group joined when torchrun started
     several (`core/mesh.py:setup`, `runtime.dist_backend`,
     `runtime.dist_timeout_s`); raises unless the rank count divides the
-    global batch `training_config.batch_size`."""
+    global batch `training_config.batch_size`, where the config has one."""
     from cabinet_tpu_torch.core import mesh
 
     device = mesh.setup(resolve_device(device),
                         str(cfg.select("runtime.dist_backend", "auto")),
                         float(cfg.select("runtime.dist_timeout_s", mesh.DEFAULT_TIMEOUT_S)))
-    mesh.local_batch_size(int(cfg.training_config.batch_size))
+    batch = cfg.select("training_config.batch_size", None)
+    if batch is not None:
+        mesh.local_batch_size(int(batch))
     return device
 
 
@@ -257,8 +334,9 @@ def _metrics_line(path: Path, record: Dict[str, Any]) -> None:
 
 def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                        ) -> Dict[str, Any]:
-    """Train `cfg` on one device (one rank of several under torchrun) and
-    return {"best_miou", "final" (the final multi-scale eval's result),
+    """Train `cfg` on one device (one rank of several under torchrun; with
+    `runtime.pipeline=2`, its stages on their devices) and return
+    {"best_miou", "final" (the final multi-scale eval's result),
     "timing"}. `timing` holds the training loops' seconds, the part of them
     spent waiting on the train loader and the seconds of device
     augmentation in them, the micro-steps and optimizer steps this call
@@ -277,9 +355,10 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     from cabinet_tpu_torch.train.early_stopping import EarlyStopping
     from cabinet_tpu_torch.train.optimizer import GroupedSGD
     from cabinet_tpu_torch.train.trainer import (
+        TrainLoop,
+        batch_to,
         create_train_state,
         make_eval_loss_step,
-        make_flush_step,
         make_train_step,
     )
 
@@ -289,6 +368,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             "runtime.device_geometric shards the batch; it cannot combine "
             "with runtime.spatial_axis (the warp gathers across the full "
             "image height). Use the host pipeline for spatial partitioning.")
+    pp_stages = pipeline_stages(cfg, "cabinet")
     refuse_unported(cfg)
     device = join_ranks(cfg, device)
     rank, ranks = mesh.world()
@@ -305,6 +385,10 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                                   num_workers=tc.num_workers, seed=cfg.runtime.seed,
                                   shard=shard)
     dl_val = DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers, shard=shard)
+    # tile-sharded eval: every rank scores every frame, its tiles shared
+    tile_mesh = common.eval_tile_mesh(cfg)
+    dl_eval = (dl_val if tile_mesh is None
+               else DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers))
 
     # ---- model ----------------------------------------------------------
     n_classes = cfg.dataset.num_classes
@@ -338,20 +422,51 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     batches_per_epoch = epoch_batches(dl_train)
     accum = int(tc.accum_steps)
     max_iter = tc.get("max_iterations") or math.ceil(tc.epochs * batches_per_epoch / accum)
-    optimizer = GroupedSGD(
-        model, lr0=float(tc.optimizer_lr_start), max_iter=int(max_iter),
+    opt_kwargs = dict(
+        lr0=float(tc.optimizer_lr_start), max_iter=int(max_iter),
         momentum=float(tc.optimizer_momentum), wd=float(tc.optimizer_weight_decay),
         power=float(tc.optimizer_power), warmup_steps=int(tc.warmup_steps),
-        warmup_start_lr=float(tc.warmup_start_lr),
-        max_grad_norm=float(tc.max_grad_norm) if tc.get("max_grad_norm") else None)
-    state = create_train_state(model, optimizer, ema_decay=float(tc.ema_decay),
-                               ema_tau=float(tc.ema_tau))
+        warmup_start_lr=float(tc.warmup_start_lr))
+    max_gn = float(tc.max_grad_norm) if tc.get("max_grad_norm") else None
     n_min = tc.batch_size * crop_h * crop_w // OHEM_DIVISOR
-    train_step = make_train_step(n_min=n_min, thresh=0.7,
-                                 ignore_label=cfg.dataset.ignore_idx,
-                                 class_weights=class_weights, accum_steps=accum,
-                                 compute_dtype=dtype)
-    flush_step = make_flush_step()
+    # the train loop: the fused step, or with runtime.pipeline=2 backbone |
+    # decode stages (train/pipeline.py), one loader batch a microbatch and
+    # accum_steps microbatches an optimizer step
+    devices = [device]
+    if pp_stages:
+        from cabinet_tpu_torch.train.pipeline import (
+            CabinetPipeline,
+            PipelineTrainLoop,
+            make_pipeline_devices,
+        )
+
+        devices = make_pipeline_devices(pp_stages, device)
+    aug_fn, aug_clock = None, _DeviceClock(device)
+    if getattr(ds_train, "photometric", "host") == "device":  # on the first device
+        augment = DeviceAugment(cfg, ds_train, devices[0], (crop_h, crop_w), shard=shard)
+
+        def aug_fn(raw, step, micro_step):
+            started = aug_clock.start()
+            out = augment(raw, step, micro_step)
+            aug_clock.stop(started)
+            return out
+
+    if pp_stages:
+        pipe = CabinetPipeline(
+            model, lambda stage: GroupedSGD(stage, max_grad_norm=None, **opt_kwargs),
+            n_min=n_min, num_microbatches=accum, devices=devices, thresh=0.7,
+            ignore_label=cfg.dataset.ignore_idx, class_weights=class_weights,
+            compute_dtype=dtype, max_grad_norm=max_gn, ema_decay=float(tc.ema_decay),
+            ema_tau=float(tc.ema_tau), aug_fn=aug_fn)
+        loop = PipelineTrainLoop(pipe, pipe.init_state(model.state_dict()))
+    else:
+        loop = TrainLoop(
+            create_train_state(model, GroupedSGD(model, max_grad_norm=max_gn, **opt_kwargs),
+                               ema_decay=float(tc.ema_decay), ema_tau=float(tc.ema_tau)),
+            make_train_step(n_min=n_min, thresh=0.7, ignore_label=cfg.dataset.ignore_idx,
+                            class_weights=class_weights, accum_steps=accum,
+                            compute_dtype=dtype),
+            device, aug_fn)
     eval_loss_step = make_eval_loss_step(
         model, n_min=vc.batch_size * crop_h * crop_w // OHEM_DIVISOR, thresh=0.7,
         ignore_label=cfg.dataset.ignore_idx, class_weights=class_weights,
@@ -361,23 +476,25 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     ckpt = CheckpointManager(Path(tc.experiments_path))
     start_epoch, best_miou, best_loss = 0, 0.0, float("inf")
     if tc.resume:
-        restored = ckpt.restore_full("checkpoint_last", state)
+        restored = ckpt.restore_full("checkpoint_last", loop.state)
         if restored:
             start_epoch = restored["epoch"] + 1
             best_miou = restored["best_miou"]
             best_loss = restored["best_loss"]
             stopper.load_state_dict({"best_fitness": restored["early_stop_best_fitness"],
                                      "best_epoch": restored["early_stop_best_epoch"]})
-            logger.info(f"Resumed from epoch {restored['epoch']} (step {state.step})")
-    logger.info(f"Device {device}; rank {rank} of {ranks}; max_iter={max_iter}; "
-                f"n_min={n_min}; accum={accum}")
+            logger.info(f"Resumed from epoch {restored['epoch']} (step {loop.step})")
+    logger.info(f"{len(devices)} stage(s) on {devices}; rank {rank} of {ranks}; "
+                f"max_iter={max_iter}; n_min={n_min}; accum={accum}; "
+                f"tile-sharded eval {tile_mesh is not None}")
 
-    # ---- evaluation on a copy of the EMA weights --------------------------
+    # ---- evaluation on a copy of the EMA weights (merged device to device
+    # under the pipeline) ----------------------------------------------------
     eval_model = common.build_model(cfg, n_classes)
     crop = max(crop_h, crop_w)
 
     def ema_forward():
-        eval_model.load_state_dict(state.ema_variables, strict=True)
+        eval_model.load_state_dict(loop.weights(ema=True, device=device), strict=True)
         return make_eval_forward(eval_model, crop, device, dtype, use_pallas=use_pallas,
                                  fused_tail="false")
 
@@ -386,15 +503,8 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                        scales=tuple(scales), flip=flip, cropsize=crop,
                        compute_dtype=dtype, pad_to=pad_to,
                        tile_batch=common.eval_tile_batch(cfg),
-                       acc_dtype=common.eval_acc_dtype(cfg), device=device)
-
-    def to_device(images, labels):
-        return (torch.from_numpy(images).to(device, non_blocking=True),
-                torch.from_numpy(labels).to(device, non_blocking=True))
-
-    augment = (DeviceAugment(cfg, ds_train, device, (crop_h, crop_w), shard=shard)
-               if getattr(ds_train, "photometric", "host") == "device" else None)
-    aug_clock = _DeviceClock(device)
+                       acc_dtype=common.eval_acc_dtype(cfg), device=device,
+                       tile_mesh=tile_mesh)
 
     # metrics.jsonl: resumed runs append to the same file, so every run opens
     # with a marker line and tags its epoch lines with its id.
@@ -407,7 +517,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     timing = {"train_seconds": 0.0, "loader_wait_seconds": 0.0,
               "device_aug_seconds": 0.0, "micro_steps": 0, "optimizer_steps": 0,
               "eval_seconds": 0.0}
-    step0 = state.step
+    step0 = loop.step
     comm0 = {k: dict(v) for k, v in mesh.COMM.items()}
     results: Dict[str, Any] = {"best_miou": best_miou}
     try:
@@ -415,6 +525,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             t0 = time.time()
             dl_train.set_epoch(epoch)
             losses = []
+            last_loss = None
             tl = time.perf_counter()
             batches, i = iter(dl_train), 0
             while True:
@@ -426,27 +537,28 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                 timing["loader_wait_seconds"] += time.perf_counter() - tw
                 if batch is None:
                     break
-                if augment is None:
-                    images, labels = to_device(*batch)
-                else:
-                    started = aug_clock.start()
-                    images, labels = augment(batch, state.step, state.micro_step)
-                    aug_clock.stop(started)
-                state, last_loss = train_step(state, images, labels)
+                # the micro-step's loss, or under the pipeline a window's mean
+                # loss every accum_steps batches and None between
+                loss = loop.feed(*batch)
+                last_loss = last_loss if loss is None else loss
                 i += 1
-                if i % int(tc.log_iter) == 0:
+                if i % int(tc.log_iter) == 0 and last_loss is not None:
                     losses.append(float(last_loss))
                     logger.info(f"epoch {epoch} it {i}/{batches_per_epoch} "
                                 f"loss {losses[-1]:.4f}")
+                    last_loss = None  # a loss is logged once
             timing["micro_steps"] += i
-            state = flush_step(state)
+            loop.flush()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             timing["train_seconds"] += time.perf_counter() - tl
             timing["device_aug_seconds"] = aug_clock.seconds()
 
             te = time.perf_counter()
-            val_losses = [float(eval_loss_step(*to_device(im, lb))) for im, lb in dl_val]
+            # the raw weights (the stages' merged device to device; the fused
+            # state's are the model's own)
+            model.load_state_dict(loop.weights(device=device), strict=True)
+            val_losses = [float(eval_loss_step(*batch_to(b, device))) for b in dl_val]
             total, count = mesh.all_reduce_(mesh.host_tensor(
                 [sum(val_losses), len(val_losses)], torch.float64)).tolist()
             val_loss = float(total / count) if count else float("nan")
@@ -454,7 +566,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
 
             fitness = None
             if (epoch + 1) % int(vc.eval_every_n_epochs) == 0:
-                res = evaluator((1.0,), False, common.eval_pad_to(cfg)).evaluate(None, dl_val)
+                res = evaluator((1.0,), False, common.eval_pad_to(cfg)).evaluate(None, dl_eval)
                 fitness = res["mIoU"]
                 logger.info(f"epoch {epoch}: val_loss {val_loss:.4f} mIoU {fitness:.4f} "
                             f"({time.time() - t0:.1f}s)")
@@ -462,7 +574,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                     best_miou = fitness
                     if primary:
                         ckpt.save_variables(f"{tc.model_save_name}_best",
-                                            state.ema_variables)
+                                            loop.weights(ema=True))
             timing["eval_seconds"] += time.perf_counter() - te
 
             if write_metrics:
@@ -470,13 +582,13 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                     "run": run_id, "epoch": epoch,
                     "train_loss": float(np.mean(losses)) if losses else None,
                     "val_loss": None if np.isnan(val_loss) else val_loss,
-                    "mIoU": fitness, "step": int(state.step),
+                    "mIoU": fitness, "step": loop.step,
                     "seconds": round(time.time() - t0, 2)})
 
             should_stop = bool(mesh.broadcast_(mesh.host_tensor(
                 int(stopper(epoch, fitness)), torch.int64)))  # rank 0's verdict
             if primary:
-                ckpt.save_full("checkpoint_last", state, epoch, best_miou, best_loss,
+                ckpt.save_full("checkpoint_last", loop.state, epoch, best_miou, best_loss,
                                stopper.state_dict())
             if should_stop:
                 logger.info(f"Early stopping at epoch {epoch} (best "
@@ -488,15 +600,15 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         dl_train.close()
 
     if primary:
-        ckpt.save_variables(tc.model_save_name, state.ema_variables)
+        ckpt.save_variables(tc.model_save_name, loop.weights(ema=True))
         save_config(cfg, Path(tc.experiments_path) / "config.yaml")
 
     te = time.perf_counter()
     final = evaluator(vc.eval_scales, bool(vc.flip),
                       cfg.select("validation_config.eval_pad_to", None)
-                      ).evaluate(None, dl_val, progress=primary)
+                      ).evaluate(None, dl_eval, progress=primary)
     timing["final_eval_seconds"] = time.perf_counter() - te
-    timing["optimizer_steps"] = state.step - step0
+    timing["optimizer_steps"] = loop.step - step0
     timing["collectives"] = mesh.comm_since(comm0)
     logger.info(f"Final multi-scale mIoU: {final['mIoU']:.4f} acc {final['accuracy']:.4f}")
     results.update(best_miou=best_miou, final=final, timing=timing)

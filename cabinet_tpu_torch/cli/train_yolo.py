@@ -25,12 +25,20 @@ normalisation run on the device (`cli/train.py:DeviceAugment`, its draws
 keyed on (runtime.seed + 11, epoch, batch)). `+runtime.loader=grain` reads
 the train split on worker processes (`data/grain_loader.py`).
 `runtime.device_geometric` raises ConfigurationError, as in the JAX
-package; `runtime.pipeline` raises NotImplementedError (ROADMAP Queue 1
-item 7, its model-parallel half).
+package.
+
+`+runtime.pipeline=2|3` trains pipeline-parallel (`train/pipeline.py`):
+trunk | neck and heads, or the trunk cut at P3 for 3 stages (the split the
+deep variants want); one loader batch is one microbatch of the nbs
+window, the device chain runs on stage 0's device with the fused path's
+draws, `last.pth` keeps one tree a stage and `best`/`final` the merged
+EMA weights. `YoloEval` scores the merged EMA weights.
 
 Under torchrun each rank trains on its share of the global batch
 `training_config.batch_size`, as `cli/train.py` does (data parallelism,
-`core/mesh.py`); rank 0 alone writes the checkpoints.
+`core/mesh.py`; with the pipeline, each rank runs every stage on its
+card); rank 0 alone writes the checkpoints. `YoloEval` resizes whole
+frames (no tiles), so each rank scores its share of the val frames.
 """
 
 from __future__ import annotations
@@ -214,6 +222,7 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
         DeviceAugment,
         epoch_batches,
         join_ranks,
+        pipeline_stages,
         refuse_unported,
     )
     from cabinet_tpu_torch.core.exceptions import ConfigurationError
@@ -223,8 +232,8 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
     from cabinet_tpu_torch.train.early_stopping import EarlyStopping
     from cabinet_tpu_torch.train.optimizer import build_sgd, warmup_cosine_schedule
     from cabinet_tpu_torch.train.trainer import (
+        TrainLoop,
         create_train_state,
-        make_flush_step,
         make_train_step,
     )
 
@@ -233,6 +242,7 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
             "runtime.device_geometric is not supported by the YOLO trainer "
             "(mosaic/copy-paste compose decoded crops on the host); use "
             "runtime.device_augs for the photometric chain")
+    pp_stages = pipeline_stages(cfg, "yolosem")
     refuse_unported(cfg)
     device = join_ranks(cfg, device)
     rank, ranks = mesh.world()
@@ -273,39 +283,59 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
     total_steps = math.ceil(int(tc.epochs) * batches / accum)
     warmup_steps = math.ceil(float(tc.warmup_epochs) * batches / accum)
     schedule = warmup_cosine_schedule(float(tc.lr0), float(tc.lrf), total_steps, warmup_steps)
-    optimizer = build_sgd(model, schedule, momentum=float(tc.optimizer_momentum),
-                          wd=float(tc.optimizer_weight_decay),
-                          max_grad_norm=float(tc.max_grad_norm))
-    state = create_train_state(model, optimizer, ema_decay=float(tc.ema_decay),
-                               ema_tau=float(tc.ema_tau))
-    step = make_train_step(n_min=1, loss_type="ce", aux_weight=0.4, ignore_label=ignore,
-                           class_weights=class_weights, accum_steps=accum,
-                           compute_dtype=dtype)
-    flush = make_flush_step()
-    augment = (DeviceAugment(cfg, base, device, (imgsz, imgsz), seed=int(cfg.runtime.seed) + 11,
+    sgd = dict(momentum=float(tc.optimizer_momentum), wd=float(tc.optimizer_weight_decay))
+    devices = [device]
+    if pp_stages:  # trunk | neck+heads, or the trunk cut at P3 (3 stages)
+        from cabinet_tpu_torch.train import pipeline as pp
+
+        devices = pp.make_pipeline_devices(pp_stages, device)
+    # the loop passes (epoch, batch) as the draw key, on the first device
+    augment = (DeviceAugment(cfg, base, devices[0], (imgsz, imgsz),
+                             seed=int(cfg.runtime.seed) + 11,
                              aug={**base.aug, "mixup": float(aug.get("mixup", 0.1))},
                              shard=shard)
                if device_augs else None)
+    if pp_stages:
+        keys, methods = ((pp.YOLOSEM_STAGE_KEYS, pp.YOLOSEM_STAGE_METHODS) if pp_stages == 2
+                         else (pp.YOLOSEM_STAGE_KEYS_3, pp.YOLOSEM_STAGE_METHODS_3))
+        pipe = pp.CabinetPipeline(
+            model, lambda stage: build_sgd(stage, schedule, max_grad_norm=None, **sgd),
+            n_min=1, num_microbatches=accum, devices=devices, ignore_label=ignore,
+            class_weights=class_weights, aux_weight=0.4, loss_type="ce",
+            compute_dtype=dtype, max_grad_norm=float(tc.max_grad_norm),
+            ema_decay=float(tc.ema_decay), ema_tau=float(tc.ema_tau), stage_keys=keys,
+            stage_methods=methods, aug_fn=augment)
+        loop = pp.PipelineTrainLoop(pipe, pipe.init_state(model.state_dict()))
+    else:
+        loop = TrainLoop(
+            create_train_state(
+                model, build_sgd(model, schedule, max_grad_norm=float(tc.max_grad_norm),
+                                 **sgd),
+                ema_decay=float(tc.ema_decay), ema_tau=float(tc.ema_tau)),
+            make_train_step(n_min=1, loss_type="ce", aux_weight=0.4, ignore_label=ignore,
+                            class_weights=class_weights, accum_steps=accum,
+                            compute_dtype=dtype),
+            device, augment)
 
     evaluator = YoloEval(model, n_classes, imgsz, ignore, dtype, device)
     ckpt = CheckpointManager(Path(tc.experiments_path))
     stopper = EarlyStopping(int(tc.patience))
     best_miou, start_epoch = 0.0, 0
     if tc.resume:
-        restored = ckpt.restore_full("last", state)
+        restored = ckpt.restore_full("last", loop.state)
         if restored:
             start_epoch = restored["epoch"] + 1
             best_miou = restored["best_miou"]
             stopper.load_state_dict({"best_fitness": restored["early_stop_best_fitness"],
                                      "best_epoch": restored["early_stop_best_epoch"]})
-            logger.info(f"Resumed from epoch {restored['epoch']} (step {state.step})")
-    logger.info(f"Device {device}; accum={accum} total_steps={total_steps} "
-                f"warmup_steps={warmup_steps}")
+            logger.info(f"Resumed from epoch {restored['epoch']} (step {loop.step})")
+    logger.info(f"{len(devices)} stage(s) on {devices}; accum={accum} "
+                f"total_steps={total_steps} warmup_steps={warmup_steps}")
 
     timing = {"train_seconds": 0.0, "loader_wait_seconds": 0.0, "micro_steps": 0,
               "optimizer_steps": 0, "eval_seconds": 0.0,
               "class_count_seconds": class_count_seconds}
-    step0, losses, mosaic_on = state.step, [], True
+    step0, losses, mosaic_on = loop.step, [], True
     comm0 = {k: dict(v) for k, v in mesh.COMM.items()}
     try:
         for epoch in range(start_epoch, int(tc.epochs)):
@@ -327,21 +357,18 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
                 timing["loader_wait_seconds"] += time.perf_counter() - tw
                 if batch is None:
                     break
-                if augment is None:
-                    images, labels = (torch.from_numpy(a).to(device, non_blocking=True)
-                                      for a in batch)
-                else:
-                    images, labels = augment(batch, epoch, i)
-                state, last_loss = step(state, images, labels)
+                loss = loop.feed(*batch, draw=(epoch, i))
+                last_loss = last_loss if loss is None else loss
                 i += 1
             timing["micro_steps"] += i
-            state = flush(state)
+            loss = loop.flush()
+            last_loss = last_loss if loss is None else loss
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             timing["train_seconds"] += time.perf_counter() - tl
 
             te = time.perf_counter()
-            ema_vars = state.ema_variables
+            ema_vars = loop.weights(ema=True, device=device)
             res = evaluator.evaluate(ema_vars, dl_val)
             timing["eval_seconds"] += time.perf_counter() - te
             fitness = res["mIoU"]
@@ -355,7 +382,7 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
             should_stop = bool(mesh.broadcast_(mesh.host_tensor(
                 int(stopper(epoch, fitness)), torch.int64)))  # rank 0's verdict
             if primary:
-                ckpt.save_full("last", state, epoch, best_miou, 0.0, stopper.state_dict())
+                ckpt.save_full("last", loop.state, epoch, best_miou, 0.0, stopper.state_dict())
             if should_stop:
                 logger.info(f"Early stopping at epoch {epoch}")
                 break
@@ -363,8 +390,8 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
         dl_train.close()
 
     if primary:
-        ckpt.save_variables("final", state.ema_variables)
-    timing["optimizer_steps"] = state.step - step0
+        ckpt.save_variables("final", loop.weights(ema=True))
+    timing["optimizer_steps"] = loop.step - step0
     timing["collectives"] = mesh.comm_since(comm0)
     return {"best_miou": best_miou, "losses": losses, "timing": timing}
 

@@ -12,6 +12,9 @@ encoder (`data/decode.py:save_png`).
 Usage (CUDA unless --device cpu):
     python -m cabinet_tpu_torch.cli.visualize checkpoint_path=... dataset=uavid \\
         +num_samples=10 +output_dir=viz
+
+Under torchrun the ranks share each frame's tiles (tile-sharded eval,
+`cli/common.py:eval_tile_mesh`) and rank 0 writes the PNGs.
 """
 
 from __future__ import annotations
@@ -29,14 +32,16 @@ from cabinet_tpu_torch.core.logging import setup_logger
 
 def visualize(cfg, device: Union[str, torch.device] = "cuda") -> Path:
     from cabinet_tpu_torch.cli.evaluate import make_eval_forward
-    from cabinet_tpu_torch.core.device import resolve_device
+    from cabinet_tpu_torch.cli.train import join_ranks
+    from cabinet_tpu_torch.core import mesh
     from cabinet_tpu_torch.data.decode import save_png
     from cabinet_tpu_torch.data.loader import DataLoader
     from cabinet_tpu_torch.data.palettes import PALETTES, colorize_mask
     from cabinet_tpu_torch.eval.evaluator import MscEval
 
     logger = setup_logger("cabinet_tpu_torch.visualize")
-    device = resolve_device(device)
+    device = join_ranks(cfg, device)
+    primary = mesh.world()[0] == 0
     vc = cfg.validation_config
     split = cfg.get("split", "val")
     (dataset,) = common.build_datasets(cfg, [split])
@@ -54,7 +59,8 @@ def visualize(cfg, device: Union[str, torch.device] = "cuda") -> Path:
     evaluator = MscEval(fwd, n_classes, ignore_label=cfg.dataset.ignore_idx,
                         scales=tuple(vc.eval_scales), flip=bool(vc.flip), cropsize=crop,
                         compute_dtype=dtype, tile_batch=common.eval_tile_batch(cfg),
-                        acc_dtype=common.eval_acc_dtype(cfg), device=device)
+                        acc_dtype=common.eval_acc_dtype(cfg), device=device,
+                        tile_mesh=common.eval_tile_mesh(cfg))
 
     classes = PALETTES[cfg.dataset.name]
     out_dir = Path(cfg.get("output_dir", "visualizations"))
@@ -70,6 +76,8 @@ def visualize(cfg, device: Union[str, torch.device] = "cuda") -> Path:
         if i >= limit:
             break
         preds, _ = evaluator.evaluate_batch(None, img, lb)
+        if not primary:
+            continue
         pred = preds[0]
         rgb = np.clip((img[0] * std + mean) * 255, 0, 255).astype(np.uint8)
         pred_rgb = colorize_mask(pred, classes)
@@ -85,8 +93,13 @@ def visualize(cfg, device: Union[str, torch.device] = "cuda") -> Path:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Path:
+    from cabinet_tpu_torch.core import mesh
+
     cfg, args = common.parse_cli(argv, "evaluate", "Visualize predictions")
-    out = visualize(cfg, device=args.device)
+    try:
+        out = visualize(cfg, device=args.device)
+    finally:
+        mesh.teardown()
     print(f"Visualizations written to {out}")
     return out
 

@@ -18,9 +18,13 @@ refuses two ranks on one device, so asking for it with more local ranks
 than cards raises.
 
 Axes: `DATA_AXIS` names data parallelism (the batch split over ranks,
-gradients all-reduced), `MODEL_AXIS` tensor parallelism. The tensor-
-parallel and spatial helpers are not ported: they raise, naming their
-ROADMAP item.
+gradients all-reduced), `MODEL_AXIS` tensor parallelism. The work-
+partitioning half of model parallelism needs nothing here but the ranks
+and `all_reduce_`: the pipeline (`train/pipeline.py`) places whole
+modules on devices, and tile-sharded eval (`eval/evaluator.py`) shares
+whole tiles over the ranks. The tensor-parallel and spatial helpers,
+which split tensors, are not ported: they raise, naming their ROADMAP
+item (`TENSOR_PARTITIONING`).
 
 `COMM` holds, by tag, the calls and host seconds of the collectives this
 process made (gloo blocks the host for its call, so that is its cost; an
@@ -43,7 +47,7 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 BACKENDS = ("auto", "nccl", "gloo")
 DEFAULT_TIMEOUT_S = 300.0
-_MODEL_PARALLEL = "ROADMAP Queue 1 item 7, its model-parallel half"
+TENSOR_PARTITIONING = "ROADMAP Queue 1 item 7, its tensor-partitioning half"
 
 COMM: Dict[str, Dict[str, float]] = {}
 
@@ -212,12 +216,12 @@ def process_shard(n_items: int, pid: Optional[int] = None,
 
 
 def tensor_parallel_spec(shape: Sequence[int], n_model: int, min_features: int = 256) -> Any:
-    raise NotImplementedError(f"tensor parallelism is not ported yet ({_MODEL_PARALLEL})")
+    raise NotImplementedError(f"tensor parallelism is not ported yet ({TENSOR_PARTITIONING})")
 
 
 def shard_model_parallel(tree: Any, mesh: Any, min_features: int = 256) -> Any:
-    raise NotImplementedError(f"tensor parallelism is not ported yet ({_MODEL_PARALLEL})")
+    raise NotImplementedError(f"tensor parallelism is not ported yet ({TENSOR_PARTITIONING})")
 
 
 def spatial_sharding(mesh: Any, ndim: int) -> Any:
-    raise NotImplementedError(f"spatial partitioning is not ported yet ({_MODEL_PARALLEL})")
+    raise NotImplementedError(f"spatial partitioning is not ported yet ({TENSOR_PARTITIONING})")

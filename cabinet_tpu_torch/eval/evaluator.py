@@ -1,5 +1,6 @@
-"""Multi-scale sliding-window evaluator on one device (counterpart of
-`cabinet_tpu.eval.evaluator.MscEval` without its tile mesh).
+"""Multi-scale sliding-window evaluator (counterpart of
+`cabinet_tpu.eval.evaluator.MscEval`), on one device or with each image's
+tiles shared by the ranks of a process group (`tile_mesh`).
 
 Protocol, as the reference engine (src/scripts/evaluate.py:32-251) and the
 JAX package run it:
@@ -15,6 +16,18 @@ JAX package run it:
 The overlap-add accumulates in place and divides once; the JAX package's
 write-once assembly (`_assemble_scale`) adds the same tiles in the same
 order and divides by the same counts, so the two agree to the bit.
+
+Tile-sharded eval (`tile_mesh=(rank, R)`, R > 1; JAX's
+`_sliding_probs_tile_sharded` with the data axis as the ranks): scale by
+scale, the padded tile grid is split into R contiguous blocks of
+`group * k` tiles, `group = min(max(tile_batch // B, 1), ceil(T / R))`
+tiles a forward (the grid padded to a multiple of R * group with tiles of
+weight 0, which add nothing and are not run). Each rank accumulates its
+tiles' probabilities (in `acc_dtype`) and counts; both are summed over
+the ranks in f32, as JAX's psum, in one all-reduce (tag
+`tile_all_reduce`), then divided and cropped, so that every rank holds
+the same map, argmax and confusion matrix. Every rank scores every frame,
+and the matrix is not summed over the ranks.
 """
 
 from __future__ import annotations
@@ -128,10 +141,61 @@ def _summed_probs(apply_fn: ApplyFn, n_classes: int, crop: int, flip: bool,
     return total
 
 
-class MscEval:
-    """Multi-scale sliding-window evaluation engine on one device.
+def _sliding_probs_tile_sharded(apply_fn: ApplyFn, n_classes: int, crop: int,
+                                flip: bool, tile_mesh: Tuple[int, int], variables: Any,
+                                image: torch.Tensor, tile_batch: int = TILE_BATCH,
+                                acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One scale's (B,H,W,C) overlap-normalised probabilities of `image`
+    (already at that scale), its tiles shared by the ranks `tile_mesh =
+    (rank, R)`: this rank forwards its contiguous block of the padded grid
+    and the maps are summed over the ranks in f32."""
+    rank, n = tile_mesh
+    B, H, W, _ = image.shape
+    full_h, full_w = max(H, crop), max(W, crop)
+    hst, wst = (full_h - H) // 2, (full_w - W) // 2
+    if (full_h, full_w) != (H, W):
+        image = F.pad(image, (0, 0, wst, full_w - W - wst, hst, full_h - H - hst))
+    grid = tile_grid(full_h, full_w, crop)
+    # the fold is capped at a rank's tile count: a bigger one adds only pad
+    group = min(max(tile_batch // B, 1), -(-len(grid) // n))
+    block = -(-len(grid) // (n * group)) * group  # t_pad / n
+    mine = [int(t) for t in range(rank * block, (rank + 1) * block) if t < len(grid)]
+    prob = torch.zeros((B, full_h, full_w, n_classes), dtype=acc_dtype, device=image.device)
+    count = torch.zeros((full_h, full_w), dtype=torch.float32, device=image.device)
+    for g0 in range(0, len(mine), group):
+        tiles = [tuple(int(v) for v in grid[t]) for t in mine[g0:g0 + group]]
+        chips = torch.cat([image[:, y:y + crop, x:x + crop, :] for y, x in tiles], dim=0)
+        cps = _chip_probs(apply_fn, variables, chips, flip, acc_dtype)
+        for i, (y, x) in enumerate(tiles):
+            prob[:, y:y + crop, x:x + crop] += cps[i * B:(i + 1) * B]
+            count[y:y + crop, x:x + crop] += 1.0
+    both = torch.cat([prob.float().reshape(-1), count.reshape(-1)])
+    mesh.all_reduce_(both, tag="tile_all_reduce")
+    prob = both[:prob.numel()].view(prob.shape).to(acc_dtype)
+    count = both[prob.numel():].view(count.shape)
+    prob = prob / count.clamp_min(1.0).to(acc_dtype)[None, :, :, None]
+    return prob[:, hst:hst + H, wst:wst + W]
 
-    Arguments mirror the JAX engine's (without `tile_mesh`); `apply_fn`
+
+def _scale_probs(apply_fn: ApplyFn, n_classes: int, crop: int, flip: bool, scale: float,
+                 variables: Any, image: torch.Tensor, tile_mesh: Tuple[int, int],
+                 tile_batch: int = TILE_BATCH,
+                 acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One scale's probability map at the native resolution, in `acc_dtype`,
+    tile-sharded over the ranks of `tile_mesh`."""
+    B, H, W, _ = image.shape
+    scaled = _resize_nhwc(image, (int(H * scale), int(W * scale)))
+    prob = _sliding_probs_tile_sharded(apply_fn, n_classes, crop, flip, tile_mesh,
+                                       variables, scaled, tile_batch, acc_dtype)
+    return _resize_nhwc(prob, (H, W))
+
+
+class MscEval:
+    """Multi-scale sliding-window evaluation engine.
+
+    Arguments mirror the JAX engine's; `tile_mesh` is the rank group
+    `(rank, R)` that shares each image's tiles (`cli/common.py:
+    eval_tile_mesh`), or None for one device. `apply_fn`
     is `(variables, images) -> (logits, aux)` on NHWC tensors, e.g. from
     `cli.evaluate.make_eval_forward`. `acc_dtype=None` follows
     `compute_dtype` (bf16 compute accumulates the probability maps in
@@ -153,6 +217,7 @@ class MscEval:
         tile_batch: int = TILE_BATCH,
         acc_dtype: torch.dtype = None,
         device: Union[str, torch.device] = "cuda",
+        tile_mesh: Any = None,
     ) -> None:
         self.apply_fn = apply_fn
         self.n_classes = n_classes
@@ -167,6 +232,7 @@ class MscEval:
                           else (acc_dtype or torch.float32))
         self.pad_to = None if pad_to is None else (int(pad_to[0]), int(pad_to[1]))
         self.device = resolve_device(device)
+        self.tile_mesh = None if tile_mesh is None else (int(tile_mesh[0]), int(tile_mesh[1]))
 
     def _pad_to_bucket(self, images: np.ndarray, labels: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
@@ -195,9 +261,17 @@ class MscEval:
 
     @torch.no_grad()
     def _probs(self, variables: Any, images: torch.Tensor) -> torch.Tensor:
-        return _summed_probs(self.apply_fn, self.n_classes, self.cropsize,
-                             self.flip, self.scales, variables, images,
-                             self.tile_batch, self.acc_dtype)
+        if self.tile_mesh is None:
+            return _summed_probs(self.apply_fn, self.n_classes, self.cropsize,
+                                 self.flip, self.scales, variables, images,
+                                 self.tile_batch, self.acc_dtype)
+        total = torch.zeros(images.shape[:3] + (self.n_classes,), dtype=torch.float32,
+                            device=images.device)
+        for s in self.scales:
+            total = total + _scale_probs(self.apply_fn, self.n_classes, self.cropsize,
+                                         self.flip, s, variables, images, self.tile_mesh,
+                                         self.tile_batch, self.acc_dtype)
+        return total
 
     def _run(self, variables: Any, images, labels
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -251,8 +325,9 @@ class MscEval:
         queue after the consumer failed; the worker's exceptions reach the
         consumer. The confusion matrix is the sum of what `hist_batch` gives
         batch by batch, each copied back as it is done, and, inside a process
-        group of several ranks (each scoring its share of the frames),
-        summed over the ranks. `progress` prints a
+        group of several ranks each scoring its share of the frames, summed
+        over the ranks (not with `tile_mesh`: every rank scored every
+        frame, its tiles shared). `progress` prints a
         plain line now and then. The result's `timing` holds the loop's
         seconds, the seconds the consumer waited on the worker (in all, and
         before each batch and the end), and the frame count."""
@@ -326,7 +401,7 @@ class MscEval:
                 except queue.Empty:
                     pass
                 worker.join(timeout=0.1)
-        if mesh.is_distributed():  # each rank scored its share of the frames
+        if mesh.is_distributed() and self.tile_mesh is None:  # a share of the frames
             hist = mesh.all_reduce_(mesh.host_tensor(hist, torch.int64),
                                     tag="eval").cpu().numpy()
         result = metrics_from_hist(hist)

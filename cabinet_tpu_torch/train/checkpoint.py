@@ -10,8 +10,14 @@ momentum, `torch.optim` state dict), `step`, `micro_step`, `accum_grads`
 EMA shadow, a state dict) and `ema_updates`; and the same
 `<name>.meta.json` sidecar (epoch, best mIoU and loss, early-stop state).
 `restore_full` puts all of it back, so that a resumed run continues
-bit-exactly. `save_variables` writes a model state dict (the EMA weights
-of `<name>_best` and the final `<name>`), the reference `.pth` format that
+bit-exactly. Given a list of stage states, both go to
+`save_pipeline_full` and `restore_pipeline_full`, which do the same for a
+pipeline-parallel run (`train/pipeline.py`): one tree a stage (its
+part of the variables, its optimizer state, step and EMA; a window never
+spans a checkpoint, the epoch's flush closes it) under `stages`, and
+`pipeline_stages` in the sidecar, as the JAX package writes them.
+`save_variables` writes a model state dict (the EMA weights of
+`<name>_best` and the final `<name>`), the reference `.pth` format that
 `cli/evaluate.py` and `cli/infer.py` load.
 
 An orbax checkpoint directory raises: reading one needs orbax and
@@ -23,7 +29,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,20 +75,28 @@ class CheckpointManager:
         return self.directory / f"{name}.pth"
 
     # ---------------------------------------------------------------- full
-    def save_full(self, name: str, state: Any, epoch: int, best_miou: float,
-                  best_loss: float, stopper_state: Dict[str, Any]) -> Path:
+    @staticmethod
+    def _state_tree(state: Any) -> Dict[str, Any]:
         params = dict(state.model.named_parameters())
         sd = state.model.state_dict()
-        tree = {
+        return {
             "params": {k: v for k, v in sd.items() if k in params},
             "batch_stats": {k: v for k, v in sd.items() if k not in params},
             "opt_state": state.optimizer.state_dict(),
             "step": int(state.step),
-            "micro_step": int(state.micro_step),
-            "accum_grads": state.accum_grads,
             "ema_variables": state.ema.state_dict(),
             "ema_updates": int(state.ema.updates),
         }
+
+    @staticmethod
+    def _restore_state(state: Any, tree: Dict[str, Any]) -> None:
+        state.model.load_state_dict({**tree["params"], **tree["batch_stats"]}, strict=True)
+        state.optimizer.load_state_dict(tree["opt_state"])
+        state.step = int(tree["step"])
+        state.ema.load_state_dict(tree["ema_variables"], tree["ema_updates"])
+
+    def _save_tree(self, name: str, tree: Dict[str, Any], epoch: int, best_miou: float,
+                   best_loss: float, stopper_state: Dict[str, Any], **extra) -> Path:
         path = self.path(name)
         _save(_cpu(tree), path)
         meta = {
@@ -91,27 +105,68 @@ class CheckpointManager:
             "best_loss": float(best_loss),
             "early_stop_best_fitness": float(stopper_state["best_fitness"]),
             "early_stop_best_epoch": int(stopper_state["best_epoch"]),
+            **extra,
         }
         (self.directory / f"{name}.meta.json").write_text(json.dumps(meta))
         return path
 
-    def restore_full(self, name: str, state: Any) -> Optional[Dict[str, Any]]:
-        """Restore into `state` (its model, optimizer, EMA and counters, in
-        place); None if the checkpoint is absent."""
+    def _load_tree(self, name: str) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
         path = self.path(name)
         if not path.exists():
             return None
-        tree = _load(path)
-        state.model.load_state_dict({**tree["params"], **tree["batch_stats"]},
-                                    strict=True)
-        state.optimizer.load_state_dict(tree["opt_state"])
-        state.step = int(tree["step"])
-        state.micro_step = int(tree["micro_step"])
-        state.load_accum_grads(tree["accum_grads"])
-        state.ema.load_state_dict(tree["ema_variables"], tree["ema_updates"])
         meta_path = self.directory / f"{name}.meta.json"
         meta = json.loads(meta_path.read_text()) if meta_path.exists() else dict(_NO_META)
+        return _load(path), meta
+
+    def save_full(self, name: str, state: Any, epoch: int, best_miou: float,
+                  best_loss: float, stopper_state: Dict[str, Any]) -> Path:
+        """`state` a `TrainState`, or a pipeline's list of stage states
+        (`save_pipeline_full`)."""
+        if isinstance(state, (list, tuple)):
+            return self.save_pipeline_full(name, state, epoch, best_miou, best_loss,
+                                           stopper_state)
+        tree = {**self._state_tree(state), "micro_step": int(state.micro_step),
+                "accum_grads": state.accum_grads}
+        return self._save_tree(name, tree, epoch, best_miou, best_loss, stopper_state)
+
+    def restore_full(self, name: str, state: Any) -> Optional[Dict[str, Any]]:
+        """Restore into `state` (its model, optimizer, EMA and counters, in
+        place; a pipeline's list of stage states through
+        `restore_pipeline_full`); None if the checkpoint is absent."""
+        if isinstance(state, (list, tuple)):
+            return self.restore_pipeline_full(name, state)
+        loaded = self._load_tree(name)
+        if loaded is None:
+            return None
+        tree, meta = loaded
+        self._restore_state(state, tree)
+        state.micro_step = int(tree["micro_step"])
+        state.load_accum_grads(tree["accum_grads"])
         return {"state": state, **meta}
+
+    # ------------------------------------------------------------ pipeline
+    def save_pipeline_full(self, name: str, states: Sequence[Any], epoch: int,
+                           best_miou: float, best_loss: float,
+                           stopper_state: Dict[str, Any]) -> Path:
+        """A pipeline-parallel run's full state: one tree a stage."""
+        tree = {"stages": [self._state_tree(s) for s in states]}
+        return self._save_tree(name, tree, epoch, best_miou, best_loss, stopper_state,
+                               pipeline_stages=len(states))
+
+    def restore_pipeline_full(self, name: str, states: Sequence[Any]
+                              ) -> Optional[Dict[str, Any]]:
+        """Restore each stage's state in place; None if the checkpoint is
+        absent. Raises when it holds another number of stages."""
+        loaded = self._load_tree(name)
+        if loaded is None:
+            return None
+        tree, meta = loaded
+        if len(tree.get("stages", ())) != len(states):
+            raise ModelLoadError(f"{self.path(name)} holds {len(tree.get('stages', ()))} "
+                                 f"pipeline stages, the run has {len(states)}")
+        for s, t in zip(states, tree["stages"]):
+            self._restore_state(s, t)
+        return {"states": list(states), **meta}
 
     # ------------------------------------------------------------ variables
     def save_variables(self, name: str, variables: Dict[str, torch.Tensor]) -> Path:
@@ -129,7 +184,8 @@ class CheckpointManager:
 def load_any_checkpoint(path: Union[str, Path], model: Any = None
                         ) -> Dict[str, torch.Tensor]:
     """A model state dict from a `.pth` (a state dict, a full training
-    checkpoint of `save_full`, whose raw params and BN buffers it takes,
+    checkpoint of `save_full` or `save_pipeline_full`, whose raw params and
+    BN buffers it takes,
     or a reference training checkpoint with `model_state`/`ema_state`) or
     from a JAX variables `.npz` of a CABiNet or a YOLOSem (through
     `utils.convert`, which needs `model` for its key table: the cfg table or
@@ -144,6 +200,9 @@ def load_any_checkpoint(path: Union[str, Path], model: Any = None
         blob = _load(path)
         if isinstance(blob, dict) and "params" in blob and "opt_state" in blob:
             return {**blob["params"], **blob["batch_stats"]}
+        if isinstance(blob, dict) and "stages" in blob:  # save_pipeline_full's
+            return {k: v for t in blob["stages"] for k, v in {**t["params"],
+                                                              **t["batch_stats"]}.items()}
         if isinstance(blob, dict) and "model_state" in blob:
             blob = blob.get("ema_state") or blob["model_state"]
         if not isinstance(blob, dict):

@@ -205,7 +205,14 @@ def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: float) -> torc
     host sync: the clipped and unclipped values are selected on the device."""
     grads = [p.grad for p in params if p.grad is not None]
     norm = global_norm(grads)
+    clip_to_norm_(grads, norm, max_norm)
+    return norm
+
+
+@torch.no_grad()
+def clip_to_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
+    """In place, optax's clip of `grads` whose global norm is `norm`: each
+    g * max/|g| as (g / |g|) * max where |g| >= max, selected on the device."""
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
-    return norm

@@ -15,6 +15,9 @@ As in the JAX package (reference src/scripts/train.py:411-480):
   - the EMA advances once per real optimizer step, from the parameters
     after it and the BatchNorm statistics of the micro-step that took it.
 
+`TrainLoop` drives the step and its flush for the train CLIs, with the
+surface of the pipeline's loop (`train/pipeline.py:PipelineTrainLoop`).
+
 `compute_dtype=torch.bfloat16` is bf16 autocast over f32 master parameters
 with no loss scaler, the counterpart of JAX's bf16 matmuls over f32 params
 (no GradScaler: bf16 has f32's exponent range).
@@ -42,7 +45,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -112,11 +115,11 @@ def einsum_attention(model: nn.Module):
             m.attention = a
 
 
-def _all_reduce_grads(params) -> None:
+def _all_reduce_grads(params, tag: str = "grad_all_reduce") -> None:
     """Sum the `.grad` of `params` over every rank, in one flat buffer."""
     grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    mesh.all_reduce_(flat, tag="grad_all_reduce")
+    mesh.all_reduce_(flat, tag=tag)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -204,6 +207,55 @@ def make_flush_step() -> Callable[[TrainState], TrainState]:
         return state
 
     return flush
+
+
+def batch_to(batch, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A loader batch's (images, labels), arrays or tensors, on `device`."""
+    return tuple(torch.as_tensor(a).to(device, non_blocking=True) for a in batch[:2])
+
+
+class TrainLoop:
+    """The train CLIs' loop over the fused step: one loader batch is one
+    micro-step. Its surface is the pipeline's
+    (`train/pipeline.py:PipelineTrainLoop`), so that a CLI drives either:
+      - `feed(*batch, draw=None)` runs a micro-step on the loader's batch,
+        made by `aug_fn(batch, *draw)` when there is one (`draw` by default
+        the state's (step, micro_step)), else its (images, labels) copied to
+        `device`, and returns the micro-batch's loss (a 0-dim tensor);
+      - `flush()` applies a trailing partial window and returns None;
+      - `step`, `state` (what `CheckpointManager.save_full` takes) and
+        `weights(ema=False, device=None)`."""
+
+    def __init__(self, state: TrainState, train_step: Callable, device: torch.device,
+                 aug_fn: Optional[Callable] = None) -> None:
+        self.state = state
+        self.train_step = train_step
+        self.flush_step = make_flush_step()
+        self.device = torch.device(device)
+        self.aug_fn = aug_fn
+
+    def feed(self, *batch, draw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        if self.aug_fn is not None:
+            images, labels = self.aug_fn(batch, *(draw if draw is not None else
+                                                  (self.state.step, self.state.micro_step)))
+        else:
+            images, labels = batch_to(batch, self.device)
+        self.state, loss = self.train_step(self.state, images, labels)
+        return loss
+
+    def flush(self) -> None:
+        self.state = self.flush_step(self.state)
+
+    @property
+    def step(self) -> int:
+        return int(self.state.step)
+
+    def weights(self, ema: bool = False, device: Optional[torch.device] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The model's variables, or its EMA's, copied to `device` if given."""
+        sd = self.state.ema.state_dict() if ema else self.state.model.state_dict()
+        return sd if device is None else {k: v.to(device, non_blocking=True)
+                                          for k, v in sd.items()}
 
 
 def make_eval_loss_step(

@@ -169,21 +169,49 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               TF32 off: R=1 on NCCL, R=2 on gloo sharing the card; the
               losses and weights of R=2 held against R=1's, the ranks'
               weights and EMA bit-equal, one set of outputs (rank 0's), K1
-              in the evaluations and in no step; each step's ms and its
+              in the evaluations (R=2: frame-sharded, each rank its share
+              of the frames, the matrices summed) and in no step; each
+              step's ms and its
               collectives' host ms; then 2 steps of `cli/train_yolo.py:main`
               on 2 ranks; no rank left. Two ranks on one card through gloo
               stage every collective through the host: not a multi-card
               figure
-  17. no process left: the process loader's forkserver and resource
+  17. pipeline  pipeline-parallel training (train/pipeline.py) and
+              tile-sharded eval on CABiNet-Large, 19 classes, 1024^2, both
+              stages on the card: (a) one window (M=2, microbatch 2, f32,
+              TF32 off) against make_train_step(accum_steps=2) on the same
+              weights and microbatches (the loss within 1e-5, weights, BN
+              statistics and EMA within phase 8's bound, no K1 launched);
+              (b) ms per optimizer step (the median of steps 2-4) and peak
+              memory, pipeline against fused, bf16, microbatch 4; (c)
+              `cli/train.py:main` with runtime.pipeline=2 on phase 9's
+              split (bf16, use_pallas, accum 2, one eval scale), 1 epoch
+              and a resume, K1 in the evaluations and in no window, and
+              evaluate main on its EMA `.pth` (K1-K3); (d)
+              `cli/train_yolo.py:main` with +runtime.pipeline=3 on
+              yolo26x-sem at imgsz 512, 2 steps; (e) the pipeline main on
+              2 gloo ranks sharing the card (runtime.pipeline_dp=2, f32)
+              against 1 rank within phase 16's bounds, its evaluations
+              tile-sharded; evaluate main on 2 ranks over 2 of phase 7's
+              frames (bf16, six scales with flip, one tile a forward)
+              tile-sharded, frame-sharded (runtime.tile_parallel_eval=
+              false) and frame-sharded with int8 PTQ, each against 1 rank:
+              equal but for near ties, the route read from the
+              collectives, each rank's K1-K3 launches its own tiles or
+              frames, the split's s a frame and the collectives' host ms,
+              and the bytes the tile all-reduce moves a frame at 5 and 19
+              classes
+  18. no process left: the process loader's forkserver and resource
       tracker stopped and reaped, and no process this run started (a
       child, or any process carrying the run's mark in its environment)
       still there
-  18. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  19. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 `python3 chip_smoke.py --rank-main MODULE OUT ARGV...` is one rank of
-phase 16 (torchrun starts it): `cabinet_tpu_torch.cli.MODULE.main(ARGV)`
-with its steps timed, its launches counted, and its weights written to
-OUT.
+phases 16 and 17 (torchrun starts it): `cabinet_tpu_torch.cli.MODULE.main(
+ARGV)` with its steps (or pipeline windows) timed, its launches counted,
+and its weights (a train main's) or its confusion matrix (an evaluate
+main's) written to OUT.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -3493,12 +3521,21 @@ BOUND_DP_FIRST_LOSS = 1e-5  # the first step: the same weights and global batch
 BOUND_DP_LOSS = 1e-3        # later steps, after updates that BN amplifies
 
 
+THEN = "--then"  # separates the jobs of one `--rank-main` chain
+
+
 def rank_main(args) -> int:
-    """One rank under torchrun: `--rank-main MODULE OUT ARGV...` runs
-    `cabinet_tpu_torch.cli.MODULE.main(ARGV)`, each train step timed by
-    CUDA events and its collectives by `core/mesh.py`'s tally, the kernel
-    launches counted inside the steps and in all, and writes the rank's
-    weights, EMA, per-step losses and times to OUT/rank<r>.pt."""
+    """One rank under torchrun: `--rank-main MODULE OUT ARGV... [--then
+    MODULE OUT ARGV...]...` runs each `cabinet_tpu_torch.cli.MODULE.main(
+    ARGV)` in turn in this process, in one process group (the first main
+    joins it, and the group is left after the last: a group destroyed and
+    joined again can read the old group's addresses from the store), each
+    train step (or pipeline window) timed by CUDA events and
+    its collectives by `core/mesh.py`'s tally, the kernel launches counted
+    inside the steps and in all, and writes each job's record to
+    OUT/rank<r>.pt: a train main's weights and EMA, per-step losses and
+    times; an evaluate main's confusion matrix, mIoU, timing and
+    collectives."""
     import importlib
 
     import torch
@@ -3509,72 +3546,106 @@ def rank_main(args) -> int:
     from cabinet_tpu_torch.core import mesh
     from cabinet_tpu_torch.train import trainer as trainer_mod
 
-    module, out = args[0], Path(args[1])
-    cli = importlib.import_module(f"cabinet_tpu_torch.cli.{module}")
-    inside = dict.fromkeys(_counters(), 0)
-    held, steps = {}, []
+    jobs, job = [], []
+    for a in args:
+        if a == THEN:
+            jobs.append(job)
+            job = []
+        else:
+            job.append(a)
+    jobs.append(job)
     make_step = trainer_mod.make_train_step
+    teardown, mesh.teardown = mesh.teardown, lambda: None
+    for module, out, *argv in jobs:
+        cli = importlib.import_module(f"cabinet_tpu_torch.cli.{module}")
+        inside = dict.fromkeys(_counters(), 0)
+        held, steps, windows = {}, [], []
 
-    def timed(*a, **k):
-        step = make_step(*a, **k)
+        def timed(*a, inside=inside, held=held, steps=steps, **k):
+            step = make_step(*a, **k)
 
-        def run(state, images, labels):
-            before, comm = kernel_counts(), {t: dict(v) for t, v in mesh.COMM.items()}
-            if images.is_cuda:
-                start, end = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                start.record()
-            t0 = time.perf_counter()
-            result = step(state, images, labels)
-            if images.is_cuda:
-                end.record()
-                end.synchronize()
-            ms = start.elapsed_time(end) if images.is_cuda else (time.perf_counter() - t0) * 1e3
-            for name, n in kernel_counts().items():
-                inside[name] += n - before[name]
-            steps.append({"ms": ms, "loss": float(result[1]),
-                          "collectives": mesh.comm_since(comm)})
-            held["state"] = state
-            return result
-        return run
+            def run(state, images, labels):
+                before, comm = kernel_counts(), {t: dict(v) for t, v in mesh.COMM.items()}
+                if images.is_cuda:
+                    start, end = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                    start.record()
+                t0 = time.perf_counter()
+                result = step(state, images, labels)
+                if images.is_cuda:
+                    end.record()
+                    end.synchronize()
+                ms = (start.elapsed_time(end) if images.is_cuda
+                      else (time.perf_counter() - t0) * 1e3)
+                for name, n in kernel_counts().items():
+                    inside[name] += n - before[name]
+                steps.append({"ms": ms, "loss": float(result[1]),
+                              "collectives": mesh.comm_since(comm)})
+                held["state"] = state
+                return result
+            return run
 
-    trainer_mod.make_train_step = timed
-    reset_counts()
-    t0 = time.perf_counter()
-    res = cli.main(args[2:])
-    state = held["state"]
-    rank = int(os.environ.get("RANK", "0"))
-    torch.save({"rank": rank, "seconds": time.perf_counter() - t0, "steps": steps,
-                "launches": kernel_counts(), "launches_in_steps": inside,
-                "timing": res["timing"],
-                "weights": {k: v.cpu() for k, v in state.model.state_dict().items()},
-                "ema": {k: v.cpu() for k, v in state.ema.state_dict().items()}},
-               out / f"rank{rank}.pt")
+        trainer_mod.make_train_step = timed
+        restore = recording_windows(torch, held, windows)
+        reset_counts()
+        comm0 = {t: dict(v) for t, v in mesh.COMM.items()}
+        t0 = time.perf_counter()
+        try:
+            res = cli.main(argv)
+        finally:
+            restore()
+            trainer_mod.make_train_step = make_step
+        for w in windows:
+            steps.append(w)
+            for name, n in w["launches"].items():
+                inside[name] += n
+        rank = int(os.environ.get("RANK", "0"))
+        record = {"rank": rank, "seconds": time.perf_counter() - t0, "steps": steps,
+                  "launches": kernel_counts(), "launches_in_steps": inside,
+                  "timing": res["timing"], **(merged_of(held) if held else {})}
+        if "confusion_matrix" in res:  # an evaluate main
+            record["result"] = {"confusion_matrix": res["confusion_matrix"],
+                                "mIoU": res["mIoU"], "timing": res["timing"],
+                                "collectives": mesh.comm_since(comm0)}
+        torch.save(record, Path(out) / f"rank{rank}.pt")
+    teardown()
     return 0
 
 
-def torchrun(torch, ranks: int, module: str, out: Path, argv) -> list:
+def torchrun_jobs(torch, ranks: int, jobs) -> list:
     """`python -m torch.distributed.run --standalone --nproc_per_node R
-    chip_smoke.py --rank-main MODULE OUT ARGV...`, under a time limit, its
-    output shown by prefix; returns each rank's record."""
-    out.mkdir(parents=True, exist_ok=True)
+    chip_smoke.py --rank-main MODULE OUT ARGV... --then ...` for `jobs`, a
+    list of (module, out, argv) run one after the other in the same rank
+    processes, under a time limit, its output shown by prefix; returns each
+    job's list of the ranks' records."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(ranks), str(ROOT / "chip_smoke.py"), "--rank-main",
-           module, str(out), *argv]
+           "--nproc_per_node", str(ranks), str(ROOT / "chip_smoke.py"), "--rank-main"]
+    for i, (module, out, argv) in enumerate(jobs):
+        out.mkdir(parents=True, exist_ok=True)
+        cmd += ([THEN] if i else []) + [module, str(out), *argv]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     for ln in (proc.stdout.strip().splitlines()[-3:] + proc.stderr.strip().splitlines()[-3:]):
         print(f"  torchrun| {ln[:200]}")
-    check(proc.returncode == 0, f"torchrun {module} x{ranks} exited {proc.returncode}: "
+    names = "+".join(m for m, _, _ in jobs)
+    check(proc.returncode == 0, f"torchrun {names} x{ranks} exited {proc.returncode}: "
           f"{proc.stderr[-3000:]}")
-    recs = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(ranks)]
-    for rec in recs:
-        rec["torchrun_seconds"] = seconds
-    return recs
+    out = []
+    for _, folder, _ in jobs:
+        recs = [torch.load(folder / f"rank{r}.pt", weights_only=False) for r in range(ranks)]
+        for rec in recs:
+            rec["torchrun_seconds"] = seconds
+        out.append(recs)
+    return out
 
 
-def dp_argv(split: Path, exp: Path, backend: str):
+def torchrun(torch, ranks: int, module: str, out: Path, argv) -> list:
+    """One job through `torchrun_jobs`: each rank's record."""
+    return torchrun_jobs(torch, ranks, [(module, out, argv)])[0]
+
+
+def dp_argv(split: Path, exp: Path, backend: str, *extra: str):
     crop = [f"dataset.cropsize=[{EVAL_MAIN_CROP},{EVAL_MAIN_CROP}]"] \
         if EVAL_MAIN_CROP != 1024 else []
     return ["dataset=cityscapes", f"dataset.dataset_path={split}",
@@ -3584,7 +3655,7 @@ def dp_argv(split: Path, exp: Path, backend: str):
             "validation_config.eval_scales=[1.0]", "validation_config.flip=false",
             "runtime.compute_dtype=float32", "runtime.use_pallas=true", *crop,
             f"+runtime.dist_backend={backend}", "+runtime.dist_timeout_s=300",
-            f"training_config.experiments_path={exp}", "--device", DEVICE]
+            f"training_config.experiments_path={exp}", *extra, "--device", DEVICE]
 
 
 def held_against(torch, got, ref, start) -> float:
@@ -3622,19 +3693,30 @@ def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
     on NCCL and R=2 on gloo sharing the card (global batch 4, 2 epochs of
     2 steps, f32): losses and weights held, the ranks bit-equal, one set
     of outputs, K1 in the evaluations and in no step; then two steps of
-    `cli/train_yolo.py:main` on 2 ranks; no process left."""
+    `cli/train_yolo.py:main` on 2 ranks (in the R=2 ranks' processes, after
+    train main); no process left."""
     import math
 
     from cabinet_tpu_torch.cli import common
     from cabinet_tpu_torch.core.config import compose
 
     split = keep / "train" / "cityscapes"
-    runs = {}
-    for name, ranks, backend in (("dp_nccl_r1", 1, "nccl"), ("dp_gloo_r2", 2, "gloo")):
-        recs = torchrun(torch, ranks, "train", tmp / f"{name}_ranks",
-                        dp_argv(split, tmp / name, backend))
+    yolo_job = ("train_yolo", tmp / "dp_yolo_ranks", [
+        "dataset=cityscapes", f"dataset.dataset_path={split}", "training_config.imgsz=512",
+        "training_config.batch_size=4", "training_config.nbs=4", "training_config.epochs=1",
+        "training_config.num_workers=4", "validation_config.num_workers=4",
+        f"training_config.experiments_path={tmp / 'dp_yolo'}", "+runtime.dist_backend=gloo",
+        "--device", DEVICE])
+    runs = {"dp_nccl_r1": torchrun(torch, 1, "train", tmp / "dp_nccl_r1_ranks",
+                                   dp_argv(split, tmp / "dp_nccl_r1", "nccl"))}
+    # R=2 evaluates frame-sharded (each rank its share of the frames, the
+    # matrices summed); phase 17e's pipeline ranks take the tile-sharded default
+    runs["dp_gloo_r2"], yolo = torchrun_jobs(torch, 2, [
+        ("train", tmp / "dp_gloo_r2_ranks", dp_argv(split, tmp / "dp_gloo_r2", "gloo",
+                                                    "+runtime.tile_parallel_eval=false")),
+        yolo_job])
+    for name, recs in runs.items():
         paths.record(name, recs)
-        runs[name] = recs
         for rec in recs:
             check(rec["launches"]["attention_f32"] > 0,
                   f"{name} rank {rec['rank']}: K1 f32 never launched {rec['launches']}")
@@ -3672,13 +3754,9 @@ def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
           f"R=2 wrote {files['dp_gloo_r2']}, R=1 {files['dp_nccl_r1']}")
     check(out["r2_gloo"]["collective_calls"].get("grad_all_reduce") == 1,
           f"R=2 collectives a step {out['r2_gloo']['collective_calls']}")
+    check(all(eval_route(r["timing"]["collectives"]) == "frames" for r in two),
+          f"R=2 evaluations not frame-sharded: {[r['timing']['collectives'] for r in two]}")
 
-    yolo = torchrun(torch, 2, "train_yolo", tmp / "dp_yolo_ranks", [
-        "dataset=cityscapes", f"dataset.dataset_path={split}", "training_config.imgsz=512",
-        "training_config.batch_size=4", "training_config.nbs=4", "training_config.epochs=1",
-        "training_config.num_workers=4", "validation_config.num_workers=4",
-        f"training_config.experiments_path={tmp / 'dp_yolo'}", "+runtime.dist_backend=gloo",
-        "--device", DEVICE])
     paths.record("dp_yolo_r2", yolo)
     out["yolo"] = {"steps": len(yolo[0]["steps"]), "step_ms": [s["ms"] for s in yolo[0]["steps"]],
                    "losses": [s["loss"] for s in yolo[0]["steps"]],
@@ -3692,6 +3770,448 @@ def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
     left = [p for p in processes_left() if "--rank-main" in p or "torch.distributed.run" in p]
     check(not left, f"ranks left running: {left}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: pipeline-parallel training and tile-sharded eval
+# ---------------------------------------------------------------------------
+
+PIPE_MICRO, PIPE_TIME_MICRO, PIPE_M = 2, 4, 2  # (a) f32 microbatch, (b) bf16's; M
+PIPE_TIME_STEPS = 4  # (b): the median of steps 2-4
+PIPE_SIZE = 1024  # (a), (b): the published crop
+YOLO_PIPE_SIZE = 512
+TILE_EVAL_FRAMES = 2  # (e): the first frames of phase 7's split
+# (a): the same weights and microbatches through the same kernels on the
+# card; the window's sums and the clip's norm add in another order.
+BOUND_PIPE_LOSS = 1e-5
+
+
+def pipeline_engine(torch, sd, n_min: int, dtype, attention: str = "kernel"):
+    """The 2-stage CABiNet-Large pipeline (train/pipeline.py) from state dict
+    `sd`, its stages by `make_pipeline_devices` from the card (both on it
+    here), with train_one_update's optimizer, clip and EMA."""
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+    from cabinet_tpu_torch.train.pipeline import CabinetPipeline, make_pipeline_devices
+
+    pipe = CabinetPipeline(
+        seeded_large(torch, N_CLASSES_TRAIN, attention=attention),
+        lambda stage: GroupedSGD(stage, lr0=0.05, max_iter=10, momentum=0.9, wd=5e-4,
+                                 warmup_steps=0, max_grad_norm=None),
+        n_min=n_min, num_microbatches=PIPE_M, devices=make_pipeline_devices(2, DEVICE),
+        max_grad_norm=1.0, compute_dtype=dtype, ema_decay=0.9, ema_tau=2.0)
+    return pipe, pipe.init_state(sd)
+
+
+def run_pipeline_engine(torch) -> dict:
+    """Phase 17a: one window (M=2, microbatch 2, 1024^2, f32 with TF32 off)
+    of the pipeline against `make_train_step(accum_steps=2)` on the same
+    weights and microbatches: the loss within 1e-5, weights, BN statistics
+    and EMA within phase 8's bound, K1 never launched (the model is built
+    with attention="kernel"; the window runs the einsum path)."""
+    import numpy as np
+
+    from cabinet_tpu_torch.train.pipeline import merged
+
+    sd = {k: v.clone() for k, v in seeded_large(torch, N_CLASSES_TRAIN).state_dict().items()}
+    batches = [palette_batch(torch, np, PIPE_MICRO, PIPE_SIZE, seed) for seed in (71, 72)]
+    fused = train_one_update(torch, sd, batches, DEVICE, PIPE_M)
+    pipe, states = pipeline_engine(torch, sd, PIPE_MICRO * PIPE_SIZE ** 2 // 16, torch.float32)
+    before = kernel_counts()
+    states, loss = pipe.train_step_micro(states, [(x.to(DEVICE), y.to(DEVICE))
+                                                  for x, y in batches])
+    loss = float(loss)
+    launches = {k: n - before[k] for k, n in kernel_counts().items()}
+    got = {k: v.cpu() for k, v in merged(states).items()}
+    got_ema = {k: v.cpu() for k, v in merged(states, ema=True).items()}
+    ref_loss = float(np.mean(fused[0]))
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    var_err, ema_err = updates_err(torch, got, fused[1], sd), updates_err(torch, got_ema,
+                                                                          fused[2], sd)
+    out = {"loss": loss, "fused_loss": ref_loss, "loss_rel_err": loss_err,
+           "variables_err_over_bound": var_err, "ema_err_over_bound": ema_err,
+           "launches": launches, "devices": [str(d) for d in pipe.devices]}
+    say("pipeline", part="engine_vs_fused", **out)
+    check(np.isfinite(loss) and loss_err <= BOUND_PIPE_LOSS,
+          f"pipeline window loss {loss} against the fused {ref_loss}")
+    for what, worst in (("params/BN", var_err), ("EMA", ema_err)):
+        for kind, (ratio, key, err, d, norm) in worst.items():
+            check(ratio <= 1.0 and norm <= BOUND_TRAIN_NORM,
+                  f"pipeline {what}: {key} err {err} (change {d}) at {ratio} x the bound, "
+                  f"the {kind} update {norm} of its norm")
+    check(all(n == 0 for n in launches.values()), f"a kernel launched in the window {launches}")
+    check(all(s.step == 1 for s in states), "the stages did not step once")
+    return out
+
+
+def run_pipeline_timing(torch) -> dict:
+    """Phase 17b: ms per optimizer step (CUDA events, the median of steps
+    2-4) and peak memory, the pipeline's window against the fused trainer's
+    2 micro-steps, bf16, microbatch 4 at 1024^2, one after the other."""
+    import numpy as np
+
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+
+    sd = {k: v.clone() for k, v in seeded_large(torch, N_CLASSES_TRAIN).state_dict().items()}
+    micro = [tuple(t.to(DEVICE) for t in palette_batch(torch, np, PIPE_TIME_MICRO, PIPE_SIZE,
+                                                         seed)) for seed in (73, 74)]
+    n_min = PIPE_TIME_MICRO * PIPE_SIZE ** 2 // 16
+
+    def fused():
+        model = seeded_large(torch, N_CLASSES_TRAIN, attention="kernel")
+        model.load_state_dict(sd, strict=True)
+        model.to(DEVICE)
+        state = T.create_train_state(model, GroupedSGD(
+            model, lr0=0.05, max_iter=10, momentum=0.9, wd=5e-4, warmup_steps=0,
+            max_grad_norm=1.0), 0.9, 2.0)
+        step = T.make_train_step(n_min=n_min, accum_steps=PIPE_M, compute_dtype=torch.bfloat16)
+        return lambda: [step(state, x, y) for x, y in micro]
+
+    def pipeline():
+        pipe, states = pipeline_engine(torch, sd, n_min, torch.bfloat16)
+        return lambda: pipe.train_step_micro(states, micro)
+
+    out = {}
+    for name, build in (("fused", fused), ("pipeline", pipeline)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        window, ms = build(), []
+        for _ in range(PIPE_TIME_STEPS):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            window()
+            e.record()
+            torch.cuda.synchronize()
+            ms.append(s.elapsed_time(e))
+        out[name] = {"ms_per_step": float(np.median(ms[1:])), "ms": ms,
+                     "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del window
+    say("pipeline", part="timing", micro=PIPE_TIME_MICRO, M=PIPE_M, dtype="bfloat16", **out)
+    return out
+
+
+def run_pipeline_main(torch, paths, keep: Path, tmp: Path) -> dict:
+    """Phase 17c: `cli/train.py:main` with runtime.pipeline=2 on phase 9's
+    split (bf16, use_pallas, batch 4 = the microbatch, accum_steps 2 = M,
+    one eval scale): 1 epoch (one window), a resume to epoch 2, then
+    evaluate main on the final EMA `.pth` (K1-K3)."""
+    import math
+
+    from cabinet_tpu_torch.cli.train import main as train_main
+
+    split, exp = keep / "train" / "cityscapes", tmp / "pipeline_main"
+    argv = ["dataset=cityscapes", f"dataset.dataset_path={split}",
+            "training_config.accum_steps=2", "training_config.warmup_steps=2",
+            "training_config.num_workers=8", "validation_config.num_workers=8",
+            "training_config.log_iter=1", "validation_config.eval_scales=[1.0]",
+            "validation_config.flip=false", f"training_config.experiments_path={exp}",
+            "runtime.use_pallas=true", "runtime.pipeline=2"]
+    if EVAL_MAIN_CROP != 1024:
+        argv.append(f"dataset.cropsize=[{EVAL_MAIN_CROP},{EVAL_MAIN_CROP}]")
+    held, windows = {}, []
+    restore = recording_windows(torch, held, windows)
+    try:
+        res, main_s, _ = paths.drive("pipeline_main", run_cli, train_main,
+                                     argv + ["training_config.epochs=1", "--device", DEVICE],
+                                     "pipeline", 3)
+        counts = dict(paths.per_path["pipeline_main"])
+        res2, resume_s, _ = paths.drive("pipeline_main_resume", run_cli, train_main,
+                                        argv + ["training_config.epochs=2",
+                                                "training_config.resume=true",
+                                                "--device", DEVICE], "pipeline", 3)
+    finally:
+        restore()
+    inside = {k: sum(w["launches"][k] for w in windows) for k in _counters()}
+    lines = [json.loads(ln) for ln in (exp / "metrics.jsonl").read_text().splitlines()]
+    blob = torch.load(exp / "checkpoint_last.pth", weights_only=True)
+    check([ln.get("step") for ln in lines] == [None, 1, None, 2]
+          and all(math.isfinite(ln["train_loss"]) for ln in lines if "step" in ln),
+          f"pipeline main metrics {lines}")
+    check(len(blob.get("stages", ())) == 2, "checkpoint_last.pth holds no 2 stages")
+    check(counts["attention"] > 0, f"pipeline main: K1 never launched {counts}")
+    check(all(n == 0 for n in inside.values()), f"a kernel launched in a window {inside}")
+    t = res["timing"]
+    check(t["optimizer_steps"] == 1 and res2["timing"]["optimizer_steps"] == 1,
+          f"optimizer steps {t['optimizer_steps']}, {res2['timing']['optimizer_steps']}")
+    scored, _, eval_s = paths.drive("pipeline_main_evaluate", run_main, [
+        "dataset=cityscapes", f"dataset.dataset_path={split}",
+        f"checkpoint_path={exp / 'cabinet.pth'}", "runtime.compute_dtype=bfloat16",
+        "runtime.use_pallas=true", "validation_config.eval_scales=[1.0]",
+        "validation_config.flip=false", "--device", DEVICE])
+    ev_counts = paths.per_path["pipeline_main_evaluate"]
+    check(all(ev_counts[k] > 0 for k in TAIL), f"evaluate main launches {ev_counts}")
+    check(0.0 <= scored["mIoU"] <= 1.0, f"evaluate main on the pipeline's EMA {scored['mIoU']}")
+    out = {"main_seconds": main_s, "resume_main_seconds": resume_s,
+           "loop_seconds_per_optimizer_step": t["train_seconds"] / t["optimizer_steps"],
+           "loader_wait_share": t["loader_wait_seconds"] / t["train_seconds"],
+           "eval_seconds": t["eval_seconds"], "launches": counts, "launches_in_windows": inside,
+           "evaluate_main_launches": ev_counts, "evaluate_main_mIoU": scored["mIoU"],
+           "evaluate_main_seconds": eval_s, "final_mIoU": res2["final"]["mIoU"]}
+    say("pipeline", part="train_main", **out)
+    return out
+
+
+def run_pipeline_yolo(torch, paths, keep: Path, tmp: Path) -> dict:
+    """Phase 17d: `cli/train_yolo.py:main` with +runtime.pipeline=3 on
+    yolo26x-sem (the variant the JAX docstring names for 3 stages), imgsz
+    512, batch 4, nbs 8 (M=2), 2 epochs of one window each, on phase 9's
+    split."""
+    import math
+
+    from cabinet_tpu_torch.cli.train_yolo import main as yolo_main
+
+    exp = tmp / "pipeline_yolo"
+    res, main_s, _ = paths.drive("pipeline_yolo", run_cli, yolo_main, [
+        "dataset=cityscapes", f"dataset.dataset_path={keep / 'train' / 'cityscapes'}",
+        "yolo/model@model=yolo26x-sem", f"training_config.imgsz={YOLO_PIPE_SIZE}",
+        "training_config.batch_size=4", "training_config.nbs=8", "training_config.epochs=2",
+        "training_config.num_workers=8", "validation_config.num_workers=8",
+        f"training_config.experiments_path={exp}", "+runtime.pipeline=3",
+        "--device", DEVICE], "train_yolo", 2)
+    t = res["timing"]
+    out = {"main_seconds": main_s, "losses": res["losses"],
+           "optimizer_steps": t["optimizer_steps"],
+           "loop_seconds_per_optimizer_step": t["train_seconds"] / max(t["optimizer_steps"], 1),
+           "stages": len(torch.load(exp / "last.pth", weights_only=True)["stages"])}
+    say("pipeline", part="train_yolo_x_3_stages", **out)
+    check(out["optimizer_steps"] == 2 and out["stages"] == 3,
+          f"yolo pipeline: {out['optimizer_steps']} steps, {out['stages']} stages")
+    check(all(math.isfinite(v) for v in res["losses"]), f"yolo pipeline losses {res['losses']}")
+    check((exp / "final.pth").is_file(), "yolo pipeline wrote no final.pth")
+    return out
+
+
+def run_pipeline_ranks(torch, paths, keep: Path, tmp: Path) -> dict:
+    """Phase 17e: two ranks on gloo sharing the card (`--rank-main`):
+    `cli/train.py:main` with runtime.pipeline=2 and runtime.pipeline_dp=2
+    (f32, 2 epochs of one window at global microbatch 4) against the same
+    main on one rank in this process, within phase 16's bounds, its
+    evaluations tile-sharded; then `cli/evaluate.py:main` on 2 of phase
+    7's frames (bf16, use_pallas) tile-sharded, frame-sharded
+    (runtime.tile_parallel_eval=false) and frame-sharded with int8 PTQ,
+    each against one rank (`held_eval`)."""
+    import numpy as np
+
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.cli.train import main as train_main
+    from cabinet_tpu_torch.core.config import compose
+
+    split = keep / "train" / "cityscapes"
+
+    def argv(exp: Path, *extra: str) -> list:  # phase 16's, one window an epoch
+        return [a for a in dp_argv(split, exp, "gloo") if a not in ("--device", DEVICE)
+                ] + ["training_config.accum_steps=2", "runtime.pipeline=2", *extra,
+                     "--device", DEVICE]
+
+    held, windows = {}, []
+    restore = recording_windows(torch, held, windows)
+    try:
+        _, r1_s, _ = paths.drive("pipeline_r1", run_cli, train_main,
+                                 argv(tmp / "pipe_dp_r1"), "pipeline_r1", 2)
+    finally:
+        restore()
+    one = {**merged_of(held), "steps": windows}
+    frames = tile_frames(keep / "evaluate" / "cityscapes", tmp / "tile_frames")
+    # one tile a forward, so that a rank's launches count its tiles
+    ev_argv = [f"checkpoint_path={FIXTURE}", "dataset=cityscapes", "dataset.num_classes=5",
+               f"dataset.dataset_path={frames}", "validation_config.batch_size=1",
+               "runtime.compute_dtype=bfloat16", "runtime.use_pallas=true",
+               "runtime.eval_tile_batch=1"]
+    if EVAL_MAIN_CROP != 1024:
+        ev_argv.append(f"dataset.cropsize=[{EVAL_MAIN_CROP},{EVAL_MAIN_CROP}]")
+    frames_argv = ev_argv + ["+runtime.tile_parallel_eval=false"]
+    int8_argv = frames_argv + ["+runtime.quantize=int8"]
+    on_ranks = ["+runtime.dist_backend=gloo", "+runtime.dist_timeout_s=300", "--device", DEVICE]
+    two, *evals = torchrun_jobs(torch, 2, [
+        ("train", tmp / "pipe_dp_r2_ranks", argv(tmp / "pipe_dp_r2", "runtime.pipeline_dp=2")),
+        ("evaluate", tmp / "tile_eval_ranks", ev_argv + on_ranks),
+        ("evaluate", tmp / "frame_eval_ranks", frames_argv + on_ranks),
+        ("evaluate", tmp / "frame_int8_eval_ranks", int8_argv + on_ranks)])
+    paths.record("pipeline_r2", two)
+    errs = [abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(one["steps"],
+                                                                        two[0]["steps"])]
+    cfg = compose(common.CONFIG_DIR, "train", [a for a in argv(tmp) if "=" in a])
+    common.seed_everything(cfg.runtime.seed)
+    start = common.build_model(cfg, cfg.dataset.num_classes).state_dict()
+    ratios = {k: held_against(torch, two[0][k], one[k], start) for k in ("weights", "ema")}
+    identical = all(torch.equal(two[0][k][t], two[1][k][t])
+                    for k in ("weights", "ema") for t in two[0][k])
+    out = {"loss_rel_err": errs, "weights_bound_ratio": ratios["weights"],
+           "ema_bound_ratio": ratios["ema"], "ranks_bit_identical": identical,
+           "r1_window_ms": [s["ms"] for s in one["steps"]],
+           "r2_window_ms": [s["ms"] for s in two[0]["steps"]],
+           "r2_collective_ms": {k: [w["collectives"].get(k, {}).get("seconds", 0.0) * 1e3
+                                    for w in two[0]["steps"]]
+                                for k in two[0]["steps"][-1]["collectives"]},
+           "r1_main_seconds": r1_s, "r2_torchrun_seconds": two[0]["torchrun_seconds"],
+           "r2_launches": [r["launches"] for r in two]}
+    say("pipeline", part="pipeline_dp", **out)
+    check(len(errs) == 2 and errs[0] <= BOUND_DP_FIRST_LOSS and errs[1] <= BOUND_DP_LOSS,
+          f"pipeline R=2 window losses from R=1's: {errs}")
+    check(max(ratios.values()) <= 1.0, f"pipeline R=2 weights from R=1's {ratios}")
+    check(identical, "the pipeline ranks' weights or EMA differ")
+    check(all(s["collectives"].get("pipeline_grad_all_reduce", {}).get("calls") == 2
+              for s in two[0]["steps"]), f"pipeline R=2 collectives {two[0]['steps']}")
+    check(all(r["launches_in_steps"]["attention_f32"] == 0 for r in two),
+          "K1 launched in a pipeline window")
+    check(all(eval_route(r["timing"]["collectives"]) == "tiles" for r in two),
+          f"pipeline R=2 evaluations not tile-sharded: "
+          f"{[r['timing']['collectives'] for r in two]}")
+
+    # evaluate main on 2 ranks, tile- and frame-sharded, against 1 rank
+    refs = {"bf16": paths.drive("tile_eval_r1", run_main, ev_argv + ["--device", DEVICE]),
+            "int8": paths.drive("frame_int8_eval_r1", run_main,
+                                int8_argv + ["--device", DEVICE])}
+    r1_counts = {k: paths.per_path[n] for k, n in (("bf16", "tile_eval_r1"),
+                                                    ("int8", "frame_int8_eval_r1"))}
+    ev_cfg = compose(common.CONFIG_DIR, "evaluate", [a for a in ev_argv if "=" in a])
+    reduced = {f"{c}_classes": tile_reduce_bytes(FRAME_H, FRAME_W, EVAL_MAIN_CROP,
+                                                 ev_cfg.validation_config.eval_scales, c)
+               for c in (ev_cfg.dataset.num_classes, 19)}
+    for (name, route, kind), ranks in zip((("tile_eval", "tiles", "bf16"),
+                                           ("frame_eval", "frames", "bf16"),
+                                           ("frame_int8_eval", "frames", "int8")), evals):
+        paths.record(f"{name}_r2", ranks)
+        ref, _, r1_eval_s = refs[kind]
+        out[name] = held_eval(name, route, ranks, ref, r1_eval_s, r1_counts[kind],
+                              count_tiles=kind == "bf16",
+                              **({"all_reduce_bytes_a_frame": reduced}
+                                 if route == "tiles" else {}))
+    left = [p for p in processes_left() if "--rank-main" in p or "torch.distributed.run" in p]
+    check(not left, f"ranks left running: {left}")
+    return out
+
+
+def eval_route(collectives: dict) -> str:
+    """How a run's evaluations shared the work over its ranks, from its
+    collectives' tally: "tiles" (`tile_all_reduce`), "frames" (the
+    confusion matrices summed, `eval`), or "" (neither)."""
+    tiles, frames = (collectives.get(k, {}).get("calls", 0) > 0
+                     for k in ("tile_all_reduce", "eval"))
+    return "tiles" if tiles and not frames else "frames" if frames and not tiles else ""
+
+
+def tile_reduce_bytes(h: int, w: int, crop: int, scales, n_classes: int) -> int:
+    """Bytes of the f32 buffers tile-sharded eval all-reduces for one h x w
+    frame (`eval/evaluator.py:_sliding_probs_tile_sharded`): a scale's
+    probability map and tile counts over its canvas, padded to the crop."""
+    total = 0
+    for s in scales:
+        fh, fw = max(int(h * s), crop), max(int(w * s), crop)
+        total += 4 * fh * fw * (n_classes + 1)
+    return total
+
+
+def held_eval(name: str, route: str, ranks, ref: dict, r1_s: float, r1_counts: dict,
+              count_tiles: bool, **extra) -> dict:
+    """Evaluate main on 2 ranks (`ranks`, their records) against one rank's
+    result `ref`: every rank holds one matrix, equal to one rank's but for
+    near ties (phase 7's rule), the pixels and frames counted once, the
+    work shared by `route` ("tiles" or "frames", read from the
+    collectives), K1-K3 launched on every rank (with `count_tiles`, each
+    tile or frame once: the ranks' launches sum to one rank's); the
+    split's wall seconds a frame (the slower rank's) against one rank's,
+    and the collectives' host ms, with `extra` on the line."""
+    import numpy as np
+
+    hist, ref_hist = ranks[0]["result"]["confusion_matrix"], ref["confusion_matrix"]
+    pixels = float(ref_hist.sum())
+    disagree = float(np.abs(hist - ref_hist).sum() / 2)
+    n_frames = ref["timing"]["frames"]
+    shares = [r["result"]["timing"]["frames"] for r in ranks]
+    comm = [r["result"]["collectives"] for r in ranks]
+    out = {"route": route, "r1_mIoU": ref["mIoU"], "r2_mIoU": ranks[0]["result"]["mIoU"],
+           "disagree_pixels": disagree, "pixels": pixels, "frames_a_rank": shares,
+           "r1_launches": r1_counts, "r2_launches": [r["launches"] for r in ranks],
+           "r1_seconds_per_frame": ref["timing"]["seconds"] / n_frames,
+           "r2_seconds_per_frame": max(r["result"]["timing"]["seconds"] for r in ranks)
+           / n_frames,
+           "r2_collective_ms": [{k: v["seconds"] * 1e3 for k, v in c.items()} for c in comm],
+           "r2_collective_calls": [{k: v["calls"] for k, v in c.items()} for c in comm],
+           "r1_main_seconds": r1_s, **extra}
+    say("pipeline", part=name, **out)
+    check(all(np.array_equal(r["result"]["confusion_matrix"], hist) for r in ranks),
+          f"{name}: the ranks' confusion matrices differ")
+    check(pixels == hist.sum() and sum(shares) == n_frames * (len(ranks) if route == "tiles"
+                                                              else 1),
+          f"{name}: {hist.sum()} pixels and {shares} frames, one rank {pixels} and {n_frames}")
+    check(disagree <= 1e-3 * pixels and abs(out["r2_mIoU"] - ref["mIoU"]) < 5e-3,
+          f"{name}: differs from one rank on {disagree} of {pixels} pixels")
+    check(all(eval_route(c) == route for c in comm), f"{name}: collectives {comm}, not {route}")
+    check(all(r["launches"][k] > 0 for r in ranks for k in TAIL)
+          and (not count_tiles
+               or all(sum(r["launches"][k] for r in ranks) == r1_counts[k] for k in TAIL)),
+          f"{name}: the ranks' launches {[r['launches'] for r in ranks]} against one "
+          f"rank's {r1_counts}")
+    return out
+
+
+def tile_frames(src: Path, dst: Path) -> Path:
+    """The first TILE_EVAL_FRAMES frames of the Cityscapes-layout val split
+    `src`, images and labels, copied to a split of their own."""
+    for sub in ("leftImg8bit", "gtFine"):
+        for p in sorted((src / sub / "val").rglob("*.png"))[:TILE_EVAL_FRAMES]:
+            (dst / sub / "val" / p.parent.name).mkdir(parents=True, exist_ok=True)
+            shutil.copy(p, dst / sub / "val" / p.parent.name / p.name)
+    return dst
+
+
+def recording_windows(torch, held: dict, windows: list):
+    """Patch CabinetPipeline.train_step_micro so that each window is timed
+    (CUDA events on the card), its loss, collectives and kernel launches
+    appended to `windows`, and the stages' states kept in `held`;
+    returns the restore function."""
+    from cabinet_tpu_torch.core import mesh
+    from cabinet_tpu_torch.train.pipeline import CabinetPipeline
+
+    plain = CabinetPipeline.train_step_micro
+
+    def run(self, states, micro):
+        before, comm = kernel_counts(), {t: dict(v) for t, v in mesh.COMM.items()}
+        cuda = self.devices[0].type == "cuda"
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+        t0 = time.perf_counter()
+        out = plain(self, states, micro)
+        if cuda:
+            end.record()
+            end.synchronize()
+        windows.append({"ms": start.elapsed_time(end) if cuda
+                        else (time.perf_counter() - t0) * 1e3,
+                        "loss": float(out[1]), "collectives": mesh.comm_since(comm),
+                        "launches": {k: n - before[k] for k, n in kernel_counts().items()}})
+        held["states"] = out[0]
+        return out
+
+    CabinetPipeline.train_step_micro = run
+    return lambda: setattr(CabinetPipeline, "train_step_micro", plain)
+
+
+def merged_of(held: dict) -> dict:
+    """The weights and EMA of the run `held` recorded, on the CPU: a fused
+    trainer's state or a pipeline's stages merged."""
+    from cabinet_tpu_torch.train.pipeline import merged
+
+    if "states" in held:
+        weights, ema = merged(held["states"]), merged(held["states"], ema=True)
+    else:
+        weights, ema = held["state"].model.state_dict(), held["state"].ema.state_dict()
+    return {"weights": {k: v.cpu() for k, v in weights.items()},
+            "ema": {k: v.cpu() for k, v in ema.items()}}
+
+
+def run_pipeline(torch, paths, keep: Path, tmp: Path) -> dict:
+    """Phase 17: the pipeline engine, its timing, the train mains on it and
+    the pipeline and tile-sharded eval over two ranks."""
+    engine = paths.drive("pipeline_engine", run_pipeline_engine, torch)
+    timing = run_pipeline_timing(torch)
+    main = run_pipeline_main(torch, paths, keep, tmp)
+    yolo = run_pipeline_yolo(torch, paths, keep, tmp)
+    ranks = run_pipeline_ranks(torch, paths, keep, tmp)
+    return {"engine": engine, "timing": timing, "main": main, "yolo": yolo, "ranks": ranks}
 
 
 def main() -> int:
@@ -3843,6 +4363,24 @@ def main() -> int:
         r2_gloo_collective_ms=dp["r2_gloo"]["collective_ms"],
         loss_rel_err=dp["loss_rel_err"], weights_bound_ratio=dp["weights_bound_ratio"],
         note="two ranks share one card through gloo, which stages through the host: "
+             "not a multi-card figure")
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe = run_pipeline(torch, paths, keep, Path(tmp))
+    say("pipeline", card=smi, fused_ms_per_step=pipe["timing"]["fused"]["ms_per_step"],
+        pipeline_ms_per_step=pipe["timing"]["pipeline"]["ms_per_step"],
+        fused_peak_gib=pipe["timing"]["fused"]["peak_allocated_gib"],
+        pipeline_peak_gib=pipe["timing"]["pipeline"]["peak_allocated_gib"],
+        main_seconds=pipe["main"]["main_seconds"],
+        main_loop_seconds_per_optimizer_step=pipe["main"]["loop_seconds_per_optimizer_step"],
+        yolo_x_3_stage_main_seconds=pipe["yolo"]["main_seconds"],
+        r2_window_ms=pipe["ranks"]["r2_window_ms"],
+        r2_collective_ms=pipe["ranks"]["r2_collective_ms"],
+        eval_r1_seconds_per_frame=pipe["ranks"]["tile_eval"]["r1_seconds_per_frame"],
+        **{f"{k}_r2_seconds_per_frame": pipe["ranks"][k]["r2_seconds_per_frame"]
+           for k in ("tile_eval", "frame_eval", "frame_int8_eval")},
+        tile_eval_r2_collective_ms=pipe["ranks"]["tile_eval"]["r2_collective_ms"],
+        tile_all_reduce_bytes_a_frame=pipe["ranks"]["tile_eval"]["all_reduce_bytes_a_frame"],
+        note="both stages share the one card, and the two ranks share it through gloo: "
              "not a multi-card figure")
     shutil.rmtree(keep, ignore_errors=True)
     launches = paths.totals

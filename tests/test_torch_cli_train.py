@@ -108,15 +108,25 @@ def test_train_main_two_epochs_then_resume(tmp_path, name):
 
 
 def test_train_main_refuses_what_is_not_ported(tmp_path):
+    """Tensor parallelism and spatial partitioning raise, naming their
+    ROADMAP item (the tensor-partitioning half of Queue 1 item 7);
+    runtime.pipeline=2 trains (tests/test_torch_pipeline.py holds it), and
+    its JAX refusals are ConfigurationError."""
     from cabinet_tpu_torch.cli.train import main
 
     data = make_uavid_tree(tmp_path / "data", n=2)
     base = overrides("uavid", data, tmp_path / "exp")
-    for extra, item in (("runtime.pipeline=2", "Queue 1 item 7"),
-                        ("runtime.model_axis=2", "Queue 1 item 7"),
-                        ("runtime.spatial_axis=true", "Queue 1 item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(base + [extra, "--device", "cpu"])
+    for extra in (["runtime.model_axis=2"], ["runtime.spatial_axis=true"],
+                  ["runtime.pipeline=2", "+runtime.pipeline_tp=2"],
+                  ["runtime.pipeline=2", "+runtime.eval_model_axis=2"]):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7, its tensor"):
+            main(base + extra + ["--device", "cpu"])
+    res = main(base + ["runtime.pipeline=2", "training_config.epochs=1", "--device", "cpu"])
+    assert res["timing"]["optimizer_steps"] == 1 and (tmp_path / "exp" / "tiny.pth").is_file()
+    for extra, match in ((["runtime.pipeline=3"], "pins at 2 stages"),
+                         (["runtime.pipeline=2", "runtime.model_axis=2"], "cannot combine")):
+        with pytest.raises(ConfigurationError, match=match):
+            main(base + extra + ["--device", "cpu"])
     # --legacy-config runs (core/legacy_config.py); a missing file is refused
     with pytest.raises(ConfigurationError, match="legacy config not found"):
         main(["--legacy-config", "old.json", "--device", "cpu"])

@@ -25,7 +25,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cabinet_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 52, names
+assert len(names) >= 53, names
 required = {"cabinet_tpu_torch." + m for m in (
     "cli.train", "cli.common", "core.logging", "core.config", "core.yaml_subset",
     "data.transforms", "data.class_weights", "data.datasets", "train",
@@ -34,7 +34,7 @@ required = {"cabinet_tpu_torch." + m for m in (
     "export", "cli.export", "cli.serve", "data.grain_loader", "data.converters",
     "data.stats", "cli.convert", "cli.compute_stats", "models.yolosem", "data.mosaic",
     "cli.train_yolo", "core.legacy_config", "core.mesh", "cli.convert_checkpoint",
-    "cli.visualize", "utils.profiler")}
+    "cli.visualize", "utils.profiler", "train.pipeline")}
 assert required <= set(names), sorted(required - set(names))
 """
 
@@ -72,7 +72,8 @@ def test_no_kernel_build_at_import():
                                    "resolve_device", "train_main", "train_and_evaluate",
                                    "export_serving", "export_main", "serve_engine",
                                    "train_yolo_main", "train_yolo_val", "yolo_export_main",
-                                   "visualize_main"])
+                                   "visualize_main", "train_main_pipeline",
+                                   "pipeline_devices"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without device="cpu" the entry points ask for CUDA, and raise where
     there is none instead of running on the CPU."""
@@ -109,6 +110,12 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
                            f"dataset.dataset_path={tmp_path}"])
         elif entry == "train_main":
             train_main([f"dataset.dataset_path={tmp_path}"])
+        elif entry == "train_main_pipeline":
+            train_main([f"dataset.dataset_path={tmp_path}", "runtime.pipeline=2"])
+        elif entry == "pipeline_devices":
+            from cabinet_tpu_torch.train.pipeline import make_pipeline_devices
+
+            make_pipeline_devices(2)
         elif entry == "train_and_evaluate":
             train_and_evaluate(compose(CONFIG_DIR, "train",
                                        [f"dataset.dataset_path={tmp_path}"]))

@@ -260,7 +260,9 @@ def test_cli_resume_continues_bit_exactly(tree, tmp_path, monkeypatch, one_threa
 def test_cli_device_augs_and_refusals(tree, tmp_path):
     """+runtime.device_augs=true trains (the host mosaic's mixup off, the
     device chain's on); runtime.device_geometric raises ConfigurationError
-    naming mosaic, and runtime.pipeline NotImplementedError naming ROADMAP
+    naming mosaic; +runtime.pipeline=3 trains (tests/test_torch_pipeline.py
+    holds it), a stage count other than 2 or 3 raises ConfigurationError
+    as in JAX, and runtime.model_axis NotImplementedError naming ROADMAP
     Queue 1 item 7."""
     from cabinet_tpu_torch.core.exceptions import ConfigurationError
 
@@ -271,8 +273,14 @@ def test_cli_device_augs_and_refusals(tree, tmp_path):
     assert (exp / "last.pth").exists()
     with pytest.raises(ConfigurationError, match="mosaic"):
         ty.main(_argv(tree, tmp_path / "g", "+runtime.device_geometric=true"))
+    res = ty.main(_argv(tree, tmp_path / "p", "training_config.epochs=1",
+                        "training_config.nbs=2", "training_config.cls_pw=0",
+                        "+runtime.pipeline=3"))
+    assert np.isfinite(res["losses"][0]) and (tmp_path / "p" / "last.pth").exists()
+    with pytest.raises(ConfigurationError, match="2-stage"):
+        ty.main(_argv(tree, tmp_path / "p4", "+runtime.pipeline=4"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ty.main(_argv(tree, tmp_path / "p", "+runtime.pipeline=3"))
+        ty.main(_argv(tree, tmp_path / "m", "+runtime.model_axis=2"))
 
 
 def test_class_counts_through_the_loader_equal_jax(tree):

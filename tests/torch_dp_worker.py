@@ -1,4 +1,6 @@
-"""One rank of a data-parallel case of tests/test_torch_dp.py.
+"""One rank of a case over ranks of tests/test_torch_dp.py (data
+parallelism), tests/test_torch_tile_eval.py (tile-sharded eval) or
+tests/test_torch_pipeline.py (the pipeline's intra-stage data parallelism).
 
     python -m torch_dp_worker CASE DIR
 
@@ -109,6 +111,69 @@ def case_eval(inp, rank, ranks):
     res = MscEval(fwd, 8, scales=(0.75, 1.0), flip=True, cropsize=32,
                   device="cpu").evaluate(None, loader)
     return {"hist": res["confusion_matrix"], "frames": res["timing"]["frames"]}
+
+
+def toy_apply(_, images):
+    """The JAX test's saturated toy model (tests/unit/test_mesh_and_sharded_
+    eval.py): class 1 where the pixel's mean is positive, else 0, logits 7."""
+    m = (images.float().mean(dim=-1) > 0).float()
+    logits = torch.stack([1 - m, m, torch.zeros_like(m)], dim=-1) * 7.0
+    return logits, logits
+
+
+def case_tile_eval(inp, rank, ranks):
+    """Tile-sharded eval over this group (`tile_mesh=(rank, ranks)`): the
+    confusion matrices of MscEval.evaluate at one scale (tile_batch 16 and
+    8), one scale's probabilities at 0.5 and 1.0 with flip, and in bf16
+    accumulation, with the collectives' tally."""
+    from cabinet_tpu_torch.data.loader import DataLoader
+    from cabinet_tpu_torch.eval import evaluator as ev
+
+    image, labels = inp["image"], inp["labels"]
+    tile = (rank, ranks)
+    loader = DataLoader(list(zip(image, labels)), 1, num_workers=0)
+    out = {"hist": {}, "probs": {}}
+    for tb in (16, 8):
+        res = ev.MscEval(toy_apply, 3, scales=(1.0,), cropsize=32, tile_batch=tb,
+                         device="cpu", tile_mesh=tile).evaluate(None, loader)
+        out["hist"][tb] = res["confusion_matrix"]
+    x = torch.from_numpy(image)
+    for s in (0.5, 1.0):
+        out["probs"][s] = ev._scale_probs(toy_apply, 3, 32, True, s, None, x, tile)
+    out["probs"]["bf16"] = ev._scale_probs(toy_apply, 3, 32, False, 1.0, None, x, tile,
+                                           tile_batch=8, acc_dtype=torch.bfloat16)
+    out["comm"] = {k: v["calls"] for k, v in mesh.COMM.items()}
+    return out
+
+
+def case_pipeline(inp, rank, ranks):
+    """The 2-stage CABiNet pipeline (both stages on the CPU) over this
+    rank's rows of every microbatch, 2 windows of 2: losses, merged
+    weights and EMA, counters, the case's collectives. With `global_bn`
+    (one rank; the tests run it in their own process) the BatchNorm takes
+    the ranks' formula (`_global_forward`) for the case's length."""
+    from cabinet_tpu_torch.models import layers
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+    from cabinet_tpu_torch.train.pipeline import CabinetPipeline, PipelineTrainLoop
+
+    plain, comm0 = layers.BatchNorm2d.forward, {k: dict(v) for k, v in mesh.COMM.items()}
+    if inp["global_bn"]:
+        layers.BatchNorm2d.forward = (lambda self, x: self._global_forward(x)
+                                      if self.training else plain(self, x))
+    try:
+        model = CABiNet(8, mode="small", cfgs=CFGS)
+        pipe = CabinetPipeline(model, lambda st: GroupedSGD(st, **inp["opt"]),
+                               n_min=inp["n_min"], num_microbatches=2, devices=["cpu", "cpu"],
+                               max_grad_norm=1.0, **inp["ema"])
+        loop = PipelineTrainLoop(pipe, pipe.init_state(inp["state_dict"]))
+        losses = [loop.feed(x[rank::ranks], y[rank::ranks])
+                  for x, y in zip(inp["xs"], inp["ys"])]
+    finally:
+        layers.BatchNorm2d.forward = plain
+    return {"losses": losses, "state": loop.weights(), "ema": loop.weights(ema=True),
+            "steps": [s.step for s in loop.state],
+            "comm": {k: v["calls"] for k, v in mesh.comm_since(comm0).items() if v["calls"]}}
 
 
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
