@@ -223,10 +223,12 @@ def eval_pad_to(cfg: Config) -> Any:
 def eval_tile_mesh(cfg: Config) -> Optional[Tuple[int, int]]:
     """The rank group `(rank, R)` whose ranks share each image's tile grid in
     `MscEval` (tile-sharded eval), when this process is one of R > 1 ranks
-    and runtime.tile_parallel_eval is true (the default); else None, and
-    each rank scores its share of the frames."""
+    on the data axis of the current mesh (`core/mesh.py:current`) and
+    runtime.tile_parallel_eval is true (the default); else None, and each
+    data rank scores its share of the frames."""
     from cabinet_tpu_torch.core import mesh
 
-    if not bool(cfg.select("runtime.tile_parallel_eval", True)) or not mesh.is_distributed():
+    d, n_data = mesh.data_world()
+    if not bool(cfg.select("runtime.tile_parallel_eval", True)) or n_data == 1:
         return None
-    return mesh.world()
+    return d, n_data

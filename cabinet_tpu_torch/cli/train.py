@@ -55,12 +55,26 @@ over the ranks. Rank 0 alone writes the logs, `metrics.jsonl`, the
 checkpoints and the config; every rank reads a resume; the early-stopping
 verdict is rank 0's.
 
-Tile-sharded eval: with R > 1 ranks and `runtime.tile_parallel_eval=true`
-(the default) the per-epoch and final evaluations share each image's
-tiles over the ranks (`eval/evaluator.py`, `cli/common.py:eval_tile_mesh`):
-every rank scores every frame and holds the same confusion matrix. With
-`runtime.tile_parallel_eval=false` each rank scores its share of the
+Tile-sharded eval: with R > 1 ranks on the data axis and
+`runtime.tile_parallel_eval=true` (the default) the per-epoch and final
+evaluations share each image's tiles over the data ranks
+(`eval/evaluator.py`, `cli/common.py:eval_tile_mesh`): every rank scores
+every frame and holds the same confusion matrix. With
+`runtime.tile_parallel_eval=false` each data rank scores its share of the
 frames and the matrices are summed.
+
+Tensor parallelism (`runtime.model_axis=M > 1`, JAX's model axis): the
+ranks form JAX's (data, model) grid, rank = d * M + m (`core/mesh.py:
+make_mesh`); the data axis is `runtime.mesh_data`, or by default JAX's
+`auto_data_axis(batch, R / M)`, and it must hold every rank: a value with
+data x M != R raises a ConfigurationError naming the key (JAX leaves
+devices idle instead). The model's wide layers are cut to each rank's
+slice of their channels under JAX's rule (`runtime.tp_min_features`,
+`models/tensor_parallel.py`); the batch, BatchNorm, the losses, the
+loaders and the evaluations' shares span the data axis; the val loss and
+the evaluations run the sharded model. The checkpoints and `.pth` files
+hold the whole tensors, as a one-rank run writes them, and a resume cuts
+them to any layout.
 
 Pipeline parallelism (`runtime.pipeline=2`, `train/pipeline.py`): the
 backbone and the decoder are two stages, stage i on cuda:(i mod the card
@@ -72,13 +86,14 @@ run on the stages' weights merged device to device; the checkpoint keeps
 one tree a stage (`train/checkpoint.py:save_pipeline_full`), and the
 `_best` and final `.pth` hold the merged EMA weights. Under torchrun each
 rank runs the whole pipeline on its card over its share of every
-microbatch (`runtime.pipeline_dp`: the rank count; JAX refuses the
-pipeline across processes).
+microbatch (`runtime.pipeline_dp`: the rank count / `runtime.pipeline_tp`;
+JAX refuses the pipeline across processes). `runtime.pipeline_tp=T > 1`
+cuts each stage's channels over model groups of T ranks;
+`runtime.eval_model_axis=E > 1` runs the evaluations on a (R / E, E) mesh
+of their own, the merged weights cut for it.
 
-Not ported, each raising NotImplementedError with the ROADMAP item it
-waits for: `runtime.model_axis > 1`, `runtime.spatial_axis`,
-`runtime.pipeline_tp > 1` and `runtime.eval_model_axis > 1` (Queue 1 item
-7, its tensor-partitioning half).
+Not ported: `runtime.spatial_axis` raises NotImplementedError naming its
+ROADMAP item (Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -101,18 +116,12 @@ from cabinet_tpu_torch.core.logging import is_primary_process, setup_logger
 
 def refuse_unported(cfg: Config) -> None:
     """Raise for the settings whose code is not ported, naming the ROADMAP
-    item each waits for."""
+    item each waits for: `runtime.spatial_axis`."""
     from cabinet_tpu_torch.core.mesh import TENSOR_PARTITIONING
 
-    checks = [
-        (int(cfg.select("runtime.model_axis", 1) or 1) > 1,
-         "runtime.model_axis > 1 (tensor parallelism)"),
-        (bool(cfg.select("runtime.spatial_axis", False)),
-         "runtime.spatial_axis (spatial partitioning)"),
-    ]
-    for on, what in checks:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet ({TENSOR_PARTITIONING})")
+    if bool(cfg.select("runtime.spatial_axis", False)):
+        raise NotImplementedError(
+            f"runtime.spatial_axis (spatial partitioning) is not ported yet ({TENSOR_PARTITIONING})")
 
 
 def pipeline_stages(cfg: Config, family: str = "cabinet") -> int:
@@ -120,10 +129,10 @@ def pipeline_stages(cfg: Config, family: str = "cabinet") -> int:
     package's refusals (ConfigurationError): CABiNet takes 2 stages,
     YOLO-sem 2 or 3; CABiNet's pipeline takes no model or spatial axis;
     `runtime.pipeline_dp` must divide the batch. The port's intra-stage
-    data parallelism is one process a rank, so a `pipeline_dp` other than
-    the rank count raises too; `runtime.pipeline_tp > 1` and
-    `runtime.eval_model_axis > 1` (tensor parallelism) raise
-    NotImplementedError."""
+    parallelism is one process a rank, so `runtime.pipeline_tp` (CABiNet's
+    per-stage model axis) and `runtime.eval_model_axis` must divide the
+    rank count, and a `pipeline_dp` other than the rank count /
+    `pipeline_tp` raises too."""
     from cabinet_tpu_torch.core import mesh
 
     n = int(cfg.select("runtime.pipeline", 0) or 0)
@@ -143,13 +152,13 @@ def pipeline_stages(cfg: Config, family: str = "cabinet") -> int:
                 "runtime.pipeline cannot combine with runtime.model_axis or "
                 "runtime.spatial_axis: pipeline stages own disjoint sub-meshes (use "
                 "runtime.pipeline_dp for intra-stage DP).")
-        for key, what in (("runtime.pipeline_tp", "runtime.pipeline_tp > 1 (tensor-"
-                           "parallel pipeline stages)"),
-                          ("runtime.eval_model_axis", "runtime.eval_model_axis > 1 "
-                           "(model-sharded eval)")):
-            if int(cfg.select(key, 1) or 1) > 1:
-                raise NotImplementedError(
-                    f"{what} is not ported yet ({mesh.TENSOR_PARTITIONING})")
+        ranks = mesh.env_world()[1]
+        for key in ("runtime.pipeline_tp", "runtime.eval_model_axis"):
+            axis = int(cfg.select(key, 1) or 1)
+            if axis < 1 or ranks % axis:
+                raise ConfigurationError(
+                    f"{key}={axis} must divide the rank count ({ranks}): each of its "
+                    f"model groups is {axis} processes, one a rank")
     elif n not in (2, 3):
         raise ConfigurationError(
             f"runtime.pipeline={n}: YOLO-sem ships 2-stage (trunk | neck+heads) and "
@@ -162,28 +171,72 @@ def pipeline_stages(cfg: Config, family: str = "cabinet") -> int:
                 f"runtime.pipeline_dp={pp_dp} must divide the per-microbatch "
                 f"batch_size ({batch})")
         ranks = mesh.env_world()[1]
-        if pp_dp != ranks:
+        pp_tp = int(cfg.select("runtime.pipeline_tp", 1) or 1) if family == "cabinet" else 1
+        if pp_dp * pp_tp != ranks:
             raise ConfigurationError(
                 f"runtime.pipeline_dp={pp_dp}: a pipeline stage's data parallelism "
-                f"is one process a rank here, and {ranks} rank(s) run; start "
-                f"{pp_dp} under torchrun, or leave runtime.pipeline_dp at 0")
+                f"is one process a rank here, and {ranks} rank(s) run "
+                f"(runtime.pipeline_tp={pp_tp}); start {pp_dp * pp_tp} under "
+                f"torchrun, or leave runtime.pipeline_dp at 0")
     return n
 
 
 def join_ranks(cfg: Config, device: Union[str, torch.device]) -> torch.device:
     """This rank's device, the process group joined when torchrun started
     several (`core/mesh.py:setup`, `runtime.dist_backend`,
-    `runtime.dist_timeout_s`); raises unless the rank count divides the
-    global batch `training_config.batch_size`, where the config has one."""
+    `runtime.dist_timeout_s`)."""
     from cabinet_tpu_torch.core import mesh
 
-    device = mesh.setup(resolve_device(device),
-                        str(cfg.select("runtime.dist_backend", "auto")),
-                        float(cfg.select("runtime.dist_timeout_s", mesh.DEFAULT_TIMEOUT_S)))
-    batch = cfg.select("training_config.batch_size", None)
-    if batch is not None:
-        mesh.local_batch_size(int(batch))
-    return device
+    mesh.set_mesh(None)  # a main before this one in the process may have set its own
+    return mesh.setup(resolve_device(device),
+                      str(cfg.select("runtime.dist_backend", "auto")),
+                      float(cfg.select("runtime.dist_timeout_s", mesh.DEFAULT_TIMEOUT_S)))
+
+
+def mesh_axes(cfg: Config, ranks: int, pp_stages: int = 0,
+              family: str = "cabinet") -> Tuple[int, int]:
+    """(n_data, n_model) of the train mesh over `ranks` processes, as JAX
+    sizes its mesh (`cabinet_tpu/cli/train.py:258-279`): n_model is
+    `runtime.model_axis` (CABiNet; 1 for YOLO-sem, whose JAX main never
+    reads the key) or under the pipeline `runtime.pipeline_tp`; n_data is
+    `runtime.mesh_data`, 0 for `auto_data_axis(batch, ranks / n_model)`
+    (the pipeline: ranks / pipeline_tp). Raises a ConfigurationError naming
+    the key unless the grid holds every rank, and unless n_data divides
+    the global batch `training_config.batch_size`."""
+    from cabinet_tpu_torch.core import mesh
+
+    batch = int(cfg.training_config.batch_size)
+    if pp_stages:
+        n_model = int(cfg.select("runtime.pipeline_tp", 1) or 1) if family == "cabinet" else 1
+        return ranks // n_model, n_model
+    n_model = int(cfg.select("runtime.model_axis", 1) or 1) if family == "cabinet" else 1
+    if n_model < 1 or ranks % n_model:
+        raise ConfigurationError(f"runtime.model_axis={n_model} must divide the rank "
+                                 f"count ({ranks})")
+    key = int(cfg.select("runtime.mesh_data", 0) or 0)
+    n_data = key or mesh.auto_data_axis(batch, ranks // n_model)
+    if n_data * n_model != ranks:
+        why = ("" if key else f" (0: the largest divisor of the batch {batch} that fits "
+               f"{ranks // n_model} ranks)")
+        raise ConfigurationError(
+            f"runtime.mesh_data={key}: a data axis of {n_data}{why} x model axis "
+            f"{n_model} does not hold the {ranks} ranks; each rank is a process and "
+            f"cannot sit idle: set runtime.mesh_data to {ranks // n_model} or 0, or "
+            f"start {n_data * n_model} ranks")
+    if batch % n_data:
+        raise ConfigurationError(f"runtime.mesh_data={key}: the data axis {n_data} does "
+                                 f"not divide training_config.batch_size={batch}")
+    return n_data, n_model
+
+
+def train_mesh(cfg: Config, pp_stages: int = 0, family: str = "cabinet") -> Any:
+    """The train mesh of this process group (`mesh_axes`), made the current
+    one (`core/mesh.py:set_mesh`)."""
+    from cabinet_tpu_torch.core import mesh
+
+    m = mesh.make_mesh(*mesh_axes(cfg, mesh.world()[1], pp_stages, family))
+    mesh.set_mesh(m)
+    return m
 
 
 def epoch_batches(loader: Any) -> int:
@@ -287,8 +340,8 @@ class DeviceAugment:
             q = (int(p) - 1) % B
             if q % R == r:
                 img_buf[j], lbl_buf[j] = x[q // R], labels[q // R]
-        mesh.all_reduce_(img_buf, tag="mixup")
-        mesh.all_reduce_(lbl_buf, tag="mixup")
+        mesh.all_reduce_(img_buf, tag="mixup", group=mesh.data_group())
+        mesh.all_reduce_(lbl_buf, tag="mixup", group=mesh.data_group())
         img, lbl = x.clone(), labels.clone()
         for j, p in enumerate(blend):
             if int(p) % R == r:
@@ -334,8 +387,9 @@ def _metrics_line(path: Path, record: Dict[str, Any]) -> None:
 
 def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                        ) -> Dict[str, Any]:
-    """Train `cfg` on one device (one rank of several under torchrun; with
-    `runtime.pipeline=2`, its stages on their devices) and return
+    """Train `cfg` on one device (one rank of several under torchrun, on
+    the (data, model) mesh of `train_mesh`; with `runtime.pipeline=2`, its
+    stages on their devices) and return
     {"best_miou", "final" (the final multi-scale eval's result),
     "timing"}. `timing` holds the training loops' seconds, the part of them
     spent waiting on the train loader and the seconds of device
@@ -351,6 +405,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     )
     from cabinet_tpu_torch.data.loader import DataLoader
     from cabinet_tpu_torch.eval.evaluator import MscEval
+    from cabinet_tpu_torch.models.tensor_parallel import reshard_state, tensor_parallel
     from cabinet_tpu_torch.train.checkpoint import CheckpointManager
     from cabinet_tpu_torch.train.early_stopping import EarlyStopping
     from cabinet_tpu_torch.train.optimizer import GroupedSGD
@@ -372,7 +427,15 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     refuse_unported(cfg)
     device = join_ranks(cfg, device)
     rank, ranks = mesh.world()
-    shard = (rank, ranks) if ranks > 1 else None
+    train_m = train_mesh(cfg, pp_stages)  # the data x model grid of the ranks
+    shard = (train_m.data_rank, train_m.n_data) if train_m.n_data > 1 else None
+    tp_min = int(cfg.select("runtime.tp_min_features", 256))
+    # the evaluations' mesh: the train mesh, or under the pipeline JAX's
+    # global eval mesh, its model axis runtime.eval_model_axis
+    eval_m = train_m
+    if pp_stages:
+        e = int(cfg.select("runtime.eval_model_axis", 1) or 1)
+        eval_m = mesh.make_mesh(ranks // e, e)
     tc, vc = cfg.training_config, cfg.validation_config
     logger = setup_logger("cabinet_tpu_torch.train", tc.experiments_path)
     common.seed_everything(cfg.runtime.seed)
@@ -385,10 +448,14 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                                   num_workers=tc.num_workers, seed=cfg.runtime.seed,
                                   shard=shard)
     dl_val = DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers, shard=shard)
-    # tile-sharded eval: every rank scores every frame, its tiles shared
-    tile_mesh = common.eval_tile_mesh(cfg)
-    dl_eval = (dl_val if tile_mesh is None
-               else DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers))
+    # tile-sharded eval: every rank scores every frame, its tiles shared over
+    # the eval mesh's data axis; else each data rank scores its frames
+    with mesh.using(eval_m):
+        tile_mesh = common.eval_tile_mesh(cfg)
+    eval_shard = None if tile_mesh or eval_m.n_data == 1 else (eval_m.data_rank, eval_m.n_data)
+    dl_eval = (dl_val if eval_shard == shard
+               else DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers,
+                               shard=eval_shard))
 
     # ---- model ----------------------------------------------------------
     n_classes = cfg.dataset.num_classes
@@ -410,6 +477,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         logger.info(f"Warm-started {len(keys)} tensors from {tc.pretrained_ckpt_path}")
     model.to(device)
     mesh.broadcast_module_(model)
+    tensor_parallel(model, train_m, tp_min)  # this rank's slices of the wide layers
 
     # ---- class weights ---------------------------------------------------
     class_weights = None
@@ -485,26 +553,30 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
                                      "best_epoch": restored["early_stop_best_epoch"]})
             logger.info(f"Resumed from epoch {restored['epoch']} (step {loop.step})")
     logger.info(f"{len(devices)} stage(s) on {devices}; rank {rank} of {ranks}; "
+                f"mesh {train_m.shape} (eval {eval_m.shape}); "
                 f"max_iter={max_iter}; n_min={n_min}; accum={accum}; "
                 f"tile-sharded eval {tile_mesh is not None}")
 
     # ---- evaluation on a copy of the EMA weights (merged device to device
-    # under the pipeline) ----------------------------------------------------
-    eval_model = common.build_model(cfg, n_classes)
+    # under the pipeline; cut for the eval mesh) -----------------------------
+    eval_model = tensor_parallel(common.build_model(cfg, n_classes), eval_m, tp_min)
     crop = max(crop_h, crop_w)
 
     def ema_forward():
-        eval_model.load_state_dict(loop.weights(ema=True, device=device), strict=True)
+        eval_model.load_state_dict(reshard_state(loop.weights(ema=True, device=device),
+                                                 model, eval_model), strict=True)
         return make_eval_forward(eval_model, crop, device, dtype, use_pallas=use_pallas,
                                  fused_tail="false")
 
-    def evaluator(scales, flip, pad_to):
-        return MscEval(ema_forward(), n_classes, ignore_label=cfg.dataset.ignore_idx,
-                       scales=tuple(scales), flip=flip, cropsize=crop,
-                       compute_dtype=dtype, pad_to=pad_to,
-                       tile_batch=common.eval_tile_batch(cfg),
-                       acc_dtype=common.eval_acc_dtype(cfg), device=device,
-                       tile_mesh=tile_mesh)
+    def evaluate(scales, flip, pad_to, progress=False):
+        forward = ema_forward()
+        with mesh.using(eval_m):
+            return MscEval(forward, n_classes, ignore_label=cfg.dataset.ignore_idx,
+                           scales=tuple(scales), flip=flip, cropsize=crop,
+                           compute_dtype=dtype, pad_to=pad_to,
+                           tile_batch=common.eval_tile_batch(cfg),
+                           acc_dtype=common.eval_acc_dtype(cfg), device=device,
+                           tile_mesh=tile_mesh).evaluate(None, dl_eval, progress=progress)
 
     # metrics.jsonl: resumed runs append to the same file, so every run opens
     # with a marker line and tags its epoch lines with its id.
@@ -560,21 +632,25 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             model.load_state_dict(loop.weights(device=device), strict=True)
             val_losses = [float(eval_loss_step(*batch_to(b, device))) for b in dl_val]
             total, count = mesh.all_reduce_(mesh.host_tensor(
-                [sum(val_losses), len(val_losses)], torch.float64)).tolist()
+                [sum(val_losses), len(val_losses)], torch.float64),
+                group=mesh.data_group()).tolist()
             val_loss = float(total / count) if count else float("nan")
             best_loss = min(best_loss, val_loss)
 
             fitness = None
             if (epoch + 1) % int(vc.eval_every_n_epochs) == 0:
-                res = evaluator((1.0,), False, common.eval_pad_to(cfg)).evaluate(None, dl_eval)
-                fitness = res["mIoU"]
+                res = evaluate((1.0,), False, common.eval_pad_to(cfg))
+                # rank 0's mIoU decides, so that every rank takes the branch
+                # below, with its gather, together: a rank whose cuDNN picked
+                # another algorithm may round a near tie the other way
+                fitness = float(mesh.broadcast_(mesh.host_tensor(res["mIoU"], torch.float64),
+                                                tag="broadcast"))
                 logger.info(f"epoch {epoch}: val_loss {val_loss:.4f} mIoU {fitness:.4f} "
                             f"({time.time() - t0:.1f}s)")
-                if fitness > best_miou:
+                if fitness > best_miou:  # every rank: a gather of the slices
                     best_miou = fitness
-                    if primary:
-                        ckpt.save_variables(f"{tc.model_save_name}_best",
-                                            loop.weights(ema=True))
+                    ckpt.save_variables(f"{tc.model_save_name}_best",
+                                        loop.full_weights(ema=True))
             timing["eval_seconds"] += time.perf_counter() - te
 
             if write_metrics:
@@ -587,9 +663,8 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
 
             should_stop = bool(mesh.broadcast_(mesh.host_tensor(
                 int(stopper(epoch, fitness)), torch.int64)))  # rank 0's verdict
-            if primary:
-                ckpt.save_full("checkpoint_last", loop.state, epoch, best_miou, best_loss,
-                               stopper.state_dict())
+            ckpt.save_full("checkpoint_last", loop.state, epoch, best_miou, best_loss,
+                           stopper.state_dict())  # rank 0 writes
             if should_stop:
                 logger.info(f"Early stopping at epoch {epoch} (best "
                             f"{stopper.best_fitness:.4f} @ {stopper.best_epoch})")
@@ -599,14 +674,13 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     finally:  # the workers start in the loop (runtime.loader=grain)
         dl_train.close()
 
+    ckpt.save_variables(tc.model_save_name, loop.full_weights(ema=True))  # rank 0 writes
     if primary:
-        ckpt.save_variables(tc.model_save_name, loop.weights(ema=True))
         save_config(cfg, Path(tc.experiments_path) / "config.yaml")
 
     te = time.perf_counter()
-    final = evaluator(vc.eval_scales, bool(vc.flip),
-                      cfg.select("validation_config.eval_pad_to", None)
-                      ).evaluate(None, dl_eval, progress=primary)
+    final = evaluate(vc.eval_scales, bool(vc.flip),
+                     cfg.select("validation_config.eval_pad_to", None), progress=primary)
     timing["final_eval_seconds"] = time.perf_counter() - te
     timing["optimizer_steps"] = loop.step - step0
     timing["collectives"] = mesh.comm_since(comm0)

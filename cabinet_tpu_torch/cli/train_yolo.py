@@ -39,6 +39,10 @@ Under torchrun each rank trains on its share of the global batch
 `core/mesh.py`; with the pipeline, each rank runs every stage on its
 card); rank 0 alone writes the checkpoints. `YoloEval` resizes whole
 frames (no tiles), so each rank scores its share of the val frames.
+`runtime.mesh_data` sizes the data axis as in `cli/train.py` (0 or the
+rank count: every rank trains); `runtime.model_axis > 1` raises, since
+tensor parallelism covers CABiNet only (JAX's YOLO main never reads the
+key).
 """
 
 from __future__ import annotations
@@ -224,6 +228,7 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
         join_ranks,
         pipeline_stages,
         refuse_unported,
+        train_mesh,
     )
     from cabinet_tpu_torch.core.exceptions import ConfigurationError
     from cabinet_tpu_torch.data.class_weights import compute_class_weights
@@ -242,9 +247,15 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
             "runtime.device_geometric is not supported by the YOLO trainer "
             "(mosaic/copy-paste compose decoded crops on the host); use "
             "runtime.device_augs for the photometric chain")
+    if int(cfg.select("runtime.model_axis", 1) or 1) > 1:
+        raise ConfigurationError(
+            "runtime.model_axis > 1: tensor parallelism (models/tensor_parallel.py) "
+            "shards CABiNet only; the JAX package's YOLO main never reads the key "
+            "and trains data-parallel")
     pp_stages = pipeline_stages(cfg, "yolosem")
     refuse_unported(cfg)
     device = join_ranks(cfg, device)
+    train_mesh(cfg, pp_stages, "yolosem")  # runtime.mesh_data must tile the ranks
     rank, ranks = mesh.world()
     shard = (rank, ranks) if ranks > 1 else None
     primary = rank == 0

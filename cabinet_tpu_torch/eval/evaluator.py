@@ -28,6 +28,12 @@ the ranks in f32, as JAX's psum, in one all-reduce (tag
 `tile_all_reduce`), then divided and cropped, so that every rank holds
 the same map, argmax and confusion matrix. Every rank scores every frame,
 and the matrix is not summed over the ranks.
+
+The ranks that share tiles or frames are the data group of the current
+mesh (`core/mesh.py:current`; R its size): on a mesh with a model axis,
+the ranks of one model group run a tensor-parallel model over the same
+tiles (JAX's model-sharded eval, `cabinet_tpu/eval/evaluator.py:106-111`),
+and nothing is summed twice.
 """
 
 from __future__ import annotations
@@ -170,7 +176,7 @@ def _sliding_probs_tile_sharded(apply_fn: ApplyFn, n_classes: int, crop: int,
             prob[:, y:y + crop, x:x + crop] += cps[i * B:(i + 1) * B]
             count[y:y + crop, x:x + crop] += 1.0
     both = torch.cat([prob.float().reshape(-1), count.reshape(-1)])
-    mesh.all_reduce_(both, tag="tile_all_reduce")
+    mesh.all_reduce_(both, tag="tile_all_reduce", group=mesh.data_group())
     prob = both[:prob.numel()].view(prob.shape).to(acc_dtype)
     count = both[prob.numel():].view(count.shape)
     prob = prob / count.clamp_min(1.0).to(acc_dtype)[None, :, :, None]
@@ -327,7 +333,7 @@ class MscEval:
         batch by batch, each copied back as it is done, and, inside a process
         group of several ranks each scoring its share of the frames, summed
         over the ranks (not with `tile_mesh`: every rank scored every
-        frame, its tiles shared). `progress` prints a
+        frame, its tiles shared), over the data group. `progress` prints a
         plain line now and then. The result's `timing` holds the loop's
         seconds, the seconds the consumer waited on the worker (in all, and
         before each batch and the end), and the frame count."""
@@ -401,9 +407,9 @@ class MscEval:
                 except queue.Empty:
                     pass
                 worker.join(timeout=0.1)
-        if mesh.is_distributed() and self.tile_mesh is None:  # a share of the frames
-            hist = mesh.all_reduce_(mesh.host_tensor(hist, torch.int64),
-                                    tag="eval").cpu().numpy()
+        if mesh.data_world()[1] > 1 and self.tile_mesh is None:  # a share of the frames
+            hist = mesh.all_reduce_(mesh.host_tensor(hist, torch.int64), tag="eval",
+                                    group=mesh.data_group()).cpu().numpy()
         result = metrics_from_hist(hist)
         result["timing"] = {"seconds": time.perf_counter() - t0,
                             "loader_wait_seconds": sum(waits),

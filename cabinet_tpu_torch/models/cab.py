@@ -5,7 +5,9 @@ Counterpart of `cabinet_tpu.models.cab`: PSPModule, GlobalContextAttention
 the einsum path, in place of JAX's `use_pallas`), LocalAttention and
 ContextAggregationBlock. Children follow the
 reference state-dict keys (`global_attn.to_query.0`, `local_attn.refine.0.block.0`,
-`gamma`, ...).
+`gamma`, ...). In a tensor-parallel model (`models/tensor_parallel.py`)
+the PSP's concatenation and the attention's q, k and v take whole
+channels: a slice is gathered first (`full_channels`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cabinet_tpu_torch.models.layers import DWConv, adaptive_avg_pool2d, batch_norm
+from cabinet_tpu_torch.models.tensor_parallel import applied_to, full_channels
 from cabinet_tpu_torch.ops.attention import (
     fused_global_attention,
     global_attention_plain,
@@ -63,10 +66,12 @@ class PSPModule(nn.Module):
     def __init__(self, channels: int, sizes: Sequence[int] = (1, 3, 6, 8)):
         super().__init__()
         self.sizes = tuple(sizes)
+        self.channels = channels
         self.project = nn.Conv2d(channels * (len(self.sizes) + 1), channels, 1,
                                  bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = full_channels(x, self.channels, self)
         hw = x.shape[2:]
         priors = [x] + [resize_bilinear(adaptive_avg_pool2d(x, (s, s)), hw)
                         for s in self.sizes]
@@ -85,6 +90,7 @@ class GlobalContextAttention(nn.Module):
             raise ValueError(f"attention must be one of {sorted(ATTENTION)}, "
                              f"got {attention!r}")
         self.scale = scale
+        self.in_channels, self.key_channels = in_channels, key_channels
         self.value_channels = value_channels
         self.attention = attention
         self.to_query = nn.Sequential(
@@ -101,6 +107,7 @@ class GlobalContextAttention(nn.Module):
         nn.init.zeros_(self.project_out.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = full_channels(x, self.in_channels, self)  # one gather for q, k and v
         B, _, H, W = x.shape
         x_down = x
         if self.scale > 1:
@@ -110,9 +117,10 @@ class GlobalContextAttention(nn.Module):
         def tokens(t: torch.Tensor) -> torch.Tensor:  # (B,C,h,w) -> (B,h*w,C)
             return t.flatten(2).transpose(1, 2).contiguous()
 
-        q = tokens(self.to_query(x_down))
-        k = tokens(self.psp_key(self.to_key(x_down)))
-        v = tokens(self.psp_value(self.to_value(x_down)))
+        kc, vc = self.key_channels, self.value_channels
+        q = tokens(full_channels(self.to_query(x_down), kc, self))
+        k = tokens(full_channels(self.psp_key(self.to_key(x_down)), kc, self))
+        v = tokens(full_channels(self.psp_value(self.to_value(x_down)), vc, self))
         context = ATTENTION[self.attention](q, k, v)
         context = context.transpose(1, 2).reshape(B, self.value_channels, Hd, Wd)
         context = self.project_out(context)
@@ -139,6 +147,7 @@ class ContextAggregationBlock(nn.Module):
     def __init__(self, in_channels: int, value_channels: int,
                  attention: str = "einsum"):
         super().__init__()
+        self.channels = in_channels
         self.gamma = nn.Parameter(torch.zeros(1))
         self.global_attn = GlobalContextAttention(
             in_channels, key_channels=in_channels // 2,
@@ -148,4 +157,5 @@ class ContextAggregationBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         global_feat = self.global_attn(x)
-        return self.gamma.to(x.dtype) * global_feat + self.local_attn(x)
+        gamma = applied_to(self.gamma, global_feat, self.channels, self)
+        return gamma.to(x.dtype) * global_feat + self.local_attn(x)

@@ -11,6 +11,9 @@ Counterpart of `cabinet_tpu.models.cabinet`:
     the input size.
 
 Modules take and return NCHW; children follow the reference state-dict keys.
+In a tensor-parallel model (`models/tensor_parallel.py`) a slice of
+channels is gathered where the branches concatenate and at the logits
+(`full_channels`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from cabinet_tpu_torch.core.constants import MODEL_CONFIG
 from cabinet_tpu_torch.models.cab import ContextAggregationBlock, resize_bilinear
 from cabinet_tpu_torch.models.layers import ConvBNReLU, batch_norm
 from cabinet_tpu_torch.models.mobilenetv3 import MobileNetV3, default_cfgs
+from cabinet_tpu_torch.models.tensor_parallel import full_channels
 
 
 class SpatialBranch(nn.Module):
@@ -49,6 +53,7 @@ class AttentionBranch(nn.Module):
     def __init__(self, inplanes: int, interplanes: int, outplanes: int,
                  num_classes: int, attention: str = "einsum"):
         super().__init__()
+        self.inplanes, self.interplanes, self.num_classes = inplanes, interplanes, num_classes
         self.conva = nn.Sequential(
             nn.Conv2d(inplanes, interplanes, 3, padding=1, bias=False),
             batch_norm(interplanes), nn.ReLU())
@@ -62,10 +67,11 @@ class AttentionBranch(nn.Module):
         self.b4 = nn.Conv2d(outplanes, num_classes, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        feat = self.a2block(self.conva(x))
+        x = full_channels(x, self.inplanes, self)  # for conva and b1's concatenation
+        feat = full_channels(self.a2block(self.conva(x)), self.interplanes, self)
         low_res_out = self.convb(feat)
         fused = self.b3(self.b2(self.b1(torch.cat([x, feat], dim=1))))
-        return low_res_out, self.b4(fused)
+        return low_res_out, full_channels(self.b4(fused), self.num_classes, self)
 
 
 class FeatureFusionModule(nn.Module):
@@ -90,11 +96,12 @@ class CABiNetOutput(nn.Module):
 
     def __init__(self, in_channels: int, mid_channels: int, n_classes: int):
         super().__init__()
+        self.n_classes = n_classes
         self.conv = ConvBNReLU(in_channels, mid_channels, kernel_size=3, padding=1)
         self.conv_out = nn.Conv2d(mid_channels, n_classes, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv_out(self.conv(x))
+        return full_channels(self.conv_out(self.conv(x)), self.n_classes, self)
 
 
 class CABiNet(nn.Module):
@@ -158,8 +165,9 @@ class CABiNet(nn.Module):
     def _decode(self, x: torch.Tensor, mobile_feat: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         H, W = x.shape[2:]
-        feat_sb = self.sb(x)
+        feat_sb = full_channels(self.sb(x), 128, self.ffm)  # FFM's concatenation
         low_res, aux = self.ab(mobile_feat)
+        low_res = full_channels(low_res, 256, self.ffm)  # before the resize: 1/16 the bytes
         sb_hw = feat_sb.shape[2:]
         feat_fuse = self.ffm(feat_sb, resize_bilinear(low_res, sb_hw))
         final = resize_bilinear(self.conv_out(feat_fuse), (H, W))

@@ -5,8 +5,9 @@ the reference torch state-dict keys, so a reference `.pth` loads with
 `load_state_dict(strict=True)`. BatchNorm uses eps 1e-5 and torch momentum 0.1
 (flax momentum 0.9), as in the JAX package; in train mode the running
 variance takes the biased batch variance, as flax's does. Inside a process
-group of more than one rank, train-mode statistics are taken over every
-rank's batch (data parallelism: the statistics of the global batch).
+group whose data axis holds more than one rank (`core/mesh.py:current`),
+train-mode statistics are taken over every data rank's batch (data
+parallelism: the statistics of the global batch).
 """
 
 from __future__ import annotations
@@ -63,9 +64,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     term comes off. Eval mode, the state-dict keys (`num_batches_tracked`
     included) and the momentum are torch's.
 
-    Inside a process group of more than one rank (`core/mesh.py`), a
+    With more than one rank on the data axis (`core/mesh.py:current`), a
     train-mode forward takes its statistics over the global batch
-    (`_global_forward`). `torch.nn.SyncBatchNorm` does not serve: it runs
+    (`_global_forward`); a tensor-parallel model's BatchNorm of split
+    channels (`models/tensor_parallel.py`) does so on this rank's channels. `torch.nn.SyncBatchNorm` does not serve: it runs
     on CUDA tensors only and keeps torch's unbiased running variance."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +75,7 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         from cabinet_tpu_torch.core import mesh
 
-        if mesh.is_distributed():
+        if mesh.data_world()[1] > 1:
             return self._global_forward(x)
         before = self.running_var.clone()
         y = super().forward(x)
@@ -85,10 +87,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over every rank's pixels. Each rank takes its pixels'
-        count, mean and sum of squared deviations per channel in f32; one
-        differentiable all-reduce of a buffer with a row per rank (the
-        other rows zero) gives every rank all of them, and Chan's parallel
+        """Train mode over every data rank's pixels. Each rank takes its
+        pixels' count, mean and sum of squared deviations per channel in
+        f32; one differentiable all-reduce over the data group of a buffer
+        with a row per data rank (the other rows zero) gives every rank all
+        of them, and Chan's parallel
         formula merges them (mean of the means by count; the deviations
         plus count * (rank mean - mean)^2), so that no E[x^2] - E[x]^2
         cancels: a channel of small variance and large mean would lose its
@@ -99,7 +102,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         dtype."""
         from cabinet_tpu_torch.core import mesh
 
-        rank, ranks = mesh.world()
+        rank, ranks = mesh.data_world()
         C = x.shape[1]
         xf = x.float()
         m = xf.mean(dim=(0, 2, 3))
@@ -107,7 +110,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         mine = torch.cat([m, m2, xf.new_full((1,), float(xf.numel() // C))])
         zero = torch.zeros_like(mine)
         rows = mesh.all_reduce_grad(torch.stack([mine if r == rank else zero
-                                                 for r in range(ranks)]), tag="batch_norm")
+                                                 for r in range(ranks)]), tag="batch_norm",
+                                      group=mesh.data_group())
         means, m2s, counts = rows[:, :C], rows[:, C:2 * C], rows[:, 2 * C:]
         n = counts.sum()
         mean = (counts * means).sum(dim=0) / n

@@ -20,6 +20,14 @@ spans a checkpoint, the epoch's flush closes it) under `stages`, and
 `<name>_best` and the final `<name>`), the reference `.pth` format that
 `cli/evaluate.py` and `cli/infer.py` load.
 
+A tensor-parallel run (`models/tensor_parallel.py`) writes the same files
+as a one-rank run, as JAX's orbax save writes global arrays: its slices
+(the model's, the momentum's, the EMA's and the window's gradients) are
+gathered whole over the model group before the write, so every rank of
+the group calls `save_full`; a restore cuts the whole tensors to the
+slices the state holds, under any layout. The manager writes on the
+process group's rank 0 only.
+
 An orbax checkpoint directory raises: reading one needs orbax and
 tensorstore. Convert it with the JAX package's `cli/convert_checkpoint.py`.
 """
@@ -34,7 +42,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from cabinet_tpu_torch.core import mesh
 from cabinet_tpu_torch.core.exceptions import ModelLoadError
+from cabinet_tpu_torch.models import tensor_parallel as tp
 
 _NO_META = {"epoch": 0, "best_miou": 0.0, "best_loss": float("inf"),
             "early_stop_best_fitness": 0.0, "early_stop_best_epoch": 0}
@@ -64,12 +74,28 @@ def _load(path: Path) -> Any:
     return torch.load(str(path), map_location="cpu", weights_only=True)
 
 
+def _momentum(optimizer: Any, model: Any, fn: Any) -> dict:
+    """The optimizer's state dict with its momentum buffers, by parameter
+    name, replaced by `fn(buffers)`'s."""
+    sd = optimizer.state_dict()
+    names = tp.by_name(optimizer.parameters(), model)
+    bufs = {names[i]: st["momentum_buffer"] for i, st in sd["state"].items()
+            if st.get("momentum_buffer") is not None}
+    new = fn(bufs)
+    return {**sd, "state": {i: ({**st, "momentum_buffer": new[names[i]]}
+                                if names[i] in new else st)
+                            for i, st in sd["state"].items()}}
+
+
 class CheckpointManager:
-    """`.pth` checkpoints under `directory`, with a metadata sidecar."""
+    """`.pth` checkpoints under `directory`, with a metadata sidecar,
+    written by the process group's rank 0 (`writes`)."""
 
     def __init__(self, directory: Union[str, Path]):
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.writes = mesh.world()[0] == 0
+        if self.writes:
+            self.directory.mkdir(parents=True, exist_ok=True)
 
     def path(self, name: str) -> Path:
         return self.directory / f"{name}.pth"
@@ -77,27 +103,40 @@ class CheckpointManager:
     # ---------------------------------------------------------------- full
     @staticmethod
     def _state_tree(state: Any) -> Dict[str, Any]:
-        params = dict(state.model.named_parameters())
-        sd = state.model.state_dict()
+        """The state's tree, a tensor-parallel model's slices gathered whole
+        (a collective over its model group)."""
+        model = state.model
+        params = dict(model.named_parameters())
+        sd = tp.gather_state(model.state_dict(), model)
         return {
             "params": {k: v for k, v in sd.items() if k in params},
             "batch_stats": {k: v for k, v in sd.items() if k not in params},
-            "opt_state": state.optimizer.state_dict(),
+            "opt_state": _momentum(state.optimizer, model,
+                                   lambda b: tp.gather_state(b, model)),
             "step": int(state.step),
-            "ema_variables": state.ema.state_dict(),
+            "ema_variables": tp.gather_state(state.ema.state_dict(), model),
             "ema_updates": int(state.ema.updates),
         }
 
     @staticmethod
     def _restore_state(state: Any, tree: Dict[str, Any]) -> None:
-        state.model.load_state_dict({**tree["params"], **tree["batch_stats"]}, strict=True)
+        """Into `state`, whole tensors cut to the slices its model holds."""
+        model = state.model
+        model.load_state_dict(tp.shard_state({**tree["params"], **tree["batch_stats"]}, model),
+                              strict=True)
         state.optimizer.load_state_dict(tree["opt_state"])
+        if tp.mesh_of(model) is not None:
+            sliced = _momentum(state.optimizer, model, lambda b: tp.shard_state(b, model))
+            state.optimizer.load_state_dict(sliced)
         state.step = int(tree["step"])
-        state.ema.load_state_dict(tree["ema_variables"], tree["ema_updates"])
+        state.ema.load_state_dict(tp.shard_state(tree["ema_variables"], model),
+                                  tree["ema_updates"])
 
     def _save_tree(self, name: str, tree: Dict[str, Any], epoch: int, best_miou: float,
                    best_loss: float, stopper_state: Dict[str, Any], **extra) -> Path:
         path = self.path(name)
+        if not self.writes:
+            return path
         _save(_cpu(tree), path)
         meta = {
             "epoch": int(epoch),
@@ -121,12 +160,15 @@ class CheckpointManager:
     def save_full(self, name: str, state: Any, epoch: int, best_miou: float,
                   best_loss: float, stopper_state: Dict[str, Any]) -> Path:
         """`state` a `TrainState`, or a pipeline's list of stage states
-        (`save_pipeline_full`)."""
+        (`save_pipeline_full`). Every rank of a tensor-parallel model's
+        group calls it."""
         if isinstance(state, (list, tuple)):
             return self.save_pipeline_full(name, state, epoch, best_miou, best_loss,
                                            stopper_state)
+        if not self.writes and tp.mesh_of(state.model) is None:
+            return self.path(name)
         tree = {**self._state_tree(state), "micro_step": int(state.micro_step),
-                "accum_grads": state.accum_grads}
+                "accum_grads": tp.gather_state(state.accum_grads, state.model)}
         return self._save_tree(name, tree, epoch, best_miou, best_loss, stopper_state)
 
     def restore_full(self, name: str, state: Any) -> Optional[Dict[str, Any]]:
@@ -141,7 +183,7 @@ class CheckpointManager:
         tree, meta = loaded
         self._restore_state(state, tree)
         state.micro_step = int(tree["micro_step"])
-        state.load_accum_grads(tree["accum_grads"])
+        state.load_accum_grads(tp.shard_state(tree["accum_grads"], state.model))
         return {"state": state, **meta}
 
     # ------------------------------------------------------------ pipeline
@@ -149,6 +191,8 @@ class CheckpointManager:
                            best_miou: float, best_loss: float,
                            stopper_state: Dict[str, Any]) -> Path:
         """A pipeline-parallel run's full state: one tree a stage."""
+        if not self.writes and all(tp.mesh_of(s.model) is None for s in states):
+            return self.path(name)
         tree = {"stages": [self._state_tree(s) for s in states]}
         return self._save_tree(name, tree, epoch, best_miou, best_loss, stopper_state,
                                pipeline_stages=len(states))
@@ -170,8 +214,10 @@ class CheckpointManager:
 
     # ------------------------------------------------------------ variables
     def save_variables(self, name: str, variables: Dict[str, torch.Tensor]) -> Path:
+        """A whole state dict (a tensor-parallel run's gathered first)."""
         path = self.path(name)
-        _save(_cpu(dict(variables)), path)
+        if self.writes:
+            _save(_cpu(dict(variables)), path)
         return path
 
     def restore_variables(self, name: str) -> Dict[str, torch.Tensor]:

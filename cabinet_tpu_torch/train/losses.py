@@ -18,8 +18,9 @@ gradients match it:
     `torch.topk` gives the same value with a gradient on the tied
     elements, which is why `"topk"` is not the trainer's method.
 
-With `share=True` inside a process group of R > 1 ranks (data
-parallelism), OHEM and the CE mean are the global batch's: the valid
+With `share=True` and R > 1 ranks on the data axis (data parallelism;
+`core/mesh.py:current`, whose data group the reductions span), OHEM and
+the CE mean are the global batch's: the valid
 count, the k-th loss and the sums above it span every rank's pixels, and
 each rank returns its share of the global loss (its own pixels' part of
 the sums over the global divisors), so that the shares add up to the
@@ -86,10 +87,11 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, n_min: int,
     fill below are the plain selection."""
     if method not in ("topk", "bisect"):
         raise ValueError(f"Unknown OHEM method: {method}")
-    rank, size = mesh.world() if share else (0, 1)
+    rank, size = mesh.data_world() if share else (0, 1)
+    group = mesh.data_group()
 
     def total(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        return mesh.all_reduce_(t, op=op, tag="loss") if size > 1 else t
+        return mesh.all_reduce_(t, op=op, tag="loss", group=group) if size > 1 else t
 
     loss, valid = _per_pixel_ce(logits, labels, ignore_label, class_weights)
     flat = torch.where(valid.reshape(-1), loss.reshape(-1),
@@ -180,7 +182,7 @@ def cross_entropy_mean(logits: torch.Tensor, labels: torch.Tensor,
         den = torch.where(valid, w, torch.zeros_like(w)).sum()
     else:
         den = valid.sum().float()
-    if share and mesh.is_distributed():
-        den = mesh.all_reduce_(den.detach().clone(), tag="loss")
+    if share and mesh.data_world()[1] > 1:
+        den = mesh.all_reduce_(den.detach().clone(), tag="loss", group=mesh.data_group())
     return torch.where(den > 0, loss.sum() / torch.clamp(den, min=1e-12),
                        loss.new_zeros(()))

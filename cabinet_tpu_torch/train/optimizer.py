@@ -23,7 +23,11 @@ The numbers are the JAX package's (reference src/utils/optimizer.py:34-156):
     lr(x) = lr0 * ((1 - cos(pi x)) / 2 * (lrf - 1) + 1), x the share of the
     steps after warmup, clamped to [0, 1], in f32, op by op as the JAX
     function computes it (XLA's fused program may contract a multiply-add
-    into one rounding, 1 ulp apart at some counts).
+    into one rounding, 1 ulp apart at some counts);
+  - over a tensor-parallel model (`models/tensor_parallel.py`) the
+    momentum of a split leaf is this rank's slice, and the clip's global
+    norm is optax's over the whole arrays: each slice's squares summed
+    over the model group, each replicated leaf's counted once.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import functools
-from typing import Callable, Dict, Iterable, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -136,14 +140,19 @@ class ScheduledSGD:
     """`torch.optim.SGD` (momentum, dampening 0, no Nesterov) over `groups`
     (`param_groups`' dicts), with the lr of each group, schedule(count)
     times its `lr_scale`, set from the optimizer-step count before every
-    step, and optax's clipping of the global norm."""
+    step, and optax's clipping of the global norm. `model` given, its
+    tensor-parallel slices (if any) count once in that norm."""
 
     def __init__(self, groups: List[dict], schedule: Callable[[int], float],
-                 momentum: float, max_grad_norm=None):
+                 momentum: float, max_grad_norm=None, model: Optional[nn.Module] = None):
+        from cabinet_tpu_torch.models import tensor_parallel as tp
+
         self.schedule = schedule
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm else None
         self.sgd = torch.optim.SGD(groups, lr=0.0, momentum=momentum, dampening=0.0,
                                    nesterov=False)
+        self.tp_mesh = None if model is None else tp.mesh_of(model)
+        self.sharded: Set[int] = set() if model is None else tp.sharded_parameter_ids(model)
 
     def set_lr(self, count: int) -> None:
         lr = np.float32(self.schedule(count))
@@ -154,7 +163,8 @@ class ScheduledSGD:
         """One update from the gradients in `.grad`, at optimizer step
         `count` (the count before this step, as optax's)."""
         if self.max_grad_norm is not None:
-            clip_by_global_norm(self.parameters(), self.max_grad_norm)
+            clip_by_global_norm(self.parameters(), self.max_grad_norm,
+                                self.sharded, self.tp_mesh)
         self.set_lr(count)
         self.sgd.step()
 
@@ -179,7 +189,7 @@ class GroupedSGD(ScheduledSGD):
         super().__init__(param_groups(model, wd, lr_multiplier, decoder_modules),
                          warmup_poly_schedule(lr0, max_iter, power, warmup_steps,
                                               warmup_start_lr),
-                         momentum, max_grad_norm)
+                         momentum, max_grad_norm, model)
 
 
 def build_sgd(model: nn.Module, schedule: Callable[[int], float],
@@ -193,19 +203,31 @@ def build_sgd(model: nn.Module, schedule: Callable[[int], float],
 
 
 @torch.no_grad()
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every tensor, in f32 (`optax.global_norm`)."""
-    sq = [t.float().square().sum() for t in tensors]
-    return torch.sqrt(torch.stack(sq).sum())
+def squared_norm(params: Sequence[torch.Tensor], sharded: Set[int], tp_mesh: Any
+                 ) -> torch.Tensor:
+    """The sum of squares of the `.grad` of `params` in f32, the slices'
+    (`sharded`, by id) summed over `tp_mesh`'s model group: the whole
+    arrays' sum, on every rank of the group."""
+    from cabinet_tpu_torch.core import mesh
+
+    grads = [p for p in params if p.grad is not None]
+    part = [p.grad.float().square().sum() for p in grads if id(p) in sharded]
+    rest = [p.grad.float().square().sum() for p in grads if id(p) not in sharded]
+    sq = torch.stack(rest).sum() if rest else torch.zeros(())
+    if part:
+        sq = sq + mesh.all_reduce_(torch.stack(part).sum().reshape(1), tag="tp_grad_norm",
+                                   group=tp_mesh.model_group)[0]
+    return sq
 
 
 @torch.no_grad()
-def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """Clip the `.grad` of `params` in optax's form; returns the norm. No
-    host sync: the clipped and unclipped values are selected on the device."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = global_norm(grads)
-    clip_to_norm_(grads, norm, max_norm)
+def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: float,
+                        sharded: Set[int] = frozenset(), tp_mesh: Any = None) -> torch.Tensor:
+    """Clip the `.grad` of `params` in optax's form; returns the norm (over
+    the whole arrays of a tensor-parallel model: `squared_norm`). No host
+    sync: the clipped and unclipped values are selected on the device."""
+    norm = torch.sqrt(squared_norm(params, sharded, tp_mesh))
+    clip_to_norm_([p.grad for p in params if p.grad is not None], norm, max_norm)
     return norm
 
 

@@ -41,6 +41,15 @@ whole pipeline on its own card over its share of every microbatch:
 BatchNorm, OHEM and the CE take the global microbatch, and each stage's
 gradients are all-reduced before the clip (JAX runs the pipeline in one
 process and refuses several).
+
+Tensor-parallel stages (`runtime.pipeline_tp`, JAX's per-stage model
+axis): when `model` is cut to its slices (`models/tensor_parallel.py`),
+each stage holds its modules' slices and runs them over the model group
+of the current mesh (`core/mesh.py`), whose data group then carries the
+microbatch's share; the gradients are reduced by role
+(`trainer._all_reduce_grads`) and the clip's norm counts each slice once.
+`merged` gives the slices, `PipelineTrainLoop.full_weights` the whole
+tensors.
 """
 
 from __future__ import annotations
@@ -54,11 +63,12 @@ from torch import nn
 
 from cabinet_tpu_torch.core import mesh
 from cabinet_tpu_torch.core.device import resolve_device
+from cabinet_tpu_torch.models import tensor_parallel as tp
 from cabinet_tpu_torch.models.cabinet import CABiNet
 from cabinet_tpu_torch.models.mobilenetv3 import _running_stats_kept
 from cabinet_tpu_torch.models.yolosem import YOLOSem
 from cabinet_tpu_torch.train.ema import ModelEMA
-from cabinet_tpu_torch.train.optimizer import ScheduledSGD, clip_to_norm_
+from cabinet_tpu_torch.train.optimizer import ScheduledSGD, clip_to_norm_, squared_norm
 from cabinet_tpu_torch.train.trainer import (
     TrainState,
     _all_reduce_grads,
@@ -275,8 +285,8 @@ class CabinetPipeline:
 
     def init_state(self, variables: Dict[str, torch.Tensor]) -> List[TrainState]:
         """Each stage's modules (copies of the model's), loaded from its part
-        of the state dict `variables`, on its device, with its optimizer and
-        EMA."""
+        of the state dict `variables` (a tensor-parallel model's: its
+        slices), on its device, with its optimizer and EMA."""
         states = []
         for keys, part, device in zip(self.stage_keys,
                                       split_variables(variables, self.stage_keys),
@@ -318,7 +328,7 @@ class CabinetPipeline:
         feat = _tree_map(lambda t: t.detach().requires_grad_(True), feat)
         with einsum_attention(stage):
             final, aux = self._run(len(self.devices) - 1, stage, x, feat)
-        share = mesh.is_distributed()
+        share = mesh.data_world()[1] > 1
         loss = (self.seg_loss(final, labels, share)
                 + self.aux_weight * self.seg_loss(aux, labels, share)) / self.M
         loss.backward()
@@ -394,24 +404,26 @@ class CabinetPipeline:
         assert not any(inputs), "pipeline flush left undrained backwards"
         self._update(states)
         loss = torch.stack(losses).sum()
-        if mesh.is_distributed():
-            mesh.all_reduce_(loss, tag="pipeline_loss")
+        if mesh.data_world()[1] > 1:
+            mesh.all_reduce_(loss, tag="pipeline_loss", group=mesh.data_group())
         return states, loss
 
     def _update(self, states: List[TrainState]) -> None:
         """The window's update: each stage's gradients (all-reduced over the
         ranks), clipped by the norm of them all, then its optimizer and EMA."""
-        grads = []
+        grads, sqs = [], []
         for s in states:
             params = s.optimizer.parameters()
             for p in params:
                 if p.grad is None:  # a parameter off the graph still decays, as in optax
                     p.grad = torch.zeros_like(p)
             if mesh.is_distributed():
-                _all_reduce_grads(params, tag="pipeline_grad_all_reduce")
+                _all_reduce_grads(params, tag="pipeline_grad_all_reduce", model=s.model)
             grads.append([p.grad for p in params])
+            if self.max_grad_norm is not None:  # a slice's squares over its model group
+                sqs.append(squared_norm(params, tp.sharded_parameter_ids(s.model),
+                                        tp.mesh_of(s.model)))
         if self.max_grad_norm is not None:
-            sqs = [torch.stack([g.float().square().sum() for g in gs]).sum() for gs in grads]
             for d, gs in zip(self.devices, grads):
                 norm = torch.sqrt(sum(sq.to(d, non_blocking=True) for sq in sqs))
                 clip_to_norm_(gs, norm, self.max_grad_norm)
@@ -479,3 +491,9 @@ class PipelineTrainLoop:
     def weights(self, ema: bool = False,
                 device: Optional[Union[str, torch.device]] = None) -> Dict[str, torch.Tensor]:
         return merged(self.state, ema, device)
+
+    def full_weights(self, ema: bool = False) -> Dict[str, torch.Tensor]:
+        """`weights`, tensor-parallel stages' slices gathered whole."""
+        return merge_variables([tp.gather_state(s.ema.state_dict() if ema
+                                                else s.model.state_dict(), s.model)
+                                for s in self.state])

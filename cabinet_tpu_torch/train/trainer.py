@@ -25,12 +25,21 @@ with no loss scaler, the counterpart of JAX's bf16 matmuls over f32 params
 Inside a process group of R > 1 ranks (`core/mesh.py`; data parallelism)
 each rank steps on its share of the global batch: the losses are the
 global batch's (`share=True`: the OHEM cut and the CE divisor span every
-rank's pixels), BatchNorm's statistics too (`models/layers.py`), the
+data rank's pixels), BatchNorm's statistics too (`models/layers.py`), the
 window's summed gradients are all-reduced once at the update, before the
 clipping, and the optimizer, EMA and counters then advance identically on
 every rank. The loss a step returns is the global one. The model is not
 wrapped in `DistributedDataParallel`, which would reduce at every
 backward.
+
+On a (data, model) mesh (`models/tensor_parallel.py`: the model's wide
+layers cut to this rank's slices), each kind of gradient is reduced once
+at the update (`_all_reduce_grads`): a slice's over its data group; a
+replicated weight used row-parallel, whose ranks each hold a part, over
+every rank; any other replicated parameter, whole on every rank of the
+model group, over its data group and then sent from the group's first
+rank, so that the replicated parameters stay one copy bit for bit. The
+clip's norm counts each slice once (`optimizer.py:ScheduledSGD`).
 
 The step always runs the CAB's einsum attention (on a model with a CAB),
 the function that the JAX wrapper computes off the TPU and which is
@@ -115,15 +124,40 @@ def einsum_attention(model: nn.Module):
             m.attention = a
 
 
-def _all_reduce_grads(params, tag: str = "grad_all_reduce") -> None:
-    """Sum the `.grad` of `params` over every rank, in one flat buffer."""
-    grads = [p.grad for p in params]
+def _flat_op(grads, fn) -> None:
+    """`fn` on one flat buffer of `grads`, copied back."""
+    if not grads:
+        return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    mesh.all_reduce_(flat, tag=tag)
+    fn(flat)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+def _all_reduce_grads(params, tag: str = "grad_all_reduce",
+                      model: Optional[nn.Module] = None) -> None:
+    """Sum the `.grad` of `params` over the data axis, in one flat buffer;
+    on a mesh with a model axis (`model` sharded) each by its role
+    (module docstring), tagged `tag`, `tp_grad_all_reduce` and
+    `tp_grad_broadcast`."""
+    from cabinet_tpu_torch.models import tensor_parallel as tp
+
+    m = tp.mesh_of(model) if model is not None else None
+    if m is None:
+        _flat_op([p.grad for p in params],
+                 lambda f: mesh.all_reduce_(f, tag=tag, group=mesh.data_group()))
+        return
+    roles = tp.param_roles(model)
+    kinds: Dict[str, list] = {"sharded": [], "partial": [], "replicated": []}
+    for p in params:
+        kinds[roles[id(p)]].append(p.grad)
+    _flat_op(kinds["sharded"] + kinds["replicated"],
+             lambda f: mesh.all_reduce_(f, tag=tag, group=m.data_group))
+    _flat_op(kinds["partial"], lambda f: mesh.all_reduce_(f, tag="tp_grad_all_reduce"))
+    _flat_op(kinds["replicated"], lambda f: mesh.broadcast_(
+        f, m.model_src(), tag="tp_grad_broadcast", group=m.model_group))
 
 
 def _apply_update(state: TrainState) -> None:
@@ -131,7 +165,7 @@ def _apply_update(state: TrainState) -> None:
         if p.grad is None:  # a parameter off the graph still decays, as in optax
             p.grad = torch.zeros_like(p)
     if mesh.is_distributed():
-        _all_reduce_grads(state.optimizer.parameters())
+        _all_reduce_grads(state.optimizer.parameters(), model=state.model)
     state.optimizer.step(state.step)
     state.ema.update(state.model)
     state.step += 1
@@ -180,7 +214,7 @@ def make_train_step(
                    ) -> Tuple[TrainState, torch.Tensor]:
         model = state.model
         model.train()
-        share = mesh.is_distributed()
+        share = mesh.data_world()[1] > 1
         with einsum_attention(model):
             final, aux = _forward(model, images, compute_dtype)
         loss = (seg_loss(final, labels, share)
@@ -191,7 +225,7 @@ def make_train_step(
             _apply_update(state)
         loss = loss.detach() * accum_steps
         if share:
-            loss = mesh.all_reduce_(loss, tag="loss")
+            loss = mesh.all_reduce_(loss, tag="loss", group=mesh.data_group())
         return state, loss
 
     return train_step
@@ -223,8 +257,10 @@ class TrainLoop:
         the state's (step, micro_step)), else its (images, labels) copied to
         `device`, and returns the micro-batch's loss (a 0-dim tensor);
       - `flush()` applies a trailing partial window and returns None;
-      - `step`, `state` (what `CheckpointManager.save_full` takes) and
-        `weights(ema=False, device=None)`."""
+      - `step`, `state` (what `CheckpointManager.save_full` takes),
+        `weights(ema=False, device=None)` (a tensor-parallel model's
+        slices) and `full_weights(ema=False)` (whole: a collective over
+        the model group, which every rank of it must call)."""
 
     def __init__(self, state: TrainState, train_step: Callable, device: torch.device,
                  aug_fn: Optional[Callable] = None) -> None:
@@ -256,6 +292,12 @@ class TrainLoop:
         sd = self.state.ema.state_dict() if ema else self.state.model.state_dict()
         return sd if device is None else {k: v.to(device, non_blocking=True)
                                           for k, v in sd.items()}
+
+    def full_weights(self, ema: bool = False) -> Dict[str, torch.Tensor]:
+        """`weights`, a tensor-parallel model's slices gathered whole."""
+        from cabinet_tpu_torch.models.tensor_parallel import gather_state
+
+        return gather_state(self.weights(ema), self.state.model)
 
 
 def make_eval_loss_step(

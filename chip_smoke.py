@@ -173,7 +173,9 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               of the frames, the matrices summed) and in no step; each
               step's ms and its
               collectives' host ms; then 2 steps of `cli/train_yolo.py:main`
-              on 2 ranks; no rank left. Two ranks on one card through gloo
+              on 2 ranks; no rank left. Every 2-rank job of phases 16-18
+              runs here, in one torchrun (`run_two_ranks`), and each phase
+              holds its own. Two ranks on one card through gloo
               stage every collective through the host: not a multi-card
               figure
   17. pipeline  pipeline-parallel training (train/pipeline.py) and
@@ -201,17 +203,35 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               frames, the split's s a frame and the collectives' host ms,
               and the bytes the tile all-reduce moves a frame at 5 and 19
               classes
-  18. no process left: the process loader's forkserver and resource
+  18. tp     tensor parallelism (models/tensor_parallel.py) on
+              CABiNet-Large, 19 classes, phase 9's split, global batch 4,
+              f32 with TF32 off, gloo ranks sharing the card: (a)
+              `cli/train.py:main` with runtime.model_axis=2 on 2 ranks
+              (data 1 x model 2), 2 epochs of 2 steps, against phase 16's
+              R=1 run within its bounds, the weights and EMA read whole
+              from the `.pth` files, the model ranks' replicated leaves
+              bit-equal, K1 in the evaluations (each rank R=1's count,
+              `tp_k1_launches`) and in no step; (b) 4 ranks, data 2 x
+              model 2, one epoch, against
+              phase 16's R=1 run after its first epoch; (c)
+              runtime.pipeline=2 +runtime.pipeline_tp=2
+              +runtime.eval_model_axis=2 on 2 ranks, one window, against
+              phase 17's R=1 pipeline run after its first window; (d)
+              `cli/evaluate.py:main` on (a)'s EMA `.pth` (bf16, use_pallas:
+              K1-K3); each part's step ms, its collectives' host ms and
+              calls by tag, and each rank's peak memory against R=1's
+  19. no process left: the process loader's forkserver and resource
       tracker stopped and reaped, and no process this run started (a
       child, or any process carrying the run's mark in its environment)
       still there
-  19. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  20. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 `python3 chip_smoke.py --rank-main MODULE OUT ARGV...` is one rank of
-phases 16 and 17 (torchrun starts it): `cabinet_tpu_torch.cli.MODULE.main(
+phases 16-18 (torchrun starts it): `cabinet_tpu_torch.cli.MODULE.main(
 ARGV)` with its steps (or pipeline windows) timed, its launches counted,
-and its weights (a train main's) or its confusion matrix (an evaluate
-main's) written to OUT.
+its peak memory read, and its weights (a train main's; also those after
+its SNAPSHOT_STEP-th step) or its confusion matrix (an evaluate main's)
+written to OUT.
 
 The packages the port may lack on the card's machine (yaml, PIL, cv2,
 torchvision, rich, tqdm) are listed first; the port needs none of them.
@@ -285,7 +305,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+STARTED = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    """One line of results, `at_s` the seconds since the script started."""
+    fields["at_s"] = round(time.perf_counter() - STARTED, 1)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -685,6 +710,7 @@ class MainPaths:
     def __init__(self):
         self.totals = dict.fromkeys(_counters(), 0)
         self.per_path = {}
+        self.kept = {}  # runs a later phase is held against, by name
 
     def drive(self, name, fn, *args):
         reset_counts()
@@ -1055,15 +1081,32 @@ def optional_packages() -> dict:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+def thread_pool():
+    """Threads, one a core, for the synthetic splits' encoding and checks
+    (numpy and zlib leave the GIL for the bulk of a frame). The random
+    draws stay on the caller's thread, in order, so that a seed gives the
+    frames it always gave."""
+    import concurrent.futures
+
+    return concurrent.futures.ThreadPoolExecutor(len(os.sched_getaffinity(0)))
+
+
+def in_threads(fn, items) -> list:
+    """[fn(item) for item in items] on `thread_pool`'s threads."""
+    with thread_pool() as pool:
+        return list(pool.map(fn, items))
+
+
 def write_city_split(np, root: Path, n_frames: int, h: int, w: int, seed: int = 31,
                      split: str = "val"):
     """A Cityscapes-layout split of `n_frames` h x w frames:
     leftImg8bit/<split>/<city>/*_leftImg8bit.png and
     gtFine/<split>/<city>/*_gtFine_labelIds.png, written with the port's
-    save_png. Each frame is the fixture's palette task (`synthetic_palette`,
-    128-pixel blocks) stored so that Cityscapes' normalisation gives back
-    the palette values plus noise; its labels are CITY_RAW_IDS, with
-    CITY_IGNORE_ROWS rows of raw id 0 on top."""
+    save_png, each frame encoded on a thread (`thread_pool`). Each frame is
+    the fixture's palette task
+    (`synthetic_palette`, 128-pixel blocks) stored so that Cityscapes'
+    normalisation gives back the palette values plus noise; its labels are
+    CITY_RAW_IDS, with CITY_IGNORE_ROWS rows of raw id 0 on top."""
     from cabinet_tpu_torch.data.datasets import CityScapes
     from cabinet_tpu_torch.data.decode import save_png
 
@@ -1071,11 +1114,12 @@ def write_city_split(np, root: Path, n_frames: int, h: int, w: int, seed: int = 
     std = np.asarray(CityScapes.STD, np.float32)
     rng = np.random.default_rng(seed)
     raw_ids = np.asarray(CITY_RAW_IDS, np.uint8)
-    for i in range(n_frames):
-        city = ("frankfurt", "lindau", "munster")[i % 3]
+    for city in ("frankfurt", "lindau", "munster")[:n_frames]:
         (root / "leftImg8bit" / split / city).mkdir(parents=True, exist_ok=True)
         (root / "gtFine" / split / city).mkdir(parents=True, exist_ok=True)
-        image, labels = synthetic_palette(np, rng, h, w, 128)
+
+    def frame(i, image, labels):
+        city = ("frankfurt", "lindau", "munster")[i % 3]
         u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
         raw = raw_ids[labels]
         raw[:CITY_IGNORE_ROWS] = 0
@@ -1084,6 +1128,12 @@ def write_city_split(np, root: Path, n_frames: int, h: int, w: int, seed: int = 
                  compress_level=1)
         save_png(root / "gtFine" / split / city / f"{base}_gtFine_labelIds.png", raw,
                  compress_level=1)
+
+    with thread_pool() as pool:
+        jobs = [pool.submit(frame, i, *synthetic_palette(np, rng, h, w, 128))
+                for i in range(n_frames)]
+    for job in jobs:
+        job.result()
 
 
 def paeth_png(np, path: Path, rgb) -> None:
@@ -1733,7 +1783,8 @@ def write_uavid_split(np, root: Path, n_frames: int, split: str, seed: int,
                       h: int = UAVID_H, w: int = UAVID_W) -> None:
     """A UAVid-layout split (images/<split>/*.png, masks/<split>/*.png) of
     h x w palette frames stored so that UAVid's normalisation gives back the
-    palette values plus noise, labels 0-4, written with the port's save_png."""
+    palette values plus noise, labels 0-4, written with the port's save_png,
+    each frame encoded on a thread (`thread_pool`)."""
     from cabinet_tpu_torch.data.datasets import UAVid
     from cabinet_tpu_torch.data.decode import save_png
 
@@ -1742,12 +1793,18 @@ def write_uavid_split(np, root: Path, n_frames: int, split: str, seed: int,
     rng = np.random.default_rng(seed)
     (root / "images" / split).mkdir(parents=True, exist_ok=True)
     (root / "masks" / split).mkdir(parents=True, exist_ok=True)
-    for i in range(n_frames):
-        image, labels = synthetic_palette(np, rng, h, w, 120)
+
+    def frame(i, image, labels):
         u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
         save_png(root / "images" / split / f"seq{i:02d}_000100.png", u8, compress_level=1)
         save_png(root / "masks" / split / f"seq{i:02d}_000100.png",
                  labels.astype(np.uint8), compress_level=1)
+
+    with thread_pool() as pool:
+        jobs = [pool.submit(frame, i, *synthetic_palette(np, rng, h, w, 120))
+                for i in range(n_frames)]
+    for job in jobs:
+        job.result()
 
 
 def canvas_ms(np, cls, root: Path, crop: int, cache=None, n: int = 4) -> float:
@@ -2482,8 +2539,9 @@ def write_uavid_raw(np, src: Path, h: int, w: int, seed: int = 81):
     palette-task images stored so that UAVid's normalisation gives back the
     palette values plus noise, every row Paeth-filtered (`paeth_png`, the
     reader's slow case); labels in the class colours of the port's UAVid
-    table, with patches of DATA_UNKNOWN colours. Returns the u8 train images
-    and every frame's class IDs (255 on the patches), by converted name."""
+    table, with patches of DATA_UNKNOWN colours; each frame encoded on a
+    thread (`thread_pool`). Returns the u8 train images and every frame's
+    class IDs (255 on the patches), by converted name."""
     from cabinet_tpu_torch.data.datasets import UAVid
     from cabinet_tpu_torch.data.decode import save_png
     from cabinet_tpu_torch.data.palettes import UAVID_CLASSES
@@ -2492,28 +2550,36 @@ def write_uavid_raw(np, src: Path, h: int, w: int, seed: int = 81):
     std = np.asarray(UAVid.STD, np.float32)
     colours = np.asarray([c["color"] for c in UAVID_CLASSES], np.uint8)
     rng = np.random.default_rng(seed)
+
+    def frame(split, seq, stem, image, labels, patches):
+        u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
+        rgb = colours[labels]
+        want = labels.astype(np.uint8)
+        for colour, (y, x) in zip(DATA_UNKNOWN, patches):
+            rgb[y:y + DATA_PATCH, x:x + DATA_PATCH] = colour
+            want[y:y + DATA_PATCH, x:x + DATA_PATCH] = 255
+        paeth_png(np, src / split / seq / "Images" / f"{stem}.png", u8)
+        save_png(src / split / seq / "Labels" / f"{stem}.png", rgb, compress_level=1)
+        return split, f"{seq}_{stem}.png", u8, want
+
+    jobs = []
+    with thread_pool() as pool:
+        for split, seqs in DATA_SEQS.items():
+            for seq in seqs:
+                for sub in ("Images", "Labels"):
+                    (src / split / seq / sub).mkdir(parents=True)
+                for k in range(DATA_PER_SEQ[split]):
+                    image, labels = synthetic_palette(np, rng, h, w, 120)
+                    patches = [(int(rng.integers(0, h - DATA_PATCH)),
+                                int(rng.integers(0, w - DATA_PATCH))) for _ in DATA_UNKNOWN]
+                    jobs.append(pool.submit(frame, split, seq, f"{100 * k:06d}", image,
+                                            labels, patches))
     images, ids = {}, {}
-    for split, seqs in DATA_SEQS.items():
-        for seq in seqs:
-            for sub in ("Images", "Labels"):
-                (src / split / seq / sub).mkdir(parents=True)
-            for k in range(DATA_PER_SEQ[split]):
-                stem = f"{100 * k:06d}"
-                image, labels = synthetic_palette(np, rng, h, w, 120)
-                u8 = np.clip(np.rint(255.0 * (mean + std * image)), 0, 255).astype(np.uint8)
-                rgb = colours[labels]
-                want = labels.astype(np.uint8)
-                for j, colour in enumerate(DATA_UNKNOWN):
-                    y = int(rng.integers(0, h - DATA_PATCH))
-                    x = int(rng.integers(0, w - DATA_PATCH))
-                    rgb[y:y + DATA_PATCH, x:x + DATA_PATCH] = colour
-                    want[y:y + DATA_PATCH, x:x + DATA_PATCH] = 255
-                paeth_png(np, src / split / seq / "Images" / f"{stem}.png", u8)
-                save_png(src / split / seq / "Labels" / f"{stem}.png", rgb, compress_level=1)
-                name = f"{seq}_{stem}.png"
-                ids[(split, name)] = want
-                if split == "train":
-                    images[name] = u8
+    for job in jobs:
+        split, name, u8, want = job.result()
+        ids[(split, name)] = want
+        if split == "train":
+            images[name] = u8
     return images, ids
 
 
@@ -2562,7 +2628,8 @@ def run_convert_and_stats(np, src: Path, dst: Path, images, ids, workers: int):
     for split in DATA_SEQS:
         check(f"[INFO] {split}: converted {sum(s == split for s, _ in ids)} masks" in lines,
               f"cli.convert said {lines}")
-    for (split, name), want in ids.items():
+    def held(item):  # a frame's mask and image link, checked on a thread
+        (split, name), want = item
         mask = open_mask(dst / "masks" / split / name)
         seq, stem = name.split("_", 1)
         label = plain_uavid_remap(np, open_rgb(src / split / seq / "Labels" / stem))
@@ -2572,6 +2639,8 @@ def run_convert_and_stats(np, src: Path, dst: Path, images, ids, workers: int):
         img = dst / "images" / split / name
         check(img.is_symlink() and img.resolve() == (src / split / seq / "Images" / stem
                                                      ).resolve(), f"{img} is not its link")
+
+    in_threads(held, ids.items())
     _, stats_s, lines = run_cli(stats_main, [str(dst / "images" / "train")], "stats")
     want = plain_stats_lines(np, images)
     check(lines == want, f"cli.compute_stats said {lines}, numpy {want}")
@@ -3522,6 +3591,7 @@ BOUND_DP_LOSS = 1e-3        # later steps, after updates that BN amplifies
 
 
 THEN = "--then"  # separates the jobs of one `--rank-main` chain
+SNAPSHOT_STEP = 2  # a train job's weights are kept after this step: its first epoch
 
 
 def rank_main(args) -> int:
@@ -3580,8 +3650,12 @@ def rank_main(args) -> int:
                 for name, n in kernel_counts().items():
                     inside[name] += n - before[name]
                 steps.append({"ms": ms, "loss": float(result[1]),
-                              "collectives": mesh.comm_since(comm)})
+                              "collectives": mesh.comm_since(comm),
+                              "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                           if images.is_cuda else 0.0)})
                 held["state"] = state
+                if len(steps) == SNAPSHOT_STEP:
+                    held["snapshot"] = merged_of({"state": state})
                 return result
             return run
 
@@ -3589,6 +3663,8 @@ def rank_main(args) -> int:
         restore = recording_windows(torch, held, windows)
         reset_counts()
         comm0 = {t: dict(v) for t, v in mesh.COMM.items()}
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
             res = cli.main(argv)
@@ -3602,7 +3678,10 @@ def rank_main(args) -> int:
         rank = int(os.environ.get("RANK", "0"))
         record = {"rank": rank, "seconds": time.perf_counter() - t0, "steps": steps,
                   "launches": kernel_counts(), "launches_in_steps": inside,
-                  "timing": res["timing"], **(merged_of(held) if held else {})}
+                  "peak_allocated_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                         if torch.cuda.is_available() else 0.0),
+                  "timing": res["timing"], "snapshot": held.get("snapshot"),
+                  **(merged_of(held) if "state" in held or "states" in held else {})}
         if "confusion_matrix" in res:  # an evaluate main
             record["result"] = {"confusion_matrix": res["confusion_matrix"],
                                 "mIoU": res["mIoU"], "timing": res["timing"],
@@ -3688,33 +3767,51 @@ def dp_steps(recs) -> dict:
                                  for k in kinds}}
 
 
-def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
+def dp_jobs(keep: Path) -> list:
+    """Phase 16's jobs on 2 ranks: train main at R=2 on gloo, its
+    evaluations frame-sharded (each rank its share of the frames, the
+    matrices summed; phase 17e's pipeline ranks take the tile-sharded
+    default), then two steps of `cli/train_yolo.py:main`."""
+    split, base = keep / "train" / "cityscapes", keep / "ranks"
+    return [("train", base / "dp_gloo_r2_ranks", dp_argv(
+                split, base / "dp_gloo_r2", "gloo", "+runtime.tile_parallel_eval=false")),
+            ("train_yolo", base / "dp_yolo_ranks", [
+                "dataset=cityscapes", f"dataset.dataset_path={split}",
+                "training_config.imgsz=512", "training_config.batch_size=4",
+                "training_config.nbs=4", "training_config.epochs=1",
+                "training_config.num_workers=4", "validation_config.num_workers=4",
+                f"training_config.experiments_path={base / 'dp_yolo'}",
+                "+runtime.dist_backend=gloo", "--device", DEVICE])]
+
+
+def run_two_ranks(torch, paths, keep: Path) -> dict:
+    """Every 2-rank job of phases 16-18 (`dp_jobs`, `pipeline_rank_jobs`,
+    `tp_rank_jobs`) in one `torchrun_jobs` chain, so that a torchrun's
+    start (the launcher's and the ranks' imports, the process group) is
+    paid once; each phase holds its jobs' records. {out folder name: the
+    ranks' records}."""
+    jobs = dp_jobs(keep) + pipeline_rank_jobs(keep) + tp_rank_jobs(keep)
+    return {out.name: recs for (_, out, _), recs in zip(jobs, torchrun_jobs(torch, 2, jobs))}
+
+
+def run_dp(torch, paths, keep: Path) -> dict:
     """Phase 16: `cli/train.py:main` under torchrun on phase 9's split, R=1
     on NCCL and R=2 on gloo sharing the card (global batch 4, 2 epochs of
     2 steps, f32): losses and weights held, the ranks bit-equal, one set
     of outputs, K1 in the evaluations and in no step; then two steps of
     `cli/train_yolo.py:main` on 2 ranks (in the R=2 ranks' processes, after
-    train main); no process left."""
+    train main; with phases 17-18's 2-rank jobs, `run_two_ranks`); no
+    process left."""
     import math
 
     from cabinet_tpu_torch.cli import common
     from cabinet_tpu_torch.core.config import compose
 
-    split = keep / "train" / "cityscapes"
-    yolo_job = ("train_yolo", tmp / "dp_yolo_ranks", [
-        "dataset=cityscapes", f"dataset.dataset_path={split}", "training_config.imgsz=512",
-        "training_config.batch_size=4", "training_config.nbs=4", "training_config.epochs=1",
-        "training_config.num_workers=4", "validation_config.num_workers=4",
-        f"training_config.experiments_path={tmp / 'dp_yolo'}", "+runtime.dist_backend=gloo",
-        "--device", DEVICE])
+    split, tmp = keep / "train" / "cityscapes", keep / "ranks"
     runs = {"dp_nccl_r1": torchrun(torch, 1, "train", tmp / "dp_nccl_r1_ranks",
                                    dp_argv(split, tmp / "dp_nccl_r1", "nccl"))}
-    # R=2 evaluates frame-sharded (each rank its share of the frames, the
-    # matrices summed); phase 17e's pipeline ranks take the tile-sharded default
-    runs["dp_gloo_r2"], yolo = torchrun_jobs(torch, 2, [
-        ("train", tmp / "dp_gloo_r2_ranks", dp_argv(split, tmp / "dp_gloo_r2", "gloo",
-                                                    "+runtime.tile_parallel_eval=false")),
-        yolo_job])
+    two_ranks = paths.kept["two_ranks"] = run_two_ranks(torch, paths, keep)
+    runs["dp_gloo_r2"], yolo = two_ranks["dp_gloo_r2_ranks"], two_ranks["dp_yolo_ranks"]
     for name, recs in runs.items():
         paths.record(name, recs)
         for rec in recs:
@@ -3726,6 +3823,7 @@ def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
             check(len(rec["steps"]) == 4 and all(math.isfinite(s["loss"]) for s in rec["steps"]),
                   f"{name} rank {rec['rank']}: steps {rec['steps']}")
     one, two = runs["dp_nccl_r1"][0], runs["dp_gloo_r2"]
+    paths.kept["dp_r1"] = one  # phase 18 is held against it
     errs = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
             for a, b in zip(one["steps"], two[0]["steps"])]
     cfg = compose(common.CONFIG_DIR, "train",
@@ -3738,7 +3836,7 @@ def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
     files = {n: sorted("run-*.log" if p.name.startswith("run-") else p.name
                        for p in (tmp / n).iterdir()) for n in runs}
     out = {"r1_nccl": {**dp_steps([one]), "torchrun_s": one["torchrun_seconds"]},
-           "r2_gloo": {**dp_steps(two), "torchrun_s": two[0]["torchrun_seconds"]},
+           "r2_gloo": {**dp_steps(two), "job_s": two[0]["seconds"]},
            "loss_rel_err": errs, "weights_bound_ratio": held["weights"],
            "ema_bound_ratio": held["ema"], "ranks_bit_identical": identical,
            "losses_r1": [s["loss"] for s in one["steps"]],
@@ -3760,7 +3858,7 @@ def run_dp(torch, paths, keep: Path, tmp: Path) -> dict:
     paths.record("dp_yolo_r2", yolo)
     out["yolo"] = {"steps": len(yolo[0]["steps"]), "step_ms": [s["ms"] for s in yolo[0]["steps"]],
                    "losses": [s["loss"] for s in yolo[0]["steps"]],
-                   "torchrun_s": yolo[0]["torchrun_seconds"],
+                   "job_s": yolo[0]["seconds"],
                    "files": sorted(p.name for p in (tmp / "dp_yolo").iterdir())}
     say("dp", part="train_yolo", **out["yolo"])
     check(all(r["timing"]["optimizer_steps"] == 2 for r in yolo), "YOLO ranks' steps")
@@ -3982,6 +4080,42 @@ def run_pipeline_yolo(torch, paths, keep: Path, tmp: Path) -> dict:
     return out
 
 
+def pipeline_argv(keep: Path, exp: Path, *extra: str) -> list:
+    """Phase 16's train main on gloo, one window an epoch (runtime.pipeline=2,
+    accum_steps 2)."""
+    return [a for a in dp_argv(keep / "train" / "cityscapes", exp, "gloo")
+            if a not in ("--device", DEVICE)] + [
+        "training_config.accum_steps=2", "runtime.pipeline=2", *extra, "--device", DEVICE]
+
+
+def pipeline_eval_argv(keep: Path) -> dict:
+    """Phase 17e's evaluate main on the first TILE_EVAL_FRAMES of phase 7's
+    frames (`tile_frames`), one tile a forward (so that a rank's launches
+    count its tiles): tile-sharded, frame-sharded, frame-sharded int8."""
+    frames = tile_frames(keep / "evaluate" / "cityscapes", keep / "ranks" / "tile_frames")
+    tiles = [f"checkpoint_path={FIXTURE}", "dataset=cityscapes", "dataset.num_classes=5",
+             f"dataset.dataset_path={frames}", "validation_config.batch_size=1",
+             "runtime.compute_dtype=bfloat16", "runtime.use_pallas=true",
+             "runtime.eval_tile_batch=1"]
+    if EVAL_MAIN_CROP != 1024:
+        tiles.append(f"dataset.cropsize=[{EVAL_MAIN_CROP},{EVAL_MAIN_CROP}]")
+    frames_argv = tiles + ["+runtime.tile_parallel_eval=false"]
+    return {"tile": tiles, "frame": frames_argv,
+            "frame_int8": frames_argv + ["+runtime.quantize=int8"]}
+
+
+def pipeline_rank_jobs(keep: Path) -> list:
+    """Phase 17e's jobs on 2 ranks: the pipeline main at pipeline_dp=2, then
+    evaluate main tile-sharded, frame-sharded and frame-sharded int8."""
+    base, ev = keep / "ranks", pipeline_eval_argv(keep)
+    on_ranks = ["+runtime.dist_backend=gloo", "+runtime.dist_timeout_s=300", "--device", DEVICE]
+    return [("train", base / "pipe_dp_r2_ranks",
+             pipeline_argv(keep, base / "pipe_dp_r2", "runtime.pipeline_dp=2")),
+            ("evaluate", base / "tile_eval_ranks", ev["tile"] + on_ranks),
+            ("evaluate", base / "frame_eval_ranks", ev["frame"] + on_ranks),
+            ("evaluate", base / "frame_int8_eval_ranks", ev["frame_int8"] + on_ranks)]
+
+
 def run_pipeline_ranks(torch, paths, keep: Path, tmp: Path) -> dict:
     """Phase 17e: two ranks on gloo sharing the card (`--rank-main`):
     `cli/train.py:main` with runtime.pipeline=2 and runtime.pipeline_dp=2
@@ -3990,48 +4124,33 @@ def run_pipeline_ranks(torch, paths, keep: Path, tmp: Path) -> dict:
     evaluations tile-sharded; then `cli/evaluate.py:main` on 2 of phase
     7's frames (bf16, use_pallas) tile-sharded, frame-sharded
     (runtime.tile_parallel_eval=false) and frame-sharded with int8 PTQ,
-    each against one rank (`held_eval`)."""
+    each against one rank (`held_eval`). The 2-rank jobs ran in phase
+    16's chain (`run_two_ranks`)."""
     import numpy as np
 
     from cabinet_tpu_torch.cli import common
     from cabinet_tpu_torch.cli.train import main as train_main
     from cabinet_tpu_torch.core.config import compose
 
-    split = keep / "train" / "cityscapes"
-
-    def argv(exp: Path, *extra: str) -> list:  # phase 16's, one window an epoch
-        return [a for a in dp_argv(split, exp, "gloo") if a not in ("--device", DEVICE)
-                ] + ["training_config.accum_steps=2", "runtime.pipeline=2", *extra,
-                     "--device", DEVICE]
-
     held, windows = {}, []
     restore = recording_windows(torch, held, windows)
     try:
         _, r1_s, _ = paths.drive("pipeline_r1", run_cli, train_main,
-                                 argv(tmp / "pipe_dp_r1"), "pipeline_r1", 2)
+                                 pipeline_argv(keep, tmp / "pipe_dp_r1"), "pipeline_r1", 2)
     finally:
         restore()
-    one = {**merged_of(held), "steps": windows}
-    frames = tile_frames(keep / "evaluate" / "cityscapes", tmp / "tile_frames")
-    # one tile a forward, so that a rank's launches count its tiles
-    ev_argv = [f"checkpoint_path={FIXTURE}", "dataset=cityscapes", "dataset.num_classes=5",
-               f"dataset.dataset_path={frames}", "validation_config.batch_size=1",
-               "runtime.compute_dtype=bfloat16", "runtime.use_pallas=true",
-               "runtime.eval_tile_batch=1"]
-    if EVAL_MAIN_CROP != 1024:
-        ev_argv.append(f"dataset.cropsize=[{EVAL_MAIN_CROP},{EVAL_MAIN_CROP}]")
-    frames_argv = ev_argv + ["+runtime.tile_parallel_eval=false"]
-    int8_argv = frames_argv + ["+runtime.quantize=int8"]
-    on_ranks = ["+runtime.dist_backend=gloo", "+runtime.dist_timeout_s=300", "--device", DEVICE]
-    two, *evals = torchrun_jobs(torch, 2, [
-        ("train", tmp / "pipe_dp_r2_ranks", argv(tmp / "pipe_dp_r2", "runtime.pipeline_dp=2")),
-        ("evaluate", tmp / "tile_eval_ranks", ev_argv + on_ranks),
-        ("evaluate", tmp / "frame_eval_ranks", frames_argv + on_ranks),
-        ("evaluate", tmp / "frame_int8_eval_ranks", int8_argv + on_ranks)])
+    one = {**merged_of(held), "steps": windows, "snapshot": held["snapshot"]}
+    paths.kept["pipeline_r1"] = one  # phase 18c is held against it
+    ev = pipeline_eval_argv(keep)
+    ev_argv, int8_argv = ev["tile"], ev["frame_int8"]
+    ranks = paths.kept["two_ranks"]
+    two, *evals = (ranks[n] for n in ("pipe_dp_r2_ranks", "tile_eval_ranks",
+                                      "frame_eval_ranks", "frame_int8_eval_ranks"))
     paths.record("pipeline_r2", two)
     errs = [abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(one["steps"],
                                                                         two[0]["steps"])]
-    cfg = compose(common.CONFIG_DIR, "train", [a for a in argv(tmp) if "=" in a])
+    cfg = compose(common.CONFIG_DIR, "train",
+                  [a for a in pipeline_argv(keep, tmp) if "=" in a])
     common.seed_everything(cfg.runtime.seed)
     start = common.build_model(cfg, cfg.dataset.num_classes).state_dict()
     ratios = {k: held_against(torch, two[0][k], one[k], start) for k in ("weights", "ema")}
@@ -4044,7 +4163,7 @@ def run_pipeline_ranks(torch, paths, keep: Path, tmp: Path) -> dict:
            "r2_collective_ms": {k: [w["collectives"].get(k, {}).get("seconds", 0.0) * 1e3
                                     for w in two[0]["steps"]]
                                 for k in two[0]["steps"][-1]["collectives"]},
-           "r1_main_seconds": r1_s, "r2_torchrun_seconds": two[0]["torchrun_seconds"],
+           "r1_main_seconds": r1_s, "r2_job_seconds": two[0]["seconds"],
            "r2_launches": [r["launches"] for r in two]}
     say("pipeline", part="pipeline_dp", **out)
     check(len(errs) == 2 and errs[0] <= BOUND_DP_FIRST_LOSS and errs[1] <= BOUND_DP_LOSS,
@@ -4160,7 +4279,8 @@ def tile_frames(src: Path, dst: Path) -> Path:
 def recording_windows(torch, held: dict, windows: list):
     """Patch CabinetPipeline.train_step_micro so that each window is timed
     (CUDA events on the card), its loss, collectives and kernel launches
-    appended to `windows`, and the stages' states kept in `held`;
+    appended to `windows`, and the stages' states kept in `held` (their
+    merged weights after the first window in `held["snapshot"]`);
     returns the restore function."""
     from cabinet_tpu_torch.core import mesh
     from cabinet_tpu_torch.train.pipeline import CabinetPipeline
@@ -4182,8 +4302,11 @@ def recording_windows(torch, held: dict, windows: list):
         windows.append({"ms": start.elapsed_time(end) if cuda
                         else (time.perf_counter() - t0) * 1e3,
                         "loss": float(out[1]), "collectives": mesh.comm_since(comm),
-                        "launches": {k: n - before[k] for k, n in kernel_counts().items()}})
+                        "launches": {k: n - before[k] for k, n in kernel_counts().items()},
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0})
         held["states"] = out[0]
+        if len(windows) == 1:  # the weights after the first window, kept
+            held["snapshot"] = merged_of({"states": out[0]})
         return out
 
     CabinetPipeline.train_step_micro = run
@@ -4191,16 +4314,17 @@ def recording_windows(torch, held: dict, windows: list):
 
 
 def merged_of(held: dict) -> dict:
-    """The weights and EMA of the run `held` recorded, on the CPU: a fused
-    trainer's state or a pipeline's stages merged."""
+    """The weights and EMA of the run `held` recorded, copied to the CPU (the
+    live tensors move on): a fused trainer's state or a pipeline's stages
+    merged."""
     from cabinet_tpu_torch.train.pipeline import merged
 
     if "states" in held:
         weights, ema = merged(held["states"]), merged(held["states"], ema=True)
     else:
         weights, ema = held["state"].model.state_dict(), held["state"].ema.state_dict()
-    return {"weights": {k: v.cpu() for k, v in weights.items()},
-            "ema": {k: v.cpu() for k, v in ema.items()}}
+    return {"weights": {k: v.detach().to("cpu", copy=True) for k, v in weights.items()},
+            "ema": {k: v.detach().to("cpu", copy=True) for k, v in ema.items()}}
 
 
 def run_pipeline(torch, paths, keep: Path, tmp: Path) -> dict:
@@ -4214,8 +4338,178 @@ def run_pipeline(torch, paths, keep: Path, tmp: Path) -> dict:
     return {"engine": engine, "timing": timing, "main": main, "yolo": yolo, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor parallelism across ranks
+# ---------------------------------------------------------------------------
+
+TP_MIN_FEATURES = 256  # configs/train.yaml's runtime.tp_min_features
+
+
+def tp_whole(torch, exp: Path) -> dict:
+    """A train main's weights and EMA as its files hold them, whole:
+    `checkpoint_last.pth`'s parameters and BN statistics (a pipeline's
+    stages merged) and EMA."""
+    blob = torch.load(exp / "checkpoint_last.pth", weights_only=True)
+    trees = blob["stages"] if "stages" in blob else [blob]
+    weights, ema = {}, {}
+    for t in trees:
+        weights.update({**t["params"], **t["batch_stats"]})
+        ema.update(t["ema_variables"])
+    return {"weights": weights, "ema": ema}
+
+
+def replicated_bit_equal(torch, recs, n_model: int, dims) -> bool:
+    """Every leaf that JAX's rule leaves whole (`dims` None) bit-equal on
+    the ranks of each model group (rank = d * n_model + m), in the ranks'
+    weights and EMA; a split leaf has the slice's shape there."""
+    for r in recs:
+        group = [q for q in recs if q["rank"] // n_model == r["rank"] // n_model]
+        for kind in ("weights", "ema"):
+            for k, t in r[kind].items():
+                if dims.get(k) is None and not torch.equal(t, group[0][kind][k]):
+                    return False
+    return True
+
+
+def tp_k1_launches(epochs: int, n_data: int) -> int:
+    """K1's launches on each rank of a train main on phase 16's split and
+    config: each epoch's val loss over the val frames at batch 1, this data
+    rank's share of them; each epoch's evaluation and the final one, one
+    forward a frame at the one scale (its tiles, or under tile sharding
+    this rank's share of them, in one batch, so the count does not fall)."""
+    n = TRAIN_MAIN_VAL_FRAMES
+    return epochs * (n // n_data + n) + n
+
+
+def tp_part(torch, name: str, recs, ref: dict, ref_steps, r1: dict, whole: dict,
+            n_model: int, dims, start, k1_each: int, r1_steps_ms=None) -> dict:
+    """One part of phase 18 held against R=1 (`ref`: its weights and EMA at
+    the matching step; `ref_steps`: its steps' losses): the first loss
+    within 1e-5 and the later within 1e-3 of |R=1|, the whole weights and
+    EMA within phase 16's bound (`held_against`), the replicated leaves
+    bit-equal on each model group's ranks, K1 `k1_each` times on each rank
+    (`tp_k1_launches`) and in no step; the step ms, the collectives' host
+    ms and calls a step (the
+    median of steps 2 on, or every window), each rank's peak memory
+    against R=1's."""
+    import numpy as np
+
+    steps = recs[0]["steps"]
+    errs = [abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(ref_steps, steps)]
+    ratios = {k: held_against(torch, whole[k], ref[k], start) for k in ("weights", "ema")}
+    steady = steps[1:] or steps
+    kinds = sorted({k for s in steady for k in s["collectives"]})
+    out = {"ranks": len(recs), "loss_rel_err": errs, "weights_bound_ratio": ratios["weights"],
+           "ema_bound_ratio": ratios["ema"],
+           "replicated_bit_equal": replicated_bit_equal(torch, recs, n_model, dims),
+           "step_ms": float(np.median([s["ms"] for s in steady])),
+           "r1_step_ms": r1_steps_ms,
+           "collective_ms": {k: float(np.median([s["collectives"].get(k, {}).get(
+               "seconds", 0.0) * 1e3 for s in steady])) for k in kinds},
+           "collective_calls": {k: steady[-1]["collectives"].get(k, {}).get("calls", 0)
+                                for k in kinds},
+           "peak_allocated_gib": [r["peak_allocated_gib"] for r in recs],
+           "r1_peak_allocated_gib": r1["peak_allocated_gib"],
+           "steps_peak_gib": [r["steps"][-1]["peak_gib"] for r in recs],
+           "r1_steps_peak_gib": r1["steps"][len(steps) - 1]["peak_gib"],
+           "launches": [r["launches"] for r in recs], "job_s": recs[0]["seconds"]}
+    say("tp", part=name, **out)
+    check(len(errs) == len(steps) and errs[0] <= BOUND_DP_FIRST_LOSS
+          and max(errs) <= BOUND_DP_LOSS, f"{name}: losses from R=1's {errs}")
+    check(max(ratios.values()) <= 1.0, f"{name}: weights from R=1's {ratios} x their bound")
+    check(out["replicated_bit_equal"], f"{name}: a model group's replicated leaves differ")
+    check(all(r["launches"]["attention_f32"] == k1_each for r in recs)
+          and all(n == 0 for r in recs for n in r["launches_in_steps"].values()),
+          f"{name}: K1 not {k1_each} times a rank in the evaluations, or in a step "
+          f"{out['launches']}")
+    check(out["collective_calls"].get("tp_forward", 0) > 0,
+          f"{name}: no tensor-parallel collective {out['collective_calls']}")
+    return out
+
+
+def tp_argv(keep: Path, exp: Path, *extra: str) -> list:
+    """Phase 16's train main on gloo at JAX's tp_min_features."""
+    return [a for a in dp_argv(keep / "train" / "cityscapes", exp, "gloo")
+            if a not in ("--device", DEVICE)] + [
+        f"runtime.tp_min_features={TP_MIN_FEATURES}", *extra, "--device", DEVICE]
+
+
+def tp_rank_jobs(keep: Path) -> list:
+    """Phase 18's jobs on 2 ranks: (a) model_axis=2, 2 epochs; (c) the
+    pipeline with pipeline_tp=2 and eval_model_axis=2, one window."""
+    base = keep / "ranks"
+    return [("train", base / "tp_1x2_ranks", tp_argv(keep, base / "tp_1x2",
+                                                     "runtime.model_axis=2")),
+            ("train", base / "tp_pipe_ranks", tp_argv(
+                keep, base / "tp_pipe", "training_config.accum_steps=2", "runtime.pipeline=2",
+                "+runtime.pipeline_tp=2", "+runtime.eval_model_axis=2",
+                "training_config.epochs=1"))]
+
+
+def run_tp(torch, paths, keep: Path, tmp: Path) -> dict:
+    """Phase 18: tensor parallelism on 2 and 4 gloo ranks sharing the card,
+    against phase 16's R=1 run and phase 17's R=1 pipeline run ((a) and (c)
+    ran in phase 16's 2-rank chain, `run_two_ranks`); then evaluate main on
+    the 2-rank run's EMA `.pth` (K1-K3)."""
+    import math
+
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.core.config import compose
+    from cabinet_tpu_torch.models.tensor_parallel import sharded_dims
+
+    split, base = keep / "train" / "cityscapes", keep / "ranks"
+    r1, pipe_r1 = paths.kept["dp_r1"], paths.kept["pipeline_r1"]
+    two, pipe = (paths.kept["two_ranks"][n] for n in ("tp_1x2_ranks", "tp_pipe_ranks"))
+    four = torchrun(torch, 4, "train", tmp / "tp_2x2_ranks",
+                    tp_argv(keep, tmp / "tp_2x2", "runtime.model_axis=2",
+                            "training_config.epochs=1"))
+    for name, recs in (("tp_1x2", two), ("tp_pipeline", pipe), ("tp_2x2", four)):
+        paths.record(name, recs)
+    cfg = compose(common.CONFIG_DIR, "train", [a for a in tp_argv(keep, tmp) if "=" in a])
+    common.seed_everything(cfg.runtime.seed)
+    model = common.build_model(cfg, cfg.dataset.num_classes)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    dims = sharded_dims(model, 2, TP_MIN_FEATURES)
+    check(sum(d is not None for d in dims.values()) > 0, "JAX's rule splits no leaf")
+    r1_ms = dp_steps([r1])["step_ms"]
+    check(r1["launches"]["attention_f32"] == tp_k1_launches(2, 1),
+          f"R=1's K1 launches {r1['launches']}, not {tp_k1_launches(2, 1)}")
+    out = {"split_leaves": sum(d is not None for d in dims.values()), "leaves": len(dims)}
+    out["a"] = tp_part(torch, "a_model_axis_1x2", two, r1, r1["steps"], r1,
+                       tp_whole(torch, base / "tp_1x2"), 2, dims, start,
+                       tp_k1_launches(2, 1), r1_ms)
+    check(len(two[0]["steps"]) == 4 and all(math.isfinite(s["loss"]) for s in two[0]["steps"]),
+          f"(a): steps {two[0]['steps']}")
+    out["b"] = tp_part(torch, "b_model_axis_2x2", four, r1["snapshot"],
+                       r1["steps"][:SNAPSHOT_STEP], r1, tp_whole(torch, tmp / "tp_2x2"), 2,
+                       dims, start, tp_k1_launches(1, 2), r1_ms)
+    check(len(four[0]["steps"]) == SNAPSHOT_STEP, f"(b): steps {four[0]['steps']}")
+    # (c): the val loss on the pipeline's one data rank, the evaluations on
+    # the (1, 2) eval mesh
+    out["c"] = tp_part(torch, "c_pipeline_tp", pipe, pipe_r1["snapshot"],
+                       pipe_r1["steps"][:1], r1, tp_whole(torch, base / "tp_pipe"), 2, dims,
+                       start, tp_k1_launches(1, 1), pipe_r1["steps"][0]["ms"])
+    check(len(pipe[0]["steps"]) == 1, f"(c): windows {pipe[0]['steps']}")
+    for folder in (base / "tp_1x2", tmp / "tp_2x2", base / "tp_pipe"):  # rank 0's, once
+        files = sorted(p.name for p in folder.iterdir())
+        check({"cabinet.pth", "checkpoint_last.pth", "config.yaml"} <= set(files)
+              and not any(".tmp" in f for f in files), f"{folder.name} wrote {files}")
+    scored, _, eval_s = paths.drive("tp_evaluate_main", run_main, [
+        "dataset=cityscapes", f"dataset.dataset_path={split}",
+        f"checkpoint_path={base / 'tp_1x2' / 'cabinet.pth'}", "runtime.compute_dtype=bfloat16",
+        "runtime.use_pallas=true", "validation_config.eval_scales=[1.0]",
+        "validation_config.flip=false", "--device", DEVICE])
+    counts = paths.per_path["tp_evaluate_main"]
+    out["d"] = {"mIoU": scored["mIoU"], "seconds": eval_s, "launches": counts}
+    say("tp", part="d_evaluate_main", **out["d"])
+    check(all(counts[k] > 0 for k in TAIL), f"(d): evaluate main launches {counts}")
+    check(0.0 <= scored["mIoU"] <= 1.0, f"(d): mIoU {scored['mIoU']}")
+    left = [p for p in processes_left() if "--rank-main" in p or "torch.distributed.run" in p]
+    check(not left, f"ranks left running: {left}")
+    return out
+
+
 def main() -> int:
-    started = time.perf_counter()
     os.environ[RUN_MARK] = str(os.getpid())
     import torch
 
@@ -4356,8 +4650,7 @@ def main() -> int:
                                for b in (1, 8)},
         trace_busy_share=tools["profiler"]["trace"]["busy_share"],
         legacy_main_s=tools["legacy"]["main_seconds"])
-    with tempfile.TemporaryDirectory() as tmp:
-        dp = run_dp(torch, paths, keep, Path(tmp))
+    dp = run_dp(torch, paths, keep)
     say("dp", card=smi, r1_nccl_step_ms=dp["r1_nccl"]["step_ms"],
         r2_gloo_step_ms=dp["r2_gloo"]["step_ms"],
         r2_gloo_collective_ms=dp["r2_gloo"]["collective_ms"],
@@ -4382,13 +4675,23 @@ def main() -> int:
         tile_all_reduce_bytes_a_frame=pipe["ranks"]["tile_eval"]["all_reduce_bytes_a_frame"],
         note="both stages share the one card, and the two ranks share it through gloo: "
              "not a multi-card figure")
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = run_tp(torch, paths, keep, Path(tmp))
+    say("tp", card=smi, **{f"{p}_{k}": tp[p][k] for p in "abc"
+                           for k in ("step_ms", "r1_step_ms", "collective_ms",
+                                     "collective_calls", "peak_allocated_gib",
+                                     "r1_peak_allocated_gib", "loss_rel_err",
+                                     "weights_bound_ratio")},
+        evaluate_main_mIoU=tp["d"]["mIoU"], split_leaves=tp["split_leaves"],
+        note="2 and 4 ranks share one card through gloo, which stages through the host: "
+             "not a multi-card figure")
     shutil.rmtree(keep, ignore_errors=True)
     launches = paths.totals
     say("main", launches=launches)
     check(all(n > 0 for n in launches.values()), f"launches {launches}")
     stop_every_process()
 
-    say("run", seconds=time.perf_counter() - started)
+    say("run", seconds=time.perf_counter() - STARTED)
     main_k2, main_k3 = tails[1]  # B=1, S=128, 8 classes: Segmenter on uavid
     rows = [
         ("attention", "csrc/attention.cu",

@@ -108,18 +108,26 @@ def test_train_main_two_epochs_then_resume(tmp_path, name):
 
 
 def test_train_main_refuses_what_is_not_ported(tmp_path):
-    """Tensor parallelism and spatial partitioning raise, naming their
-    ROADMAP item (the tensor-partitioning half of Queue 1 item 7);
-    runtime.pipeline=2 trains (tests/test_torch_pipeline.py holds it), and
-    its JAX refusals are ConfigurationError."""
+    """Spatial partitioning raises, naming its ROADMAP item (Queue 1 item
+    7c); tensor parallelism's axes and runtime.mesh_data that do not tile
+    the one rank raise a ConfigurationError naming the key
+    (tests/test_torch_tensor_parallel.py, test_torch_pipeline_tp.py and
+    test_torch_tp_mains.py hold them on ranks); runtime.pipeline=2 trains
+    (tests/test_torch_pipeline.py holds it), and its JAX refusals are
+    ConfigurationError."""
     from cabinet_tpu_torch.cli.train import main
 
     data = make_uavid_tree(tmp_path / "data", n=2)
     base = overrides("uavid", data, tmp_path / "exp")
-    for extra in (["runtime.model_axis=2"], ["runtime.spatial_axis=true"],
-                  ["runtime.pipeline=2", "+runtime.pipeline_tp=2"],
-                  ["runtime.pipeline=2", "+runtime.eval_model_axis=2"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7, its tensor"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7c, spatial"):
+        main(base + ["runtime.spatial_axis=true", "--device", "cpu"])
+    for extra, key in ((["runtime.model_axis=2"], "runtime.model_axis=2"),
+                       (["runtime.mesh_data=2"], "runtime.mesh_data=2"),
+                       (["runtime.model_axis=1", "runtime.mesh_data=4"], "runtime.mesh_data=4"),
+                       (["runtime.pipeline=2", "+runtime.pipeline_tp=2"], "runtime.pipeline_tp=2"),
+                       (["runtime.pipeline=2", "+runtime.eval_model_axis=2"],
+                        "runtime.eval_model_axis=2")):
+        with pytest.raises(ConfigurationError, match=key):
             main(base + extra + ["--device", "cpu"])
     res = main(base + ["runtime.pipeline=2", "training_config.epochs=1", "--device", "cpu"])
     assert res["timing"]["optimizer_steps"] == 1 and (tmp_path / "exp" / "tiny.pth").is_file()

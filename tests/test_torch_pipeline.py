@@ -485,8 +485,9 @@ def _cfg(**runtime):
     ("cabinet", {"pipeline": 2, "spatial_axis": True}, ConfigurationError, "cannot combine"),
     ("cabinet", {"pipeline": 2, "pipeline_dp": 3}, ConfigurationError, "must divide"),
     ("cabinet", {"pipeline": 2, "pipeline_dp": 2}, ConfigurationError, "one process a rank"),
-    ("cabinet", {"pipeline": 2, "pipeline_tp": 2}, NotImplementedError, "Queue 1 item 7"),
-    ("cabinet", {"pipeline": 2, "eval_model_axis": 2}, NotImplementedError, "Queue 1 item 7"),
+    ("cabinet", {"pipeline": 2, "pipeline_tp": 2}, ConfigurationError, "pipeline_tp=2 must"),
+    ("cabinet", {"pipeline": 2, "eval_model_axis": 2}, ConfigurationError,
+     "eval_model_axis=2 must"),
     ("yolosem", {"pipeline": 4}, ConfigurationError, "2-stage"),
     ("yolosem", {"pipeline": 3, "pipeline_dp": 3}, ConfigurationError, "must divide"),
 ])

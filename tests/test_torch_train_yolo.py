@@ -262,8 +262,10 @@ def test_cli_device_augs_and_refusals(tree, tmp_path):
     device chain's on); runtime.device_geometric raises ConfigurationError
     naming mosaic; +runtime.pipeline=3 trains (tests/test_torch_pipeline.py
     holds it), a stage count other than 2 or 3 raises ConfigurationError
-    as in JAX, and runtime.model_axis NotImplementedError naming ROADMAP
-    Queue 1 item 7."""
+    as in JAX; runtime.model_axis raises ConfigurationError (tensor
+    parallelism shards CABiNet only, and JAX's YOLO main never reads the
+    key), and runtime.mesh_data that does not tile the one rank raises
+    ConfigurationError naming the key."""
     from cabinet_tpu_torch.core.exceptions import ConfigurationError
 
     exp = tmp_path / "exp"
@@ -279,8 +281,10 @@ def test_cli_device_augs_and_refusals(tree, tmp_path):
     assert np.isfinite(res["losses"][0]) and (tmp_path / "p" / "last.pth").exists()
     with pytest.raises(ConfigurationError, match="2-stage"):
         ty.main(_argv(tree, tmp_path / "p4", "+runtime.pipeline=4"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ConfigurationError, match="runtime.model_axis > 1"):
         ty.main(_argv(tree, tmp_path / "m", "+runtime.model_axis=2"))
+    with pytest.raises(ConfigurationError, match="runtime.mesh_data=2"):
+        ty.main(_argv(tree, tmp_path / "d", "runtime.mesh_data=2"))
 
 
 def test_class_counts_through_the_loader_equal_jax(tree):

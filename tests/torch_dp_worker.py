@@ -1,6 +1,8 @@
 """One rank of a case over ranks of tests/test_torch_dp.py (data
-parallelism), tests/test_torch_tile_eval.py (tile-sharded eval) or
-tests/test_torch_pipeline.py (the pipeline's intra-stage data parallelism).
+parallelism), tests/test_torch_tile_eval.py (tile-sharded eval),
+tests/test_torch_pipeline.py (the pipeline's intra-stage data parallelism)
+or tests/test_torch_tensor_parallel.py and tests/test_torch_pipeline_tp.py
+(tensor parallelism on a (data, model) mesh).
 
     python -m torch_dp_worker CASE DIR
 
@@ -174,6 +176,149 @@ def case_pipeline(inp, rank, ranks):
     return {"losses": losses, "state": loop.weights(), "ema": loop.weights(ema=True),
             "steps": [s.step for s in loop.state],
             "comm": {k: v["calls"] for k, v in mesh.comm_since(comm0).items() if v["calls"]}}
+
+
+TP_CFGS = [[3, 1, 16, 0, 0, 1], [3, 4, 24, 0, 0, 2], [5, 3, 40, 1, 0, 2], [5, 6, 96, 1, 1, 2]]
+
+
+def _tp_model(inp, m, attention="einsum"):
+    """The JAX test's small CABiNet (5 classes) holding the case's weights,
+    cut to this rank's slices on mesh `m` at min_features 48."""
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.models.tensor_parallel import tensor_parallel
+
+    model = CABiNet(5, mode="small", cfgs=TP_CFGS, attention=attention)
+    model.load_state_dict(inp["state_dict"], strict=True)
+    return tensor_parallel(model, m, inp.get("min_features", 48))
+
+
+def _tp_state(inp, m):
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+
+    model = _tp_model(inp, m)
+    opt = GroupedSGD(model, max_grad_norm=1.0, **inp["opt"])
+    return T.create_train_state(model, opt, **inp["ema"])
+
+
+def _clone(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree
+
+
+def _tp_record(state):
+    """The state's whole tensors (gathered), its slices, and its counters."""
+    from cabinet_tpu_torch.models import tensor_parallel as tp
+    from cabinet_tpu_torch.train.checkpoint import CheckpointManager
+
+    model = state.model
+    tree = _clone(CheckpointManager._state_tree(state))  # the live tensors move on
+    names = tp.by_name(state.optimizer.parameters(), model)
+    momentum = {names[i]: st["momentum_buffer"] for i, st in tree["opt_state"]["state"].items()}
+    return {"state": {**tree["params"], **tree["batch_stats"]}, "ema": tree["ema_variables"],
+            "momentum": momentum, "slices": {k: v.clone() for k, v in model.state_dict().items()},
+            "dims": tp.state_dims(model),
+            "counters": (state.step, state.micro_step, state.ema.updates)}
+
+
+def case_tp_train(inp, rank, ranks):
+    """One train step of the tensor-parallel model on mesh `inp["mesh"]`
+    (this data rank's rows of the global batch); with `inp["ckpt"]`, a
+    checkpoint after it, a second step, and the same second step from the
+    checkpoint restored into a fresh state."""
+    from cabinet_tpu_torch.train import trainer as T
+    from cabinet_tpu_torch.train.checkpoint import CheckpointManager
+
+    m = mesh.make_mesh(*inp["mesh"])
+    mesh.set_mesh(m)
+    comm0 = {k: dict(v) for k, v in mesh.COMM.items()}
+    step = T.make_train_step(n_min=inp["n_min"])
+    d, nd = m.data_rank, m.n_data
+    x, y = inp["x"][d::nd], inp["y"][d::nd]
+    state, loss = step(_tp_state(inp, m), x, y)
+    out = {"loss": loss, **_tp_record(state),
+           "comm": {k: v["calls"] for k, v in mesh.comm_since(comm0).items() if v["calls"]},
+           "mesh": (m.n_data, m.n_model, m.data_rank, m.model_rank)}
+    if inp.get("ckpt"):
+        ckpt = CheckpointManager(inp["ckpt"])
+        ckpt.save_full("checkpoint_last", state, 0, 0.5, 1.0,
+                       {"best_fitness": 0.5, "best_epoch": 0})
+        ckpt.save_variables("ema", T.TrainLoop(state, step, "cpu").full_weights(ema=True))
+        state, loss2 = step(state, x, y)
+        fresh = _tp_state(inp, m)
+        restored = ckpt.restore_full("checkpoint_last", fresh)
+        fresh, loss2r = step(restored["state"], x, y)
+        out["resume"] = {"loss": (loss2, loss2r), "straight": state.model.state_dict(),
+                         "resumed": fresh.model.state_dict(),
+                         "ema": (state.ema.state_dict(), fresh.ema.state_dict())}
+    return out
+
+
+def case_tp_eval(inp, rank, ranks):
+    """MscEval of the tensor-parallel model (K1's plain version on the CPU)
+    on mesh `inp["mesh"]`, its tiles shared over the data axis: the
+    summed probabilities and the confusion matrix."""
+    from cabinet_tpu_torch.cli.evaluate import make_eval_forward
+    from cabinet_tpu_torch.eval.evaluator import MscEval
+
+    m = mesh.make_mesh(*inp["mesh"])
+    mesh.set_mesh(m)
+    model = _tp_model(inp, m, attention="kernel")
+    fwd = make_eval_forward(model, 32, "cpu", torch.float32, use_pallas=True,
+                            fused_tail="false")
+    tile = (m.data_rank, m.n_data) if m.n_data > 1 else None
+    ev = MscEval(fwd, 5, scales=(1.0,), cropsize=32, device="cpu", tile_mesh=tile)
+    return {"probs": torch.from_numpy(ev.prob_batch(None, inp["images"])),
+            "hist": ev.hist_batch(None, inp["images"], inp["labels"]),
+            "comm": {k: v["calls"] for k, v in mesh.COMM.items() if v["calls"]}}
+
+
+def case_tp_pipeline(inp, rank, ranks):
+    """The 2-stage pipeline of the tensor-parallel model on mesh
+    `inp["mesh"]` (stages on the CPU; this data rank's rows of each
+    microbatch), one window: its loss and whole weights; then the merged
+    EMA weights cut for an eval mesh of `inp["eval_model_axis"]` model
+    ranks, and MscEval's matrix over them."""
+    from cabinet_tpu_torch.eval.evaluator import MscEval
+    from cabinet_tpu_torch.models import tensor_parallel as tp
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+    from cabinet_tpu_torch.train.optimizer import GroupedSGD
+    from cabinet_tpu_torch.train.pipeline import CabinetPipeline, PipelineTrainLoop
+
+    m = mesh.make_mesh(*inp["mesh"])
+    mesh.set_mesh(m)
+    model = _tp_model(inp, m)
+    pipe = CabinetPipeline(model, lambda st: GroupedSGD(st, **inp["opt"]), n_min=inp["n_min"],
+                           num_microbatches=len(inp["xs"]), devices=["cpu", "cpu"],
+                           max_grad_norm=1.0, **inp["ema"])
+    loop = PipelineTrainLoop(pipe, pipe.init_state(model.state_dict()))  # the slices
+    d, nd = m.data_rank, m.n_data
+    losses = [loop.feed(x[d::nd], y[d::nd]) for x, y in zip(inp["xs"], inp["ys"])]
+    full, ema = loop.full_weights(), loop.full_weights(ema=True)
+    resliced = tp.shard_state(full, model)
+    e = inp["eval_model_axis"]
+    eval_m = mesh.make_mesh(ranks // e, e)
+    eval_model = tp.tensor_parallel(CABiNet(5, mode="small", cfgs=TP_CFGS), eval_m, 48)
+    eval_model.load_state_dict(tp.reshard_state(loop.weights(ema=True), model, eval_model))
+    eval_model.eval()
+
+    def fwd(_, images):
+        with torch.no_grad():
+            return tuple(t.permute(0, 2, 3, 1) for t in eval_model(images.permute(0, 3, 1, 2)))
+
+    with mesh.using(eval_m):
+        tile = (eval_m.data_rank, eval_m.n_data) if eval_m.n_data > 1 else None
+        hist = MscEval(fwd, 5, scales=(1.0,), cropsize=32, device="cpu",
+                       tile_mesh=tile).hist_batch(None, inp["images"], inp["labels"])
+    return {"losses": losses, "state": full, "ema": ema,
+            "slices_equal": all(torch.equal(resliced[k], v)
+                                for k, v in loop.weights().items()),
+            "n_sharded": sum(v is not None for v in tp.state_dims(model).values()),
+            "eval_sharded": sum(v is not None for v in tp.state_dims(eval_model).values()),
+            "hist": hist, "steps": [s.step for s in loop.state]}
 
 
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
