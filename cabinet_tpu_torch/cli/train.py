@@ -92,8 +92,19 @@ cuts each stage's channels over model groups of T ranks;
 `runtime.eval_model_axis=E > 1` runs the evaluations on a (R / E, E) mesh
 of their own, the merged weights cut for it.
 
-Not ported: `runtime.spatial_axis` raises NotImplementedError naming its
-ROADMAP item (Queue 1 item 7c).
+Spatial partitioning (`runtime.spatial_axis=true`, JAX's
+`core/mesh.py:spatial_sharding`): image rows, not the batch, are split
+over the data axis, which is `runtime.mesh_data` or by default every rank
+/ `runtime.model_axis`, whatever the batch. Every rank loads the same
+global batch with the same augmentation draws (`DeviceAugment`'s
+photometric chain runs on the whole batch), and the step takes its stripe
+of every image's rows (`models/spatial_parallel.py`, with the model axis
+too when `runtime.model_axis` > 1); the val loss and the evaluations run
+whole frames, shared over the data axis as under data parallelism. The
+crop height must be a multiple of the data axis times the model's total
+stride (32 for MobileNetV3-Large; a ConfigurationError names both: GSPMD
+pads uneven shards, the port does not); `runtime.device_geometric` and
+`runtime.pipeline` refuse it, as in JAX.
 """
 
 from __future__ import annotations
@@ -114,14 +125,9 @@ from cabinet_tpu_torch.core.exceptions import ConfigurationError
 from cabinet_tpu_torch.core.logging import is_primary_process, setup_logger
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise for the settings whose code is not ported, naming the ROADMAP
-    item each waits for: `runtime.spatial_axis`."""
-    from cabinet_tpu_torch.core.mesh import TENSOR_PARTITIONING
-
-    if bool(cfg.select("runtime.spatial_axis", False)):
-        raise NotImplementedError(
-            f"runtime.spatial_axis (spatial partitioning) is not ported yet ({TENSOR_PARTITIONING})")
+def spatial_axis(cfg: Config) -> bool:
+    """`runtime.spatial_axis`: image rows striped over the data axis."""
+    return bool(cfg.select("runtime.spatial_axis", False))
 
 
 def pipeline_stages(cfg: Config, family: str = "cabinet") -> int:
@@ -200,9 +206,12 @@ def mesh_axes(cfg: Config, ranks: int, pp_stages: int = 0,
     `runtime.model_axis` (CABiNet; 1 for YOLO-sem, whose JAX main never
     reads the key) or under the pipeline `runtime.pipeline_tp`; n_data is
     `runtime.mesh_data`, 0 for `auto_data_axis(batch, ranks / n_model)`
-    (the pipeline: ranks / pipeline_tp). Raises a ConfigurationError naming
-    the key unless the grid holds every rank, and unless n_data divides
-    the global batch `training_config.batch_size`."""
+    (the pipeline: ranks / pipeline_tp; with `runtime.spatial_axis`, which
+    stripes rows and not the batch, ranks / n_model whatever the batch, as
+    JAX's `cli/train.py:262-268`). Raises a ConfigurationError naming the
+    key unless the grid holds every rank, and unless n_data divides the
+    global batch `training_config.batch_size` (rows under the spatial
+    axis: `spatial_stride_check`)."""
     from cabinet_tpu_torch.core import mesh
 
     batch = int(cfg.training_config.batch_size)
@@ -214,7 +223,9 @@ def mesh_axes(cfg: Config, ranks: int, pp_stages: int = 0,
         raise ConfigurationError(f"runtime.model_axis={n_model} must divide the rank "
                                  f"count ({ranks})")
     key = int(cfg.select("runtime.mesh_data", 0) or 0)
-    n_data = key or mesh.auto_data_axis(batch, ranks // n_model)
+    spatial = family == "cabinet" and spatial_axis(cfg)
+    n_data = key or (ranks // n_model if spatial
+                     else mesh.auto_data_axis(batch, ranks // n_model))
     if n_data * n_model != ranks:
         why = ("" if key else f" (0: the largest divisor of the batch {batch} that fits "
                f"{ranks // n_model} ranks)")
@@ -223,10 +234,27 @@ def mesh_axes(cfg: Config, ranks: int, pp_stages: int = 0,
             f"{n_model} does not hold the {ranks} ranks; each rank is a process and "
             f"cannot sit idle: set runtime.mesh_data to {ranks // n_model} or 0, or "
             f"start {n_data * n_model} ranks")
-    if batch % n_data:
+    if batch % n_data and not spatial:
         raise ConfigurationError(f"runtime.mesh_data={key}: the data axis {n_data} does "
                                  f"not divide training_config.batch_size={batch}")
     return n_data, n_model
+
+
+def spatial_stride_check(cfg: Config, model: Any, n_data: int) -> None:
+    """Raise a ConfigurationError unless the crop height is a multiple of
+    the data axis times the model's total stride (`models/spatial_parallel.
+    py:stripe_multiple`): every stripe must start on a multiple of every
+    conv's stride (JAX's GSPMD pads uneven shards instead)."""
+    from cabinet_tpu_torch.models.spatial_parallel import stripe_multiple
+
+    crop_h = int(cfg.dataset.cropsize[0])
+    stride = stripe_multiple(model)
+    if crop_h % (n_data * stride):
+        raise ConfigurationError(
+            f"runtime.spatial_axis: the crop height {crop_h} (dataset.cropsize) is not a "
+            f"multiple of the data axis {n_data} x the model's total stride {stride} = "
+            f"{n_data * stride}: each of the {n_data} stripes must start on every conv's "
+            f"stride")
 
 
 def train_mesh(cfg: Config, pp_stages: int = 0, family: str = "cabinet") -> Any:
@@ -405,6 +433,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     )
     from cabinet_tpu_torch.data.loader import DataLoader
     from cabinet_tpu_torch.eval.evaluator import MscEval
+    from cabinet_tpu_torch.models.spatial_parallel import spatial_parallel
     from cabinet_tpu_torch.models.tensor_parallel import reshard_state, tensor_parallel
     from cabinet_tpu_torch.train.checkpoint import CheckpointManager
     from cabinet_tpu_torch.train.early_stopping import EarlyStopping
@@ -424,11 +453,13 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
             "with runtime.spatial_axis (the warp gathers across the full "
             "image height). Use the host pipeline for spatial partitioning.")
     pp_stages = pipeline_stages(cfg, "cabinet")
-    refuse_unported(cfg)
+    spatial = spatial_axis(cfg)
     device = join_ranks(cfg, device)
     rank, ranks = mesh.world()
     train_m = train_mesh(cfg, pp_stages)  # the data x model grid of the ranks
     shard = (train_m.data_rank, train_m.n_data) if train_m.n_data > 1 else None
+    # the spatial axis stripes rows: every rank loads the whole global batch
+    train_shard = None if spatial else shard
     tp_min = int(cfg.select("runtime.tp_min_features", 256))
     # the evaluations' mesh: the train mesh, or under the pipeline JAX's
     # global eval mesh, its model axis runtime.eval_model_axis
@@ -443,10 +474,11 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     # ---- datasets ------------------------------------------------------
     ds_train, ds_val = common.build_datasets(cfg, ["train", "val"])
     common.guard_val_batch(cfg, ds_val, vc.batch_size)
-    dl_train = common.make_loader(cfg, ds_train, mesh.local_batch_size(tc.batch_size),
+    dl_train = common.make_loader(cfg, ds_train, int(tc.batch_size) if spatial
+                                  else mesh.local_batch_size(tc.batch_size),
                                   shuffle=True, drop_last=True,
                                   num_workers=tc.num_workers, seed=cfg.runtime.seed,
-                                  shard=shard)
+                                  shard=train_shard)
     dl_val = DataLoader(ds_val, vc.batch_size, num_workers=vc.num_workers, shard=shard)
     # tile-sharded eval: every rank scores every frame, its tiles shared over
     # the eval mesh's data axis; else each data rank scores its frames
@@ -478,6 +510,9 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
     model.to(device)
     mesh.broadcast_module_(model)
     tensor_parallel(model, train_m, tp_min)  # this rank's slices of the wide layers
+    if spatial:  # and its stripe of the rows
+        spatial_stride_check(cfg, model, train_m.n_data)
+        spatial_parallel(model, train_m)
 
     # ---- class weights ---------------------------------------------------
     class_weights = None
@@ -511,7 +546,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         devices = make_pipeline_devices(pp_stages, device)
     aug_fn, aug_clock = None, _DeviceClock(device)
     if getattr(ds_train, "photometric", "host") == "device":  # on the first device
-        augment = DeviceAugment(cfg, ds_train, devices[0], (crop_h, crop_w), shard=shard)
+        augment = DeviceAugment(cfg, ds_train, devices[0], (crop_h, crop_w), shard=train_shard)
 
         def aug_fn(raw, step, micro_step):
             started = aug_clock.start()

@@ -227,7 +227,7 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
         epoch_batches,
         join_ranks,
         pipeline_stages,
-        refuse_unported,
+        spatial_axis,
         train_mesh,
     )
     from cabinet_tpu_torch.core.exceptions import ConfigurationError
@@ -252,8 +252,12 @@ def train(cfg: Config, device: Union[str, torch.device] = "cuda") -> Dict[str, A
             "runtime.model_axis > 1: tensor parallelism (models/tensor_parallel.py) "
             "shards CABiNet only; the JAX package's YOLO main never reads the key "
             "and trains data-parallel")
+    if spatial_axis(cfg):
+        raise ConfigurationError(
+            "runtime.spatial_axis: spatial partitioning (models/spatial_parallel.py) "
+            "stripes CABiNet only; the JAX package's YOLO main never reads the key "
+            "and trains data-parallel")
     pp_stages = pipeline_stages(cfg, "yolosem")
-    refuse_unported(cfg)
     device = join_ranks(cfg, device)
     train_mesh(cfg, pp_stages, "yolosem")  # runtime.mesh_data must tile the ranks
     rank, ranks = mesh.world()

@@ -30,9 +30,21 @@ shards and the evaluations' shares reduce over the data group; the
 sharded layers (`models/tensor_parallel.py`) over the model group.
 `tensor_parallel_spec` is JAX's rule for which leaves split;
 `shard_model_parallel` and `gather_model_parallel` cut a state dict to this
-rank's slices and put the slices back together. Spatial partitioning is
-not ported: `spatial_sharding` raises, naming its ROADMAP item
-(`TENSOR_PARTITIONING`).
+rank's slices and put the slices back together.
+
+Spatial partitioning (`runtime.spatial_axis`) stripes image rows over the
+data axis instead of the batch: `spatial_sharding` takes this data rank's
+stripe, rows [d*H/n, (d+1)*H/n), and three differentiable collectives
+over the data group serve the ops that read across rows
+(`models/spatial_parallel.py`): `halo_exchange` (the rows a conv or a
+resize reads beyond the stripe's edges, fetched from the ranks that own
+them, zeros beyond the image's; the backward adds the halo's gradient
+into its owner's rows), `gather_rows` (the whole map on every rank; the
+backward is this rank's rows of the summed gradient) and `spatial_sum`
+(a sum over the whole image's pixels). Each is one all-reduce of an f32
+buffer that each rank fills with its part, zeros elsewhere, so that the
+exchange is exact; tagged `sp_halo`, `sp_gather` and `sp_sum`, forward
+and backward.
 
 `COMM` holds, by tag, the calls and host seconds of the collectives this
 process made (gloo blocks the host for its call, so that is its cost; an
@@ -56,7 +68,6 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 BACKENDS = ("auto", "nccl", "gloo")
 DEFAULT_TIMEOUT_S = 300.0
-TENSOR_PARTITIONING = "ROADMAP Queue 1 item 7c, spatial partitioning"
 
 COMM: Dict[str, Dict[str, float]] = {}
 
@@ -326,6 +337,13 @@ def data_group() -> Any:
     return current().data_group
 
 
+def replicated(m: Mesh) -> Mesh:
+    """`m` with a data axis of one: a rank's own computation on data every
+    data rank holds alike (BatchNorm takes its statistics locally), its
+    model group kept."""
+    return Mesh(1, m.n_model, m.model_rank, SELF, m.model_group)
+
+
 def auto_data_axis(batch_size: int, n_devices: Optional[int] = None) -> int:
     """Largest divisor of batch_size that fits the rank count — keeps the
     batch evenly shardable on the data axis regardless of batch/rank ratio."""
@@ -426,5 +444,141 @@ def gather_model_parallel(tree: Mapping[str, torch.Tensor], m: Mesh,
     return out
 
 
-def spatial_sharding(m: Any, ndim: int) -> Any:
-    raise NotImplementedError(f"spatial partitioning is not ported yet ({TENSOR_PARTITIONING})")
+# ---------------------------------------------------------------------------
+# Spatial partitioning: image rows striped over the data axis
+# ---------------------------------------------------------------------------
+
+def stripe(height: int, m: Mesh) -> Tuple[int, int]:
+    """This data rank's rows [start, stop) of `height` rows: equal stripes,
+    data index d owning [d*height/n, (d+1)*height/n); raises unless the
+    data axis divides `height`."""
+    if height % m.n_data:
+        raise ValueError(f"{height} rows do not split into {m.n_data} equal stripes")
+    h = height // m.n_data
+    return m.data_rank * h, (m.data_rank + 1) * h
+
+
+def spatial_sharding(m: Mesh, ndim: int):
+    """JAX's `spatial_sharding` (dim 1, the image rows, over the data
+    axis): a function taking a (B, H, ...) array of `ndim` dims to this
+    data rank's stripe of its rows (a view)."""
+    if ndim < 2:
+        raise ValueError("spatial sharding needs a (B, H, ...) array")
+
+    def take(x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != ndim:
+            raise ValueError(f"expected {ndim} dims, got {tuple(x.shape)}")
+        start, stop = stripe(x.shape[1], m)
+        return x[:, start:stop]
+    return take
+
+
+ROWS = 2  # the row dim of NCHW activations
+
+
+def _halo_index(m: Mesh, h: int, above: int, below: int) -> Tuple[List[int], int]:
+    """Where each row of the padded stripe [start - above, stop + below)
+    outside the stripe sits in the exchange buffer: (B, C, n, ra + rb, W)
+    viewed as (B, C, n * (ra + rb), W), rank q's slot holding its last ra =
+    min(above, h) rows then its first rb = min(below, h); `n * (ra + rb)`
+    stands for a row beyond the image (a zero). Returns (the indices of the
+    rows above, then below; ra)."""
+    n, d = m.n_data, m.data_rank
+    ra, rb = min(above, h), min(below, h)
+    slot = ra + rb
+    idx = []
+    for g in list(range(d * h - above, d * h)) + list(range((d + 1) * h, (d + 1) * h + below)):
+        q = g // h
+        if g < 0 or q >= n:
+            idx.append(n * slot)
+        elif q < d:  # a tail row of rank q
+            idx.append(q * slot + (g - q * h) - (h - ra))
+        else:  # a head row of rank q
+            idx.append(q * slot + ra + (g - q * h))
+    return idx, ra
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, above, below, m):
+        B, C, h, W = x.shape
+        idx, ra = _halo_index(m, h, above, below)
+        rb = min(below, h)
+        buf = torch.zeros((B, C, m.n_data, ra + rb, W), dtype=torch.float32, device=x.device)
+        buf[:, :, m.data_rank, :ra] = x[:, :, h - ra:]
+        buf[:, :, m.data_rank, ra:] = x[:, :, :rb]
+        flat = all_reduce_(buf, tag="sp_halo", group=m.data_group).view(B, C, -1, W)
+        flat = torch.cat([flat, flat.new_zeros((B, C, 1, W))], dim=ROWS)
+        rows = flat.index_select(ROWS, torch.tensor(idx, device=x.device)).to(x.dtype)
+        ctx.save = (idx, ra, rb, h, above, m)
+        return torch.cat([rows[:, :, :above], x, rows[:, :, above:]], dim=ROWS)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, ra, rb, h, above, m = ctx.save
+        B, C, _, W = g.shape
+        gx = g[:, :, above:above + h].clone()
+        halo = torch.cat([g[:, :, :above], g[:, :, above + h:]], dim=ROWS).float()
+        flat = torch.zeros((B, C, m.n_data * (ra + rb) + 1, W), dtype=torch.float32,
+                           device=g.device)
+        flat.index_add_(ROWS, torch.tensor(idx, device=g.device), halo)
+        buf = all_reduce_(flat[:, :, :-1].contiguous().view(B, C, m.n_data, ra + rb, W),
+                          tag="sp_halo", group=m.data_group)
+        mine = buf[:, :, m.data_rank].to(g.dtype)
+        gx[:, :, h - ra:] += mine[:, :, :ra]
+        gx[:, :, :rb] += mine[:, :, ra:]
+        return gx, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, above: int, below: int, m: Mesh) -> torch.Tensor:
+    """This rank's stripe `x` (B, C, h, W) of an image of n * h rows, with
+    `above` rows before it and `below` after it from the ranks that own
+    them (across several ranks when the halo is taller than a stripe),
+    zeros beyond the image's own top and bottom edges: (B, C, above + h +
+    below, W). Every rank of the data group calls it with the same
+    arguments."""
+    if above < 0 or below < 0:
+        raise ValueError(f"negative halo ({above}, {below})")
+    return _Halo.apply(x, int(above), int(below), m)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m):
+        B, C, h, W = x.shape
+        full = torch.zeros((B, C, m.n_data * h, W), dtype=torch.float32, device=x.device)
+        full[:, :, m.data_rank * h:(m.data_rank + 1) * h] = x
+        ctx.save = (h, m)
+        return all_reduce_(full, tag="sp_gather", group=m.data_group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, m = ctx.save
+        summed = all_reduce_(g.float().clone(), tag="sp_gather", group=m.data_group)
+        return summed[:, :, m.data_rank * h:(m.data_rank + 1) * h].to(g.dtype), None
+
+
+def gather_rows(x: torch.Tensor, m: Mesh) -> torch.Tensor:
+    """The whole (B, C, n * h, W) map on every rank of the data group from
+    each rank's stripe (exact: the others add zeros). Backward: this
+    rank's rows of the gradient summed over the group (each rank's use of
+    the whole map adds its part)."""
+    return _GatherRows.apply(x, m)
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, m):
+        ctx.m = m
+        return all_reduce_(s.clone(), tag="sp_sum", group=m.data_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), tag="sp_sum", group=ctx.m.data_group), None
+
+
+def spatial_sum(x: torch.Tensor, m: Mesh, dims: Sequence[int] = (2, 3)) -> torch.Tensor:
+    """The f32 sum of `x` over `dims` (rows and columns) of the whole
+    image: each stripe's sum, summed over the data group; its gradient
+    is every rank's, summed, on each rank's pixels."""
+    return _Sum.apply(x.float().sum(dim=tuple(dims)), m)

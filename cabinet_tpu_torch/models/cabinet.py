@@ -13,7 +13,9 @@ Counterpart of `cabinet_tpu.models.cabinet`:
 Modules take and return NCHW; children follow the reference state-dict keys.
 In a tensor-parallel model (`models/tensor_parallel.py`) a slice of
 channels is gathered where the branches concatenate and at the logits
-(`full_channels`).
+(`full_channels`). A row-striped model (`models/spatial_parallel.py`)
+decodes its stripe through `decode_stripe`, and the FFM's attention takes
+the whole image's mean (`spatial_mean`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from cabinet_tpu_torch.core.constants import MODEL_CONFIG
 from cabinet_tpu_torch.models.cab import ContextAggregationBlock, resize_bilinear
 from cabinet_tpu_torch.models.layers import ConvBNReLU, batch_norm
 from cabinet_tpu_torch.models.mobilenetv3 import MobileNetV3, default_cfgs
+from cabinet_tpu_torch.models.spatial_parallel import decode_stripe, spatial_mean
 from cabinet_tpu_torch.models.tensor_parallel import full_channels
 
 
@@ -86,7 +89,7 @@ class FeatureFusionModule(nn.Module):
 
     def forward(self, fsp: torch.Tensor, fcp: torch.Tensor) -> torch.Tensor:
         feat = self.convblk(torch.cat([fsp, fcp], dim=1))
-        atten = feat.mean(dim=(2, 3), keepdim=True)
+        atten = spatial_mean(feat, self, keepdim=True)
         atten = torch.sigmoid(self.conv2(F.relu(self.conv1(atten))))
         return feat * atten + feat
 
@@ -164,6 +167,8 @@ class CABiNet(nn.Module):
 
     def _decode(self, x: torch.Tensor, mobile_feat: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if getattr(self, "sp_on", False):  # a stripe of rows (models/spatial_parallel.py)
+            return decode_stripe(self, x, mobile_feat)
         H, W = x.shape[2:]
         feat_sb = full_channels(self.sb(x), 128, self.ffm)  # FFM's concatenation
         low_res, aux = self.ab(mobile_feat)

@@ -7,7 +7,8 @@ the reference torch state-dict keys, so a reference `.pth` loads with
 variance takes the biased batch variance, as flax's does. Inside a process
 group whose data axis holds more than one rank (`core/mesh.py:current`),
 train-mode statistics are taken over every data rank's batch (data
-parallelism: the statistics of the global batch).
+parallelism: the statistics of the global batch). On a row-striped model
+(`models/spatial_parallel.py`) SE's pooling is the whole image's mean.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cabinet_tpu_torch.models.spatial_parallel import spatial_mean
 
 
 def make_divisible(v: float, divisor: int, min_value: Optional[int] = None) -> int:
@@ -184,7 +187,7 @@ class SELayer(nn.Module):
                                 nn.Linear(hidden, channels), HardSigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc(x.mean(dim=(2, 3)))
+        y = self.fc(spatial_mean(x, self))
         return x * y[:, :, None, None]
 
 

@@ -42,11 +42,20 @@ row-parallel one; and `gather` (all-gather forward, the own slice of
 the whole gradient backward). Every collective is an all-reduce over the
 model group (an all-gather is one of a zero-padded buffer), tagged
 `tp_forward` or `tp_backward`, run in f32.
+
+On CUDA tensors every sharded conv runs its forward and backward with
+cuDNN off (`SHARDED_CUDNN`, PyTorch's own convolution kernels;
+`bounded_conv2d`): at a rank's shapes cuDNN's heuristic, deterministic
+algorithms or not, takes a 16.7 GiB workspace for the split output head's
+3x3 (`tp_memory.py --variants`), more than a one-rank step's whole peak.
+The flag is set around those convs alone, in both directions.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Set, Tuple
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -145,6 +154,70 @@ def applied_to(p: torch.Tensor, x: torch.Tensor, channels: int,
 
 
 # ---------------------------------------------------------------------------
+# cuDNN's workspace, kept out of the sharded convs
+# ---------------------------------------------------------------------------
+
+SHARDED_CUDNN = {"enabled": False}
+
+
+@contextlib.contextmanager
+def _cudnn(settings):
+    """`torch.backends.cudnn`'s flags set to `settings` inside the block
+    (the others as they are: TF32 stays as the caller set it)."""
+    cudnn = torch.backends.cudnn
+    saved = {k: getattr(cudnn, k) for k in settings}
+    for k, v in settings.items():
+        setattr(cudnn, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(cudnn, k, v)
+
+
+class _BoundedConv(torch.autograd.Function):
+    """F.conv2d whose forward and backward both run under `SHARDED_CUDNN`
+    (autocast's dtype applied by hand, as autocast would, since the
+    backward runs outside it)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        dtype = (torch.get_autocast_dtype(x.device.type)
+                 if torch.is_autocast_enabled(x.device.type) else x.dtype)
+        xs, ws = x.to(dtype), weight.to(dtype)
+        bs = None if bias is None else bias.to(dtype)
+        with torch.autocast(x.device.type, enabled=False), _cudnn(SHARDED_CUDNN):
+            y = F.conv2d(xs, ws, bs, stride, padding, dilation, groups)
+        ctx.save_for_backward(xs, ws)
+        ctx.conf = (stride, padding, dilation, groups)
+        ctx.dtypes = (x.dtype, weight.dtype, None if bias is None else bias.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, ws = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        has_bias = ctx.dtypes[2] is not None
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                has_bias and ctx.needs_input_grad[2]]
+        with _cudnn(SHARDED_CUDNN):
+            grads = torch.ops.aten.convolution_backward(
+                g.to(xs.dtype), xs, ws, [ws.shape[0]] if has_bias else None, list(stride),
+                list(padding), list(dilation), False, [0, 0], groups, mask)
+        out = [None if t is None or dt is None else t.to(dt)
+               for t, dt in zip(grads, ctx.dtypes)]
+        return (*out, None, None, None, None)
+
+
+def bounded_conv2d(x, weight, bias, stride, padding, dilation, groups) -> torch.Tensor:
+    """F.conv2d, under `SHARDED_CUDNN`'s cuDNN flags on CUDA tensors."""
+    if not x.is_cuda:
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    return _BoundedConv.apply(x, weight, bias, tuple(stride), tuple(padding),
+                              tuple(dilation), groups)
+
+
+# ---------------------------------------------------------------------------
 # The sharded modules
 # ---------------------------------------------------------------------------
 
@@ -167,7 +240,12 @@ class _Sharded:
 
 class ShardedConv2d(_Sharded, nn.Conv2d):
     """A conv (or depthwise conv) of a tensor-parallel model: with `split`
-    its slice of the output channels, else the whole weight."""
+    its slice of the output channels, else the whole weight; cuDNN's
+    workspace kept out on CUDA (`bounded_conv2d`)."""
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+        return bounded_conv2d(x, weight, bias, self.stride, self.padding, self.dilation,
+                              self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = self.tp_mesh
@@ -263,6 +341,8 @@ def _sharded_twin(module: nn.Module, split: bool, m: _mesh.Mesh) -> nn.Module:
     n = m.n_model if split else 1
     if isinstance(module, nn.Conv2d):
         depthwise = module.groups > 1
+        if module.padding_mode != "zeros" or isinstance(module.padding, str):
+            raise ValueError(f"conv {module} is not sharded (padding)")
         if depthwise and module.groups != module.in_channels:
             raise ValueError(f"grouped conv {module} is not sharded")
         out_ch = module.out_channels // n

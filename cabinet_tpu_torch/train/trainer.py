@@ -41,6 +41,13 @@ model group, over its data group and then sent from the group's first
 rank, so that the replicated parameters stay one copy bit for bit. The
 clip's norm counts each slice once (`optimizer.py:ScheduledSGD`).
 
+On a row-striped model (`models/spatial_parallel.py`, spatial
+partitioning) each rank is handed the whole global batch, takes its stripe
+of every image's rows (`core/mesh.py:spatial_sharding`) and runs the
+forward and backward on it inside `stripes`; the losses and BatchNorm
+reduce over the data group's pixels, and the gradients are reduced as
+under data parallelism. The val loss runs whole frames.
+
 The step always runs the CAB's einsum attention (on a model with a CAB),
 the function that the JAX wrapper computes off the TPU and which is
 differentiable: the attention kernel K1 has no backward
@@ -60,6 +67,7 @@ import torch
 from torch import nn
 
 from cabinet_tpu_torch.core import mesh
+from cabinet_tpu_torch.models import spatial_parallel
 from cabinet_tpu_torch.train.ema import ModelEMA
 from cabinet_tpu_torch.train.losses import cross_entropy_mean, ohem_cross_entropy
 from cabinet_tpu_torch.train.optimizer import ScheduledSGD
@@ -205,7 +213,8 @@ def make_train_step(
     seg(final) + aux_weight * seg(aux), seg OHEM (`ohem_method`, bisect by
     default, as in JAX; CABiNet) or the
     CE mean (`loss_type="ce"`; YOLO-sem). In a group of several ranks,
-    `images` and `labels` are this rank's share of the global batch and
+    `images` and `labels` are this rank's share of the global batch (on a
+    row-striped model the whole global batch, of which it takes its rows) and
     the loss is the global batch's; `n_min` is sized from the global
     batch."""
     seg_loss = _seg_loss(loss_type, n_min, thresh, ignore_label, class_weights, ohem_method)
@@ -215,11 +224,14 @@ def make_train_step(
         model = state.model
         model.train()
         share = mesh.data_world()[1] > 1
-        with einsum_attention(model):
+        sp = spatial_parallel.mesh_of(model)
+        if sp is not None:  # this data rank's rows of the global batch
+            images, labels = (mesh.spatial_sharding(sp, t.dim())(t) for t in (images, labels))
+        with einsum_attention(model), spatial_parallel.stripes(model):
             final, aux = _forward(model, images, compute_dtype)
-        loss = (seg_loss(final, labels, share)
-                + aux_weight * seg_loss(aux, labels, share)) / accum_steps
-        loss.backward()
+            loss = (seg_loss(final, labels, share)
+                    + aux_weight * seg_loss(aux, labels, share)) / accum_steps
+            loss.backward()  # a rematerialised block recomputes on its stripe
         state.micro_step += 1
         if state.micro_step >= accum_steps:
             _apply_update(state)

@@ -101,7 +101,7 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               serving module; then, in fresh processes with lazy and with
               eager module loading, where a server's first requests go
   12. data   the data layer as a user meets it, from a raw UAVid download:
-              a raw tree (<split>/<seq>/{Images,Labels}, 8 train and 2 val
+              a raw tree (<split>/<seq>/{Images,Labels}, 4 train and 1 val
               3840x2160 frames, images Paeth-filtered, labels in UAVid's
               colours with patches of unknown ones); `cli/convert.py uavid
               --workers <cores>`, every mask held against a plain numpy
@@ -173,7 +173,7 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               of the frames, the matrices summed) and in no step; each
               step's ms and its
               collectives' host ms; then 2 steps of `cli/train_yolo.py:main`
-              on 2 ranks; no rank left. Every 2-rank job of phases 16-18
+              on 2 ranks; no rank left. Every 2-rank job of phases 16-19
               runs here, in one torchrun (`run_two_ranks`), and each phase
               holds its own. Two ranks on one card through gloo
               stage every collective through the host: not a multi-card
@@ -220,14 +220,34 @@ holds every hand-written kernel against its plain PyTorch version. Phases:
               `cli/evaluate.py:main` on (a)'s EMA `.pth` (bf16, use_pallas:
               K1-K3); each part's step ms, its collectives' host ms and
               calls by tag, and each rank's peak memory against R=1's
-  19. no process left: the process loader's forkserver and resource
+  19. sp     spatial partitioning (models/spatial_parallel.py) on
+              CABiNet-Large, 19 classes, phase 9's split, global batch 4,
+              f32 with TF32 off, gloo ranks sharing the card: (a)
+              `cli/train.py:main` with runtime.spatial_axis=true on 2
+              ranks, each a 512-row stripe of every image, 2 epochs of 2
+              steps (in phase 16's 2-rank torchrun), against phase 16's R=1
+              run within its bounds, every rank's batches bit-equal to
+              rank 0's, the ranks' weights bit-equal, K1 in the
+              evaluations (`tp_k1_launches`) and in no step; (b) stripes x
+              model slices at 2 x 2 (runtime.model_axis=2, in phase
+              18(b)'s 4-rank torchrun), one epoch, against R=1 after its
+              first epoch; each part's step ms, its collectives' host ms
+              and calls by tag (`sp_halo`, `sp_gather`, `sp_sum`, ...),
+              each rank's peak memory against R=1's; (c) `python -m
+              cabinet_tpu_torch.cli.dryrun_multichip --ranks 2`: one step
+              of every strategy on the card
+  20. no process left: the process loader's forkserver and resource
       tracker stopped and reaped, and no process this run started (a
       child, or any process carrying the run's mark in its environment)
       still there
-  20. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  21. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+
+`python3 chip_smoke.py --r1-floor` runs phase 16's R=1 train main twice
+(on phase 9's split, which it writes) and prints the card's run-to-run
+floor under phase 16's bound (`held_against`), and nothing else.
 
 `python3 chip_smoke.py --rank-main MODULE OUT ARGV...` is one rank of
-phases 16-18 (torchrun starts it): `cabinet_tpu_torch.cli.MODULE.main(
+phases 16-19 (torchrun starts it): `cabinet_tpu_torch.cli.MODULE.main(
 ARGV)` with its steps (or pipeline windows) timed, its launches counted,
 its peak memory read, and its weights (a train main's; also those after
 its SNAPSHOT_STEP-th step) or its confusion matrix (an evaluate main's)
@@ -2527,7 +2547,8 @@ def say_serve(smi: str, served: dict) -> None:
 # loader's start-up; `kernel_times.py --loader` times the loaders over 20
 # steps in fresh processes.
 DATA_SEQS = {"train": ("seq01", "seq02"), "val": ("seq03",)}
-DATA_PER_SEQ = {"train": 4, "val": 2}
+DATA_PER_SEQ = {"train": 2, "val": 1}  # frames a sequence (cut from 4 and 2 for time)
+DATA_STEPS_PER_EPOCH = len(DATA_SEQS["train"]) * DATA_PER_SEQ["train"] // 4  # batch 4
 DATA_UNKNOWN = ((1, 2, 3), (250, 250, 250))
 DATA_PATCH = 64
 DATA_RUNS = 1  # thread and grain train mains per recipe, in turns
@@ -2867,7 +2888,8 @@ def run_data(torch, paths, tmp: Path) -> dict:
             epochs = DATA_THREAD_EPOCHS if loader == "thread" else 2
             runs[name] = data_train_run(torch, paths, name,
                                         data_train_argv(dst, recipe, loader, epochs),
-                                        tmp / f"exp_{name}", steps=2 * epochs)
+                                        tmp / f"exp_{name}",
+                                        steps=DATA_STEPS_PER_EPOCH * epochs)
         first = runs[f"data_{recipe}_thread_0"]["hashes"]
         differ = [n for n, r in runs.items()
                   if recipe in n and r["hashes"][:len(first)] != first]
@@ -2931,7 +2953,7 @@ def say_data(smi: str, data: dict) -> None:
 
 QUANT_FRAMES = 2  # the first frames of phase 7's split
 QUANT_SITES = {"int8": 46, "int8dw": 64}  # CABiNet-Large's, as JAX counts them
-QUANT_ROUNDS = 2
+QUANT_ROUNDS = 1  # rounds of (float, int8, int8dw, int8dw, int8, float) (cut from 2 for time)
 
 
 def check_int8_sites(torch, size: int = EVAL_MAIN_CROP, batches=(1, 8)):
@@ -3243,10 +3265,13 @@ def run_yolo_train(torch, paths, dst: Path, exp: Path) -> dict:
                       "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         say("yolo", part="train_main", run=name, **runs[name])
         check(all(math.isfinite(v) for v in res["losses"]), f"{name}: losses {res['losses']}")
+    # each epoch's micro-steps, and its optimizer steps at accum 2 with the
+    # epoch's trailing window flushed
+    micro = DATA_STEPS_PER_EPOCH
     check((runs["yolo_train_main"]["micro_steps"], runs["yolo_train_main"]["optimizer_steps"])
-          == (4, 2), f"train main: {runs['yolo_train_main']}")
+          == (2 * micro, 2 * math.ceil(micro / 2)), f"train main: {runs['yolo_train_main']}")
     check((runs["yolo_train_resume"]["micro_steps"], runs["yolo_train_resume"]["optimizer_steps"])
-          == (2, 1), f"resume: {runs['yolo_train_resume']}")
+          == (micro, math.ceil(micro / 2)), f"resume: {runs['yolo_train_resume']}")
     res, val_s, lines = paths.drive("yolo_val_main", run_cli, yolo_main, yolo_train_argv(
         dst, exp, 3, "mode=val", f"weights={exp / 'final'}"), "val", 3)
     check(0.0 <= res["mIoU"] <= 1.0 and any("metrics.json snippet" in ln for ln in lines),
@@ -3606,6 +3631,7 @@ def rank_main(args) -> int:
     OUT/rank<r>.pt: a train main's weights and EMA, per-step losses and
     times; an evaluate main's confusion matrix, mIoU, timing and
     collectives."""
+    import hashlib
     import importlib
 
     import torch
@@ -3630,8 +3656,10 @@ def rank_main(args) -> int:
         cli = importlib.import_module(f"cabinet_tpu_torch.cli.{module}")
         inside = dict.fromkeys(_counters(), 0)
         held, steps, windows = {}, [], []
+        # under the spatial axis every rank is handed the whole global batch
+        hashed = "runtime.spatial_axis=true" in argv
 
-        def timed(*a, inside=inside, held=held, steps=steps, **k):
+        def timed(*a, inside=inside, held=held, steps=steps, hashed=hashed, **k):
             step = make_step(*a, **k)
 
             def run(state, images, labels):
@@ -3650,6 +3678,10 @@ def rank_main(args) -> int:
                 for name, n in kernel_counts().items():
                     inside[name] += n - before[name]
                 steps.append({"ms": ms, "loss": float(result[1]),
+                              "batch_sha1": hashlib.sha1(
+                                  images.cpu().numpy().tobytes()
+                                  + labels.cpu().numpy().tobytes()).hexdigest()
+                              if hashed else None,
                               "collectives": mesh.comm_since(comm),
                               "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                                            if images.is_cuda else 0.0)})
@@ -3737,20 +3769,24 @@ def dp_argv(split: Path, exp: Path, backend: str, *extra: str):
             f"training_config.experiments_path={exp}", *extra, "--device", DEVICE]
 
 
-def held_against(torch, got, ref, start) -> float:
-    """The largest ratio, over the tensors of `ref`, of |got - ref| to its
+def held_against(torch, got, ref, start) -> tuple:
+    """(the largest ratio, over the tensors of `ref`, of |got - ref| to its
     bound: 0.1 of the tensor's update from `start` + 4 f32 ulps of its
-    magnitude + 1e-4 of the largest update (BOUND_DP_*)."""
+    magnitude + 1e-4 of the largest update (BOUND_DP_*); the name of the
+    tensor that sets it)."""
     floats = [k for k, v in ref.items() if v.is_floating_point()]
     ups = {k: float((ref[k].float() - start[k].float()).abs().max()) for k in floats}
     largest = max(ups.values())
-    worst = 0.0
+    worst, where = 0.0, None
     for k in floats:
         err = float((got[k].float() - ref[k].float()).abs().max())
         bound = (BOUND_TRAIN_UPDATE * ups[k] + TRAIN_ULPS * float(ref[k].abs().max())
                  + 1e-4 * largest)
-        worst = max(worst, err / bound if bound > 0 else (0.0 if err == 0 else float("inf")))
-    return worst
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else float("inf"))
+        if ratio > worst or where is None:
+            worst, where = ratio, k
+    return worst, where
+
 
 
 def dp_steps(recs) -> dict:
@@ -3785,12 +3821,12 @@ def dp_jobs(keep: Path) -> list:
 
 
 def run_two_ranks(torch, paths, keep: Path) -> dict:
-    """Every 2-rank job of phases 16-18 (`dp_jobs`, `pipeline_rank_jobs`,
-    `tp_rank_jobs`) in one `torchrun_jobs` chain, so that a torchrun's
+    """Every 2-rank job of phases 16-19 (`dp_jobs`, `pipeline_rank_jobs`,
+    `tp_rank_jobs`, `sp_rank_jobs`) in one `torchrun_jobs` chain, so that a torchrun's
     start (the launcher's and the ranks' imports, the process group) is
     paid once; each phase holds its jobs' records. {out folder name: the
     ranks' records}."""
-    jobs = dp_jobs(keep) + pipeline_rank_jobs(keep) + tp_rank_jobs(keep)
+    jobs = dp_jobs(keep) + pipeline_rank_jobs(keep) + tp_rank_jobs(keep) + sp_rank_jobs(keep)
     return {out.name: recs for (_, out, _), recs in zip(jobs, torchrun_jobs(torch, 2, jobs))}
 
 
@@ -3830,7 +3866,8 @@ def run_dp(torch, paths, keep: Path) -> dict:
                   [a for a in dp_argv(split, tmp, "gloo") if "=" in a])
     common.seed_everything(cfg.runtime.seed)
     start = common.build_model(cfg, cfg.dataset.num_classes).state_dict()
-    held = {k: held_against(torch, two[0][k], one[k], start) for k in ("weights", "ema")}
+    reports = {k: held_against(torch, two[0][k], one[k], start) for k in ("weights", "ema")}
+    held = {k: r[0] for k, r in reports.items()}
     identical = all(torch.equal(two[0][k][t], two[1][k][t])
                     for k in ("weights", "ema") for t in two[0][k])
     files = {n: sorted("run-*.log" if p.name.startswith("run-") else p.name
@@ -3838,7 +3875,8 @@ def run_dp(torch, paths, keep: Path) -> dict:
     out = {"r1_nccl": {**dp_steps([one]), "torchrun_s": one["torchrun_seconds"]},
            "r2_gloo": {**dp_steps(two), "job_s": two[0]["seconds"]},
            "loss_rel_err": errs, "weights_bound_ratio": held["weights"],
-           "ema_bound_ratio": held["ema"], "ranks_bit_identical": identical,
+           "ema_bound_ratio": held["ema"], "weights_worst": reports["weights"][1],
+           "ema_worst": reports["ema"][1], "ranks_bit_identical": identical,
            "losses_r1": [s["loss"] for s in one["steps"]],
            "losses_r2": [s["loss"] for s in two[0]["steps"]],
            "launches": {n: [r["launches"] for r in recs] for n, recs in runs.items()}}
@@ -4153,7 +4191,7 @@ def run_pipeline_ranks(torch, paths, keep: Path, tmp: Path) -> dict:
                   [a for a in pipeline_argv(keep, tmp) if "=" in a])
     common.seed_everything(cfg.runtime.seed)
     start = common.build_model(cfg, cfg.dataset.num_classes).state_dict()
-    ratios = {k: held_against(torch, two[0][k], one[k], start) for k in ("weights", "ema")}
+    ratios = {k: held_against(torch, two[0][k], one[k], start)[0] for k in ("weights", "ema")}
     identical = all(torch.equal(two[0][k][t], two[1][k][t])
                     for k in ("weights", "ema") for t in two[0][k])
     out = {"loss_rel_err": errs, "weights_bound_ratio": ratios["weights"],
@@ -4382,7 +4420,8 @@ def tp_k1_launches(epochs: int, n_data: int) -> int:
 
 
 def tp_part(torch, name: str, recs, ref: dict, ref_steps, r1: dict, whole: dict,
-            n_model: int, dims, start, k1_each: int, r1_steps_ms=None) -> dict:
+            n_model: int, dims, start, k1_each: int, r1_steps_ms=None, phase: str = "tp",
+            tags=("tp_forward",)) -> dict:
     """One part of phase 18 held against R=1 (`ref`: its weights and EMA at
     the matching step; `ref_steps`: its steps' losses): the first loss
     within 1e-5 and the later within 1e-3 of |R=1|, the whole weights and
@@ -4391,19 +4430,22 @@ def tp_part(torch, name: str, recs, ref: dict, ref_steps, r1: dict, whole: dict,
     (`tp_k1_launches`) and in no step; the step ms, the collectives' host
     ms and calls a step (the
     median of steps 2 on, or every window), each rank's peak memory
-    against R=1's."""
+    against R=1's; each collective of `tags` called in a step. Printed
+    under `phase`."""
     import numpy as np
 
     steps = recs[0]["steps"]
     errs = [abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(ref_steps, steps)]
-    ratios = {k: held_against(torch, whole[k], ref[k], start) for k in ("weights", "ema")}
+    reports = {k: held_against(torch, whole[k], ref[k], start) for k in ("weights", "ema")}
+    ratios = {k: r[0] for k, r in reports.items()}
     steady = steps[1:] or steps
     kinds = sorted({k for s in steady for k in s["collectives"]})
     out = {"ranks": len(recs), "loss_rel_err": errs, "weights_bound_ratio": ratios["weights"],
-           "ema_bound_ratio": ratios["ema"],
+           "ema_bound_ratio": ratios["ema"], "weights_worst": reports["weights"][1],
+           "ema_worst": reports["ema"][1],
            "replicated_bit_equal": replicated_bit_equal(torch, recs, n_model, dims),
            "step_ms": float(np.median([s["ms"] for s in steady])),
-           "r1_step_ms": r1_steps_ms,
+           "steps_ms": [s["ms"] for s in steps], "r1_step_ms": r1_steps_ms,
            "collective_ms": {k: float(np.median([s["collectives"].get(k, {}).get(
                "seconds", 0.0) * 1e3 for s in steady])) for k in kinds},
            "collective_calls": {k: steady[-1]["collectives"].get(k, {}).get("calls", 0)
@@ -4413,7 +4455,7 @@ def tp_part(torch, name: str, recs, ref: dict, ref_steps, r1: dict, whole: dict,
            "steps_peak_gib": [r["steps"][-1]["peak_gib"] for r in recs],
            "r1_steps_peak_gib": r1["steps"][len(steps) - 1]["peak_gib"],
            "launches": [r["launches"] for r in recs], "job_s": recs[0]["seconds"]}
-    say("tp", part=name, **out)
+    say(phase, part=name, **out)
     check(len(errs) == len(steps) and errs[0] <= BOUND_DP_FIRST_LOSS
           and max(errs) <= BOUND_DP_LOSS, f"{name}: losses from R=1's {errs}")
     check(max(ratios.values()) <= 1.0, f"{name}: weights from R=1's {ratios} x their bound")
@@ -4422,8 +4464,8 @@ def tp_part(torch, name: str, recs, ref: dict, ref_steps, r1: dict, whole: dict,
           and all(n == 0 for r in recs for n in r["launches_in_steps"].values()),
           f"{name}: K1 not {k1_each} times a rank in the evaluations, or in a step "
           f"{out['launches']}")
-    check(out["collective_calls"].get("tp_forward", 0) > 0,
-          f"{name}: no tensor-parallel collective {out['collective_calls']}")
+    check(all(out["collective_calls"].get(t, 0) > 0 for t in tags),
+          f"{name}: not every collective of {tags} in a step {out['collective_calls']}")
     return out
 
 
@@ -4460,9 +4502,13 @@ def run_tp(torch, paths, keep: Path, tmp: Path) -> dict:
     split, base = keep / "train" / "cityscapes", keep / "ranks"
     r1, pipe_r1 = paths.kept["dp_r1"], paths.kept["pipeline_r1"]
     two, pipe = (paths.kept["two_ranks"][n] for n in ("tp_1x2_ranks", "tp_pipe_ranks"))
-    four = torchrun(torch, 4, "train", tmp / "tp_2x2_ranks",
-                    tp_argv(keep, tmp / "tp_2x2", "runtime.model_axis=2",
-                            "training_config.epochs=1"))
+    four, sp_tp = torchrun_jobs(torch, 4, [
+        ("train", tmp / "tp_2x2_ranks", tp_argv(keep, tmp / "tp_2x2", "runtime.model_axis=2",
+                                                "training_config.epochs=1")),
+        ("train", tmp / "sp_tp_2x2_ranks", tp_argv(
+            keep, tmp / "sp_tp_2x2", "runtime.model_axis=2", "runtime.spatial_axis=true",
+            "training_config.epochs=1"))])  # phase 19(b)
+    paths.kept["sp_tp"] = (sp_tp, tp_whole(torch, tmp / "sp_tp_2x2"))
     for name, recs in (("tp_1x2", two), ("tp_pipeline", pipe), ("tp_2x2", four)):
         paths.record(name, recs)
     cfg = compose(common.CONFIG_DIR, "train", [a for a in tp_argv(keep, tmp) if "=" in a])
@@ -4507,6 +4553,138 @@ def run_tp(torch, paths, keep: Path, tmp: Path) -> dict:
     left = [p for p in processes_left() if "--rank-main" in p or "torch.distributed.run" in p]
     check(not left, f"ranks left running: {left}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: spatial partitioning across ranks
+# ---------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT_S = 300
+
+
+def sp_rank_jobs(keep: Path) -> list:
+    """Phase 19(a)'s job on 2 ranks: phase 16's train main with
+    runtime.spatial_axis=true, each rank a 512-row stripe of every image."""
+    base = keep / "ranks"
+    return [("train", base / "sp_2_ranks", tp_argv(keep, base / "sp_2",
+                                                  "runtime.spatial_axis=true"))]
+
+
+def run_dryrun(ranks: int = 2) -> dict:
+    """`python -m cabinet_tpu_torch.cli.dryrun_multichip --ranks R` on the
+    card: one step of every strategy, its lines and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cabinet_tpu_torch.cli.dryrun_multichip",
+                           "--ranks", str(ranks)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines:
+        print(f"  dryrun| {ln[:200]}")
+    check(proc.returncode == 0 and lines and lines[-1].startswith("dryrun_multichip OK"),
+          f"dryrun_multichip exited {proc.returncode}: {proc.stdout[-2000:]} "
+          f"{proc.stderr[-3000:]}")
+    return {"seconds": time.perf_counter() - t0, "strategies": len(lines) - 1,
+            "last": lines[-1]}
+
+
+def run_sp(torch, paths, keep: Path) -> dict:
+    """Phase 19: spatial partitioning against phase 16's R=1 run: (a) the
+    2-rank train main of phase 16's chain (`sp_rank_jobs`), every rank
+    handed the same global batch (its hashes equal rank 0's); (b) stripes x
+    model slices at 2 x 2, in phase 18(b)'s 4-rank torchrun, against R=1
+    after its first epoch; (c) the dryrun analogue on 2 ranks."""
+    import math
+
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.core.config import compose
+    from cabinet_tpu_torch.models.tensor_parallel import sharded_dims
+
+    base = keep / "ranks"
+    r1 = paths.kept["dp_r1"]
+    two = paths.kept["two_ranks"]["sp_2_ranks"]
+    four, four_whole = paths.kept["sp_tp"]
+    paths.record("sp_2", two)
+    paths.record("sp_tp_2x2", four)
+    cfg = compose(common.CONFIG_DIR, "train", [a for a in tp_argv(keep, base) if "=" in a])
+    common.seed_everything(cfg.runtime.seed)
+    model = common.build_model(cfg, cfg.dataset.num_classes)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    dims = sharded_dims(model, 2, TP_MIN_FEATURES)
+    r1_ms = dp_steps([r1])["step_ms"]
+    hashes = [[st["batch_sha1"] for st in r["steps"]] for r in two]
+    check(all(h == hashes[0] for h in hashes) and None not in hashes[0],
+          f"(a): the ranks' batches differ {hashes}")
+    out = {"a": tp_part(torch, "a_stripes_2", two, r1, r1["steps"], r1,
+                        tp_whole(torch, base / "sp_2"), len(two), {}, start,
+                        tp_k1_launches(2, 2), r1_ms, phase="sp",
+                        tags=("sp_halo", "sp_gather", "sp_sum", "batch_norm"))}
+    out["a"]["batch_sha1"] = [h[:12] for h in hashes[0]]
+    check(len(two[0]["steps"]) == 4 and all(math.isfinite(st["loss"]) for st in two[0]["steps"]),
+          f"(a): steps {two[0]['steps']}")
+    out["b"] = tp_part(torch, "b_stripes_x_model_2x2", four, r1["snapshot"],
+                       r1["steps"][:SNAPSHOT_STEP], r1, four_whole, 2, dims, start,
+                       tp_k1_launches(1, 2), r1_ms, phase="sp", tags=("sp_halo", "tp_forward"))
+    check(len(four[0]["steps"]) == SNAPSHOT_STEP, f"(b): steps {four[0]['steps']}")
+    check(all(torch.equal(t, four[r["rank"] % 2]["weights"][k])
+              for r in four for k, t in r["weights"].items()),
+          "(b): the stripes of one model index hold different slices")
+    files = sorted(p.name for p in (base / "sp_2").iterdir())
+    check({"cabinet.pth", "checkpoint_last.pth", "config.yaml"} <= set(files)
+          and not any(".tmp" in f for f in files), f"sp_2 wrote {files}")
+    out["c"] = run_dryrun(2)
+    say("sp", part="c_dryrun", **out["c"])
+    check(out["c"]["strategies"] == 10, f"(c): {out['c']}")
+    left = [p for p in processes_left() if "--rank-main" in p or "torch.distributed.run" in p
+            or "dryrun_multichip" in p]
+    check(not left, f"ranks left running: {left}")
+    return out
+
+
+def r1_floor() -> int:
+    """`python3 chip_smoke.py --r1-floor`: phase 16's R=1 train main (NCCL,
+    f32, TF32 off) twice on phase 9's split, each from a fresh torchrun:
+    the card's own run-to-run floor under `held_against`'s bound (the second
+    run held against the first), the losses' relative differences, and the
+    tensor that sets the ratio."""
+    os.environ[RUN_MARK] = str(os.getpid())
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: --r1-floor needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from cabinet_tpu_torch.cli import common
+    from cabinet_tpu_torch.core.config import compose
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_floor_"))
+    try:
+        split = keep / "train" / "cityscapes"
+        write_city_split(np, split, TRAIN_MAIN_FRAMES, FRAME_H, FRAME_W, seed=51, split="train")
+        write_city_split(np, split, TRAIN_MAIN_VAL_FRAMES, FRAME_H, FRAME_W, seed=52,
+                         split="val")
+        runs = [torchrun(torch, 1, "train", keep / f"r1_{i}_ranks",
+                         dp_argv(split, keep / f"r1_{i}", "nccl"))[0] for i in range(2)]
+        cfg = compose(common.CONFIG_DIR, "train",
+                      [a for a in dp_argv(split, keep, "nccl") if "=" in a])
+        common.seed_everything(cfg.runtime.seed)
+        start = common.build_model(cfg, cfg.dataset.num_classes).state_dict()
+        out = {"loss_rel_diff": [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                                 for a, b in zip(runs[0]["steps"], runs[1]["steps"])]}
+        for k in ("weights", "ema"):
+            out[f"{k}_floor_ratio"], out[f"{k}_worst"] = held_against(
+                torch, runs[1][k], runs[0][k], start)
+            out[f"{k}_bit_equal"] = all(torch.equal(runs[1][k][t], runs[0][k][t])
+                                        for t in runs[0][k])
+        say("r1_floor", card=smi, **out)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+        stop_every_process()
+    return 0
 
 
 def main() -> int:
@@ -4685,6 +4863,15 @@ def main() -> int:
         evaluate_main_mIoU=tp["d"]["mIoU"], split_leaves=tp["split_leaves"],
         note="2 and 4 ranks share one card through gloo, which stages through the host: "
              "not a multi-card figure")
+    sp = run_sp(torch, paths, keep)
+    say("sp", card=smi, **{f"{p}_{k}": sp[p][k] for p in "ab"
+                           for k in ("step_ms", "r1_step_ms", "collective_ms",
+                                     "collective_calls", "peak_allocated_gib",
+                                     "r1_peak_allocated_gib", "loss_rel_err",
+                                     "weights_bound_ratio", "weights_worst")},
+        dryrun_seconds=sp["c"]["seconds"],
+        note="2 and 4 ranks share one card through gloo, which stages through the host: "
+             "not a multi-card figure")
     shutil.rmtree(keep, ignore_errors=True)
     launches = paths.totals
     say("main", launches=launches)
@@ -4724,6 +4911,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-main"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--r1-floor"]:
+        sys.exit(r1_floor())
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -108,19 +108,46 @@ def test_train_main_two_epochs_then_resume(tmp_path, name):
 
 
 def test_train_main_refuses_what_is_not_ported(tmp_path):
-    """Spatial partitioning raises, naming its ROADMAP item (Queue 1 item
-    7c); tensor parallelism's axes and runtime.mesh_data that do not tile
-    the one rank raise a ConfigurationError naming the key
-    (tests/test_torch_tensor_parallel.py, test_torch_pipeline_tp.py and
-    test_torch_tp_mains.py hold them on ranks); runtime.pipeline=2 trains
-    (tests/test_torch_pipeline.py holds it), and its JAX refusals are
-    ConfigurationError."""
+    """runtime.spatial_axis=true trains on 2 gloo ranks, each a stripe of
+    the rows (crop 64, global batch 2, 2 epochs of 4 steps), against the
+    same main on 1 rank: one set of files, the losses within 1e-5, the
+    weights within tests/test_torch_dp.py's bound for ranks
+    (tests/test_torch_spatial_parallel.py holds the step against JAX's); a
+    crop height that the data axis x the model's stride does not divide
+    raises a ConfigurationError naming both; tensor parallelism's axes and
+    runtime.mesh_data that do not tile the one rank raise a
+    ConfigurationError naming the key (tests/test_torch_tensor_parallel.py,
+    test_torch_pipeline_tp.py and test_torch_tp_mains.py hold them on
+    ranks); runtime.pipeline=2 trains (tests/test_torch_pipeline.py holds
+    it), and its JAX refusals are ConfigurationError."""
     from cabinet_tpu_torch.cli.train import main
+    from test_torch_dp import _files, _init_weights, _metrics, _updates_close, run_main
 
     data = make_uavid_tree(tmp_path / "data", n=2)
     base = overrides("uavid", data, tmp_path / "exp")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c, spatial"):
-        main(base + ["runtime.spatial_axis=true", "--device", "cpu"])
+    sp_data = make_uavid_tree(tmp_path / "sp_data", n=8)
+    runs = {}
+    for ranks, axis in ((1, []), (2, ["runtime.spatial_axis=true"])):
+        exp = tmp_path / f"sp{ranks}"
+        argv = overrides("uavid", sp_data, exp, crop=64) + [
+            "training_config.batch_size=2", "+runtime.dist_backend=gloo",
+            "+runtime.dist_timeout_s=60"] + axis
+        runs[ranks] = (exp, run_main("train", argv + ["--device", "cpu"], ranks,
+                                     global_bn=ranks == 1)[0], argv)
+    (exp1, _, argv1), (exp2, res2, _) = runs[1], runs[2]
+    assert _files(exp2) == _files(exp1)
+    for a, b in zip(_metrics(exp1), _metrics(exp2)):
+        if "epoch" in a:
+            for k in ("train_loss", "val_loss"):
+                assert abs(a[k] - b[k]) <= 1e-5 * abs(a[k]), (k, a, b)
+    coll = res2["timing"]["collectives"]
+    assert res2["timing"]["optimizer_steps"] == 8 and coll["grad_all_reduce"]["calls"] == 8
+    assert coll["sp_halo"]["calls"] > 0 and coll["sp_gather"]["calls"] == 16
+    _updates_close(torch.load(exp2 / "tiny.pth"), torch.load(exp1 / "tiny.pth"),
+                   _init_weights("train", argv1))
+    with pytest.raises(ConfigurationError, match="crop height 48 .* total stride 32"):
+        main(overrides("uavid", data, tmp_path / "exp", crop=48)
+             + ["runtime.spatial_axis=true", "--device", "cpu"])
     for extra, key in ((["runtime.model_axis=2"], "runtime.model_axis=2"),
                        (["runtime.mesh_data=2"], "runtime.mesh_data=2"),
                        (["runtime.model_axis=1", "runtime.mesh_data=4"], "runtime.mesh_data=4"),

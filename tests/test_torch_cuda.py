@@ -1220,3 +1220,50 @@ def test_tools_visualize_main_on_cuda(gen, tmp_path):
     colours = {tuple(c) for c in trainid_palette(PALETTES["uavid"]).tolist()}
     assert {tuple(c) for c in pred.reshape(-1, 3).tolist()} <= colours
     assert np.isfinite(pred).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_bounded_conv_matches_conv2d_on_cuda(gen, dtype):
+    """`models/tensor_parallel.py:bounded_conv2d` (the sharded convs with
+    cuDNN off, forward and backward) against F.conv2d with cuDNN: f32, and
+    under bf16 autocast (its output and gradients in autocast's dtypes)."""
+    import torch.nn.functional as F
+
+    from cabinet_tpu_torch.models.tensor_parallel import bounded_conv2d
+
+    x = torch.randn(2, 16, 33, 20, generator=gen, device="cuda").requires_grad_(True)
+    w = (0.1 * torch.randn(8, 16, 3, 3, generator=gen, device="cuda")).requires_grad_(True)
+    b = torch.randn(8, generator=gen, device="cuda").requires_grad_(True)
+    g = torch.randn(2, 8, 17, 10, generator=gen, device="cuda")
+    outs = []
+    for conv in (bounded_conv2d, F.conv2d):
+        with torch.autocast("cuda", dtype=dtype, enabled=dtype != torch.float32):
+            y = conv(x, w, b, (2, 2), (1, 1), (1, 1), 1)
+        grads = torch.autograd.grad((y.float() * g).sum(), (x, w, b))
+        outs.append((y.detach(), *grads))
+    rel = 2e-4 if dtype == torch.float32 else TWO_ROUNDINGS
+    for got, ref in zip(*outs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        _close(got, ref, rel)
+    assert torch.backends.cudnn.enabled  # the flag comes back
+
+
+def test_sp_striped_ops_on_one_rank_on_cuda(gen):
+    """The stripe collectives on CUDA tensors with one data rank (the
+    all-reduces are the values themselves): a striped 5x5 s2 conv is the
+    padded conv, `resize_rows` from a whole source the bilinear resize."""
+    from torch import nn
+
+    from cabinet_tpu_torch.core import mesh
+    from cabinet_tpu_torch.models import spatial_parallel as sp
+    from cabinet_tpu_torch.models.cab import resize_bilinear
+
+    m = mesh.Mesh(1, 1, 0)
+    conv = nn.Conv2d(4, 6, 5, 2, 2).cuda()
+    x = torch.randn(2, 4, 16, 12, generator=gen, device="cuda")
+    ref = conv(x)
+    conv.__class__ = sp._striped_class(nn.Conv2d)
+    conv.sp_mesh, conv.sp_on = m, True
+    _close(conv(x), ref, 2e-6)
+    src = torch.randn(1, 3, 8, 6, generator=gen, device="cuda")
+    _close(sp.resize_rows(src, 0, 8, (64, 48), (0, 64)), resize_bilinear(src, (64, 48)), 2e-6)

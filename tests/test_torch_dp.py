@@ -189,12 +189,15 @@ def test_backend_choice_and_what_is_not_ported(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE")  # not under torchrun: no group is joined
     assert mesh.setup("cpu", "gloo") == cpu and mesh.world() == (0, 1)
     assert not torch.distributed.is_initialized()
-    # tensor parallelism is ported (tests/test_torch_tensor_parallel.py);
-    # spatial partitioning alone still raises, naming its ROADMAP item
+    # tensor parallelism and spatial partitioning are ported
+    # (tests/test_torch_tensor_parallel.py, test_torch_spatial_parallel.py):
+    # JAX's spatial_sharding stripes dim 1, the rows, over the data axis
     assert mesh.tensor_parallel_spec((4, 256), 2) == (None, mesh.MODEL_AXIS)
     assert mesh.shard_model_parallel({}, mesh.current(), {}) == {}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c, spatial"):
-        mesh.spatial_sharding(None, 4)
+    rows = torch.arange(24).reshape(1, 6, 4)
+    assert torch.equal(mesh.spatial_sharding(mesh.Mesh(2, 1, 1), 3)(rows), rows[:, 3:])
+    with pytest.raises(ValueError, match="spatial sharding needs"):
+        mesh.spatial_sharding(mesh.current(), 1)
 
 
 # ---------------------------------------------------------------------------

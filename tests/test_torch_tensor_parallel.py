@@ -371,11 +371,15 @@ def test_model_sharded_eval_matches_jax(eval_inputs, layout, tmp_path):
     (4, {"mesh_data": 1}, "runtime.mesh_data=1"), (2, {"model_axis": 2, "mesh_data": 2},
                                                    "runtime.mesh_data=2"),
     (3, {"model_axis": 2}, "runtime.model_axis=2"), (8, {}, "runtime.mesh_data=0"),
+    (8, {"spatial_axis": True}, (8, 1)), (3, {"spatial_axis": True}, (3, 1)),
+    (8, {"spatial_axis": True, "model_axis": 2}, (4, 2)),
+    (4, {"spatial_axis": True, "mesh_data": 2}, "runtime.mesh_data=2"),
 ])
 def test_mesh_axes_take_jaxs_default_and_tile_the_ranks(ranks, runtime, axes):
     """JAX's sizing (`auto_data_axis(batch 4, ranks / model_axis)` when
-    runtime.mesh_data is 0), and a ConfigurationError naming the key where
-    the grid would leave a rank out."""
+    runtime.mesh_data is 0; with runtime.spatial_axis, which stripes rows,
+    ranks / model_axis whatever the batch), and a ConfigurationError naming
+    the key where the grid would leave a rank out."""
     from cabinet_tpu_torch.cli.train import mesh_axes
     from cabinet_tpu_torch.core.config import Config
     from cabinet_tpu_torch.core.exceptions import ConfigurationError
@@ -386,5 +390,5 @@ def test_mesh_axes_take_jaxs_default_and_tile_the_ranks(ranks, runtime, axes):
             mesh_axes(cfg, ranks)
     else:
         assert mesh_axes(cfg, ranks) == axes
-        if "model_axis" not in runtime:  # YOLO-sem's: the same data axis
+        if not {"model_axis", "spatial_axis"} & set(runtime):  # YOLO-sem's: the same
             assert mesh_axes(cfg, ranks, family="yolosem") == axes

@@ -1,8 +1,10 @@
 """One rank of a case over ranks of tests/test_torch_dp.py (data
 parallelism), tests/test_torch_tile_eval.py (tile-sharded eval),
 tests/test_torch_pipeline.py (the pipeline's intra-stage data parallelism)
-or tests/test_torch_tensor_parallel.py and tests/test_torch_pipeline_tp.py
-(tensor parallelism on a (data, model) mesh).
+tests/test_torch_tensor_parallel.py and tests/test_torch_pipeline_tp.py
+(tensor parallelism on a (data, model) mesh) or
+tests/test_torch_spatial_parallel.py (image rows striped over the data
+axis).
 
     python -m torch_dp_worker CASE DIR
 
@@ -182,12 +184,14 @@ TP_CFGS = [[3, 1, 16, 0, 0, 1], [3, 4, 24, 0, 0, 2], [5, 3, 40, 1, 0, 2], [5, 6,
 
 
 def _tp_model(inp, m, attention="einsum"):
-    """The JAX test's small CABiNet (5 classes) holding the case's weights,
-    cut to this rank's slices on mesh `m` at min_features 48."""
+    """The JAX test's small CABiNet (5 classes) holding the case's weights
+    (its backbone rematerialised with `inp["remat"]`), cut to this rank's
+    slices on mesh `m` at min_features 48."""
     from cabinet_tpu_torch.models.cabinet import CABiNet
     from cabinet_tpu_torch.models.tensor_parallel import tensor_parallel
 
-    model = CABiNet(5, mode="small", cfgs=TP_CFGS, attention=attention)
+    model = CABiNet(5, mode="small", cfgs=TP_CFGS, attention=attention,
+                    remat=inp.get("remat", False))
     model.load_state_dict(inp["state_dict"], strict=True)
     return tensor_parallel(model, m, inp.get("min_features", 48))
 
@@ -319,6 +323,100 @@ def case_tp_pipeline(inp, rank, ranks):
             "n_sharded": sum(v is not None for v in tp.state_dims(model).values()),
             "eval_sharded": sum(v is not None for v in tp.state_dims(eval_model).values()),
             "hist": hist, "steps": [s.step for s in loop.state]}
+
+
+def _rows(t, m):
+    """This data rank's stripe of the rows (dim 2) of NCHW `t`."""
+    start, stop = mesh.stripe(t.shape[2], m)
+    return t[:, :, start:stop]
+
+
+def _sp_op(spec, m):
+    """One striped op on this data rank's stripe of `spec["x"]` (rows, dim
+    2): its output rows and the stripe's gradient under the weights
+    `spec["g"]` of the whole output's rows."""
+    from torch import nn
+
+    from cabinet_tpu_torch.models import spatial_parallel as sp
+
+    x = _rows(spec["x"], m).clone().requires_grad_(True)
+    kind = spec["kind"]
+    H = spec["x"].shape[2]
+    if kind == "conv":
+        w = spec["weight"]
+        conv = nn.Conv2d(w.shape[1] * spec["groups"], w.shape[0], w.shape[2], spec["stride"],
+                         spec["padding"], groups=spec["groups"], bias=spec["bias"] is not None)
+        conv.load_state_dict({"weight": w, **({"bias": spec["bias"]} if spec["bias"]
+                                              is not None else {})})
+        conv.__class__ = sp._striped_class(nn.Conv2d)
+        conv.sp_mesh, conv.sp_on = m, True
+        y = conv(x)
+    elif kind == "resize_halo":  # a stripe and one row of halo each side
+        out = spec["size"]
+        y = sp.resize_rows(mesh.halo_exchange(x, 1, 1, m), mesh.stripe(H, m)[0] - 1, H, out,
+                           mesh.stripe(out[0], m))
+    elif kind == "resize_whole":  # from the whole source, gathered
+        out = spec["size"]
+        y = sp.resize_rows(mesh.gather_rows(x, m), 0, H, out, mesh.stripe(out[0], m))
+    else:  # "mean"
+        owner = nn.Module()
+        owner.sp_mesh, owner.sp_on = m, True
+        y = sp.spatial_mean(x, owner, keepdim=True)
+    # a whole mean is on every rank: each takes its share of the loss
+    g = spec["g"] / m.n_data if kind == "mean" else _rows(spec["g"], m)
+    (y * g).sum().backward()
+    return {"y": y.detach(), "gx": x.grad}
+
+
+def _sp_branch(inp, m):
+    """The attention branch (PSP, the CAB's attention over every token) as
+    the striped decode runs it: the stripes gathered, the branch on the
+    whole map with local BatchNorm statistics, this rank's rows of its two
+    outputs; the stripe's gradient and the branch's BN statistics."""
+    from cabinet_tpu_torch.models.cabinet import CABiNet
+
+    model = CABiNet(5, mode="small", cfgs=TP_CFGS)
+    model.load_state_dict(inp["state_dict"], strict=True)
+    model.train()
+    spec = inp["branch"]
+    x = _rows(spec["x"], m).clone().requires_grad_(True)
+    with mesh.using(mesh.replicated(m)):
+        outs = model.ab(mesh.gather_rows(x, m))
+    rows = mesh.stripe(spec["x"].shape[2], m)
+    loss = 0
+    mine = []
+    for y, g in zip(outs, spec["g"]):
+        mine.append(y[:, :, rows[0]:rows[1]].detach())
+        loss = loss + (y[:, :, rows[0]:rows[1]] * g[:, :, rows[0]:rows[1]]).sum()
+    loss.backward()
+    return {"y": mine, "gx": x.grad,
+            "stats": {k: v for k, v in model.ab.state_dict().items() if "running" in k}}
+
+
+def case_sp(inp, rank, ranks):
+    """Spatial partitioning on this group: each op of `inp["ops"]` and the
+    attention branch on the (ranks, 1) mesh's stripes; then one train step
+    of the small CABiNet on each mesh of `inp["train"]` ((n_data, n_model,
+    remat)): the striped model, cut by `tensor_parallel` first where
+    n_model > 1, on this data rank's rows of the global batch."""
+    from cabinet_tpu_torch.models.spatial_parallel import spatial_parallel
+    from cabinet_tpu_torch.train import trainer as T
+
+    m = mesh.make_mesh(ranks, 1)
+    mesh.set_mesh(m)
+    out = {"ops": {name: _sp_op(spec, m) for name, spec in inp["ops"].items()},
+           "branch": _sp_branch(inp, m), "train": {}}
+    for n_data, n_model, remat in inp["train"]:
+        m = mesh.make_mesh(n_data, n_model)
+        mesh.set_mesh(m)
+        comm0 = {k: dict(v) for k, v in mesh.COMM.items()}
+        state = _tp_state({**inp, "remat": remat}, m)
+        spatial_parallel(state.model, m)
+        state, loss = T.make_train_step(n_min=inp["n_min"])(state, inp["x"], inp["y"])
+        out["train"][n_data, n_model, remat] = {
+            "loss": loss, **_tp_record(state),
+            "comm": {k: v["calls"] for k, v in mesh.comm_since(comm0).items() if v["calls"]}}
+    return out
 
 
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}

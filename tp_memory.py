@@ -5,7 +5,16 @@ left out (a group of one rank: the shapes a rank runs, not its sums), the
 transient memory each conv takes in its forward and backward.
 
     python3 tp_memory.py     # on a CUDA card; prints one line a run, then OK
+
+`--variants` runs a 1 x 2 rank's step (and R=1's) once a child process
+for each setting of `models/tensor_parallel.py:SHARDED_CUDNN`, the
+cuDNN flags its sharded convs run under in both directions (`unbounded`:
+none, cuDNN's heuristic as it is; `deterministic`: cuDNN's deterministic
+algorithms; `no_cudnn`: the port's), one JSON line each: the step's peak, its ms (CUDA events,
+the median of 2 after two warm-ups) and the head conv's transients.
 """
+import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -85,7 +94,63 @@ def run(tp: bool, benchmark: bool):
     torch.cuda.empty_cache()
 
 
-if __name__ == "__main__":
+def variant_step(variant: str) -> dict:
+    """One step's peak and ms under `variant` (see the module docstring)."""
+    import statistics
+
+    from cabinet_tpu_torch.models import tensor_parallel as tp
+
+    tp.SHARDED_CUDNN = VARIANTS[variant]
+    torch.manual_seed(0)
+    model = CABiNet(19, mode="large")
+    if variant != "r1":
+        tensor_parallel(model, mesh.Mesh(1, 2, 0, mesh.SELF, mesh.SELF), 256)
+    model.to(dev).train()
+    x = torch.randn(4, 3, 1024, 1024, device=dev)
+    per: dict = {}
+    times = []
+    for i in range(4):
+        hs = hooks(model, per) if i == 1 else []
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        with einsum_attention(model):
+            final, aux = model(x)
+        (final.float().square().mean() + aux.float().square().mean()).backward()
+        b.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / G
+        elif i > 1:
+            times.append(a.elapsed_time(b))
+        for h in hs:
+            h.remove()
+    head = "conv_out.conv.conv"
+    return {"variant": variant, "step_peak_gib": peak, "ms": statistics.median(times),
+            "head_fwd_gib": per["fwd"][head], "head_bwd_gib": per["bwd"][head],
+            "largest_fwd": sorted(per["fwd"].items(), key=lambda kv: -kv[1])[:3],
+            "largest_bwd": sorted(per["bwd"].items(), key=lambda kv: -kv[1])[:3]}
+
+
+VARIANTS = {"r1": {}, "unbounded": {}, "deterministic": {"enabled": True, "deterministic": True},
+            "no_cudnn": {"enabled": False}}
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--variant"]:
+    print(json.dumps(variant_step(sys.argv[2])), flush=True)
+elif __name__ == "__main__" and sys.argv[1:2] == ["--variants"]:
+    print(torch.cuda.get_device_name(0), torch.__version__, torch.backends.cudnn.version(),
+          flush=True)
+    for name in VARIANTS:
+        out = subprocess.run([sys.executable, __file__, "--variant", name],
+                             capture_output=True, text=True)
+        print(out.stdout.strip() or f"{name}: exit {out.returncode} {out.stderr[-800:]}",
+              flush=True)
+    print("OK")
+elif __name__ == "__main__":
     print(torch.cuda.get_device_name(0), torch.__version__, torch.backends.cudnn.version(),
           flush=True)
     for tp in (False, True):
