@@ -29,6 +29,7 @@ from cabinet_tpu_torch.core.device import resolve_device
 from cabinet_tpu_torch.core.exceptions import ModelLoadError
 from cabinet_tpu_torch.data.datasets import DATASET_REGISTRY
 from cabinet_tpu_torch.models.cabinet import CABiNet
+from cabinet_tpu_torch.utils.profiler import count, span
 
 IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv"}
@@ -156,36 +157,52 @@ class BatchStep:
 
     def upload(self, frames: Sequence[np.ndarray]) -> list:
         """The frames as uint8 (H,W,3) tensors on the device, from one
-        copy."""
-        frames = [check_frame(f) for f in frames]
-        if self.device.type != "cuda":
-            return [torch.from_numpy(f).to(self.device) for f in frames]
-        total = sum(f.size for f in frames)
-        if self._copied is not None:  # the last copy out of the staging buffer
-            self._copied.synchronize()
-        st = self._staging
-        if st is None or st.numel() < total:
-            st = self._staging = torch.empty(total, dtype=torch.uint8,
-                                             pin_memory=True)
-        ends = np.cumsum([0] + [f.size for f in frames])
-        for f, a, b in zip(frames, ends, ends[1:]):
-            st[a:b].copy_(torch.from_numpy(f).view(-1))
-        flat = st[:total].to(self.device, non_blocking=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
+        copy. Spans: `serve.stage` (host: the checks, the wait for the last
+        copy out of the staging buffer, the frames copied into it) and
+        `serve.upload` (the copy to the device)."""
+        cuda = self.device.type == "cuda"
+        with span("serve.stage"):
+            frames = [check_frame(f) for f in frames]
+            if cuda:
+                total = sum(f.size for f in frames)
+                if self._copied is not None:  # the last copy out of the staging buffer
+                    self._copied.synchronize()
+                st = self._staging
+                if st is None or st.numel() < total:
+                    st = self._staging = torch.empty(total, dtype=torch.uint8,
+                                                     pin_memory=True)
+                ends = np.cumsum([0] + [f.size for f in frames])
+                for f, a, b in zip(frames, ends, ends[1:]):
+                    st[a:b].copy_(torch.from_numpy(f).view(-1))
+        with span("serve.upload", device=self.device):
+            if not cuda:
+                return [torch.from_numpy(f).to(self.device) for f in frames]
+            flat = st[:total].to(self.device, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
         return [flat[a:b].view(f.shape)
                 for f, a, b in zip(frames, ends, ends[1:])]
 
     @torch.no_grad()
     def __call__(self, frames: Sequence[np.ndarray], rows: int = 0) -> np.ndarray:
-        frames = self.upload(frames)
+        """Spans: `serve.call` over `upload`'s two, `serve.resize` (the
+        resizes and the zero rows), `serve.forward` (normalising, the
+        logits, the argmax) and `serve.download` (the cast, the copy back);
+        counter `serve.frames`."""
         n, s = len(frames), self.size
-        x = torch.empty((max(rows, n), s, s, 3), dtype=torch.uint8,
-                        device=self.device)
-        for i, f in enumerate(frames):
-            x[i] = resize_frame(f, s)
-        x[n:].zero_()
-        return self.forward(x)[:n].to(torch.uint8).cpu().numpy()
+        rows = max(rows, n)
+        with span("serve.call"):
+            count("serve.frames", n)
+            frames = self.upload(frames)
+            with span("serve.resize", device=self.device):
+                x = torch.empty((rows, s, s, 3), dtype=torch.uint8, device=self.device)
+                for i, f in enumerate(frames):
+                    x[i] = resize_frame(f, s)
+                x[n:].zero_()
+            with span("serve.forward", device=self.device):
+                out = self.forward(x)[:n]
+            with span("serve.download", device=self.device):
+                return out.to(torch.uint8).cpu().numpy()
 
 
 class Segmenter:

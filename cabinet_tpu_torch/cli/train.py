@@ -113,7 +113,7 @@ import json
 import math
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -123,6 +123,7 @@ from cabinet_tpu_torch.core.config import Config, save_config, to_yaml
 from cabinet_tpu_torch.core.device import resolve_device
 from cabinet_tpu_torch.core.exceptions import ConfigurationError
 from cabinet_tpu_torch.core.logging import is_primary_process, setup_logger
+from cabinet_tpu_torch.utils.profiler import DeviceClock
 
 
 def spatial_axis(cfg: Config) -> bool:
@@ -377,37 +378,6 @@ class DeviceAugment:
         return img, lbl
 
 
-class _DeviceClock:
-    """Seconds of device work between start() and stop(): CUDA events on a
-    CUDA device (summed in seconds(), after the caller's synchronize), the
-    host clock on the CPU, whose ops are synchronous."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.events: List[Any] = []
-        self.total = 0.0
-
-    def start(self) -> Any:
-        if not self.cuda:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def stop(self, started: Any) -> None:
-        if not self.cuda:
-            self.total += time.perf_counter() - started
-            return
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events.append((started, ev))
-
-    def seconds(self) -> float:
-        self.total += sum(a.elapsed_time(b) for a, b in self.events) / 1e3
-        self.events = []
-        return self.total
-
-
 def _metrics_line(path: Path, record: Dict[str, Any]) -> None:
     with open(path, "a") as f:
         f.write(json.dumps(record) + "\n")
@@ -544,7 +514,7 @@ def train_and_evaluate(cfg: Config, device: Union[str, torch.device] = "cuda"
         )
 
         devices = make_pipeline_devices(pp_stages, device)
-    aug_fn, aug_clock = None, _DeviceClock(device)
+    aug_fn, aug_clock = None, DeviceClock(device)
     if getattr(ds_train, "photometric", "host") == "device":  # on the first device
         augment = DeviceAugment(cfg, ds_train, devices[0], (crop_h, crop_w), shard=train_shard)
 

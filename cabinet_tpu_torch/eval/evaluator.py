@@ -34,6 +34,15 @@ mesh (`core/mesh.py:current`; R its size): on a mesh with a model axis,
 the ranks of one model group run a tensor-parallel model over the same
 tiles (JAX's model-sharded eval, `cabinet_tpu/eval/evaluator.py:106-111`),
 and nothing is summed twice.
+
+Spans (`utils/profiler.py`, recorded while `torch.profiler` runs): the
+root `eval.batch`, one loader batch of `evaluate`, over `eval.wait` (the
+wait for the staged batch), `eval.resize` (a scale's input resize and
+pad), `eval.forward` (a fold's forward, flip and softmax),
+`eval.accumulate` (a fold's overlap-add; a finished scale's division,
+crop, resize back and sum) and `eval.score` (argmax, confusion matrix,
+its download); `eval.stage` on the staging thread. Counter:
+`eval.frames`.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from cabinet_tpu_torch.core.constants import DEFAULT_IGNORE_LABEL, EVAL_STRIDE_R
 from cabinet_tpu_torch.core.device import resolve_device
 from cabinet_tpu_torch.eval.metrics import confusion_matrix, metrics_from_hist
 from cabinet_tpu_torch.models.cab import resize_bilinear
+from cabinet_tpu_torch.utils.profiler import count, span
 
 # (variables, images (B,H,W,3)) -> (logits (B,H,W,C), aux); `variables` is
 # passed through untouched (a model, weights, or None).
@@ -106,12 +116,13 @@ def _summed_probs(apply_fn: ApplyFn, n_classes: int, crop: int, flip: bool,
     per_scale = []  # (sh, sw, full_h, full_w, hst, wst, scaled, ys, xs)
     for s in scales:
         sh, sw = int(H * s), int(W * s)
-        scaled = _resize_nhwc(image, (sh, sw))
         full_h, full_w = max(sh, crop), max(sw, crop)
         hst, wst = (full_h - sh) // 2, (full_w - sw) // 2
-        if (full_h, full_w) != (sh, sw):
-            scaled = F.pad(scaled, (0, 0, wst, full_w - sw - wst,
-                                    hst, full_h - sh - hst))
+        with span("eval.resize", device=image.device):
+            scaled = _resize_nhwc(image, (sh, sw))
+            if (full_h, full_w) != (sh, sw):
+                scaled = F.pad(scaled, (0, 0, wst, full_w - sw - wst,
+                                        hst, full_h - sh - hst))
         ys = [int(v) for v in _tile_starts(full_h, crop, stride)]
         xs = [int(v) for v in _tile_starts(full_w, crop, stride)]
         per_scale.append((sh, sw, full_h, full_w, hst, wst, scaled, ys, xs))
@@ -126,24 +137,26 @@ def _summed_probs(apply_fn: ApplyFn, n_classes: int, crop: int, flip: bool,
 
     for g0 in range(0, len(jobs), group):
         chunk = jobs[g0:g0 + group]
-        chips = torch.cat([per_scale[si][6][:, y:y + crop, x:x + crop, :]
-                           for si, y, x in chunk], dim=0)
-        cps = _chip_probs(apply_fn, variables, chips, flip, acc_dtype)
-        for i, (si, y, x) in enumerate(chunk):
-            sh, sw, full_h, full_w, hst, wst, _, _, _ = per_scale[si]
-            if si not in maps:
-                maps[si] = (torch.zeros((B, full_h, full_w, n_classes),
-                                        dtype=acc_dtype, device=image.device),
-                            torch.zeros((full_h, full_w), dtype=torch.float32,
-                                        device=image.device))
-            prob, count = maps[si]
-            prob[:, y:y + crop, x:x + crop] += cps[i * B:(i + 1) * B]
-            count[y:y + crop, x:x + crop] += 1.0
-            if g0 + i == last_job[si]:
-                prob, count = maps.pop(si)
-                p = prob / count.to(acc_dtype)[None, :, :, None]
-                p = p[:, hst:hst + sh, wst:wst + sw]
-                total = total + _resize_nhwc(p, (H, W))
+        with span("eval.forward", device=image.device):
+            chips = torch.cat([per_scale[si][6][:, y:y + crop, x:x + crop, :]
+                               for si, y, x in chunk], dim=0)
+            cps = _chip_probs(apply_fn, variables, chips, flip, acc_dtype)
+        with span("eval.accumulate", device=image.device):
+            for i, (si, y, x) in enumerate(chunk):
+                sh, sw, full_h, full_w, hst, wst, _, _, _ = per_scale[si]
+                if si not in maps:
+                    maps[si] = (torch.zeros((B, full_h, full_w, n_classes),
+                                            dtype=acc_dtype, device=image.device),
+                                torch.zeros((full_h, full_w), dtype=torch.float32,
+                                            device=image.device))
+                prob, cover = maps[si]
+                prob[:, y:y + crop, x:x + crop] += cps[i * B:(i + 1) * B]
+                cover[y:y + crop, x:x + crop] += 1.0
+                if g0 + i == last_job[si]:
+                    prob, cover = maps.pop(si)
+                    p = prob / cover.to(acc_dtype)[None, :, :, None]
+                    p = p[:, hst:hst + sh, wst:wst + sw]
+                    total = total + _resize_nhwc(p, (H, W))
     return total
 
 
@@ -160,27 +173,31 @@ def _sliding_probs_tile_sharded(apply_fn: ApplyFn, n_classes: int, crop: int,
     full_h, full_w = max(H, crop), max(W, crop)
     hst, wst = (full_h - H) // 2, (full_w - W) // 2
     if (full_h, full_w) != (H, W):
-        image = F.pad(image, (0, 0, wst, full_w - W - wst, hst, full_h - H - hst))
+        with span("eval.resize", device=image.device):
+            image = F.pad(image, (0, 0, wst, full_w - W - wst, hst, full_h - H - hst))
     grid = tile_grid(full_h, full_w, crop)
     # the fold is capped at a rank's tile count: a bigger one adds only pad
     group = min(max(tile_batch // B, 1), -(-len(grid) // n))
     block = -(-len(grid) // (n * group)) * group  # t_pad / n
     mine = [int(t) for t in range(rank * block, (rank + 1) * block) if t < len(grid)]
     prob = torch.zeros((B, full_h, full_w, n_classes), dtype=acc_dtype, device=image.device)
-    count = torch.zeros((full_h, full_w), dtype=torch.float32, device=image.device)
+    cover = torch.zeros((full_h, full_w), dtype=torch.float32, device=image.device)
     for g0 in range(0, len(mine), group):
         tiles = [tuple(int(v) for v in grid[t]) for t in mine[g0:g0 + group]]
-        chips = torch.cat([image[:, y:y + crop, x:x + crop, :] for y, x in tiles], dim=0)
-        cps = _chip_probs(apply_fn, variables, chips, flip, acc_dtype)
-        for i, (y, x) in enumerate(tiles):
-            prob[:, y:y + crop, x:x + crop] += cps[i * B:(i + 1) * B]
-            count[y:y + crop, x:x + crop] += 1.0
-    both = torch.cat([prob.float().reshape(-1), count.reshape(-1)])
-    mesh.all_reduce_(both, tag="tile_all_reduce", group=mesh.data_group())
-    prob = both[:prob.numel()].view(prob.shape).to(acc_dtype)
-    count = both[prob.numel():].view(count.shape)
-    prob = prob / count.clamp_min(1.0).to(acc_dtype)[None, :, :, None]
-    return prob[:, hst:hst + H, wst:wst + W]
+        with span("eval.forward", device=image.device):
+            chips = torch.cat([image[:, y:y + crop, x:x + crop, :] for y, x in tiles], dim=0)
+            cps = _chip_probs(apply_fn, variables, chips, flip, acc_dtype)
+        with span("eval.accumulate", device=image.device):
+            for i, (y, x) in enumerate(tiles):
+                prob[:, y:y + crop, x:x + crop] += cps[i * B:(i + 1) * B]
+                cover[y:y + crop, x:x + crop] += 1.0
+    with span("eval.accumulate", device=image.device):
+        both = torch.cat([prob.float().reshape(-1), cover.reshape(-1)])
+        mesh.all_reduce_(both, tag="tile_all_reduce", group=mesh.data_group())
+        prob = both[:prob.numel()].view(prob.shape).to(acc_dtype)
+        cover = both[prob.numel():].view(cover.shape)
+        prob = prob / cover.clamp_min(1.0).to(acc_dtype)[None, :, :, None]
+        return prob[:, hst:hst + H, wst:wst + W]
 
 
 def _scale_probs(apply_fn: ApplyFn, n_classes: int, crop: int, flip: bool, scale: float,
@@ -190,10 +207,12 @@ def _scale_probs(apply_fn: ApplyFn, n_classes: int, crop: int, flip: bool, scale
     """One scale's probability map at the native resolution, in `acc_dtype`,
     tile-sharded over the ranks of `tile_mesh`."""
     B, H, W, _ = image.shape
-    scaled = _resize_nhwc(image, (int(H * scale), int(W * scale)))
+    with span("eval.resize", device=image.device):
+        scaled = _resize_nhwc(image, (int(H * scale), int(W * scale)))
     prob = _sliding_probs_tile_sharded(apply_fn, n_classes, crop, flip, tile_mesh,
                                        variables, scaled, tile_batch, acc_dtype)
-    return _resize_nhwc(prob, (H, W))
+    with span("eval.accumulate", device=image.device):
+        return _resize_nhwc(prob, (H, W))
 
 
 class MscEval:
@@ -281,11 +300,12 @@ class MscEval:
 
     def _run(self, variables: Any, images, labels
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        preds = torch.argmax(self._probs(variables, self._to_device(images)),
-                             dim=-1)
-        labels = torch.as_tensor(labels, device=self.device)
-        return preds, confusion_matrix(preds, labels, self.n_classes,
-                                       self.ignore_label)
+        probs = self._probs(variables, self._to_device(images))
+        with span("eval.score", device=self.device):
+            preds = torch.argmax(probs, dim=-1)
+            labels = torch.as_tensor(labels, device=self.device)
+            return preds, confusion_matrix(preds, labels, self.n_classes,
+                                           self.ignore_label)
 
     def prob_batch(self, variables: Any, images: np.ndarray) -> np.ndarray:
         """Summed multi-scale probability map (B,H,W,C) f32: exactly the
@@ -358,7 +378,9 @@ class MscEval:
             try:
                 it = iter(dataloader)
                 for images, labels in it:
-                    if stop.is_set() or not put(self._stage(images, labels, stream)):
+                    with span("eval.stage"):
+                        staged = self._stage(images, labels, stream)
+                    if stop.is_set() or not put(staged):
                         return
             except BaseException as e:  # handed to the consumer, which raises it
                 put(e)
@@ -377,22 +399,27 @@ class MscEval:
         worker.start()
         try:
             while True:
-                tw = time.perf_counter()
-                item = q.get()
-                waits.append(time.perf_counter() - tw)
-                if item is done:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                images_d, labels_d, ready = item
-                if ready is not None:
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(ready)
-                    # the side stream allocated them; this stream reads them
-                    images_d.record_stream(current)
-                    labels_d.record_stream(current)
-                # blocks on the device, while the worker stages the next batch
-                hist += self._run(variables_or_model, images_d, labels_d)[1].cpu().numpy()
+                with span("eval.batch"):
+                    with span("eval.wait"):
+                        tw = time.perf_counter()
+                        item = q.get()
+                        waits.append(time.perf_counter() - tw)
+                    if item is done:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    images_d, labels_d, ready = item
+                    if ready is not None:
+                        current = torch.cuda.current_stream(self.device)
+                        current.wait_event(ready)
+                        # the side stream allocated them; this stream reads them
+                        images_d.record_stream(current)
+                        labels_d.record_stream(current)
+                    # blocks on the device, while the worker stages the next batch
+                    batch_hist = self._run(variables_or_model, images_d, labels_d)[1]
+                    with span("eval.score", device=self.device):
+                        hist += batch_hist.cpu().numpy()
+                    count("eval.frames", images_d.shape[0])
                 frames += int(images_d.shape[0])
                 batches += 1
                 if progress and (batches == n_total or batches % 10 == 0):

@@ -71,6 +71,7 @@ from cabinet_tpu_torch.models import spatial_parallel
 from cabinet_tpu_torch.train.ema import ModelEMA
 from cabinet_tpu_torch.train.losses import cross_entropy_mean, ohem_cross_entropy
 from cabinet_tpu_torch.train.optimizer import ScheduledSGD
+from cabinet_tpu_torch.utils.profiler import span
 
 
 @dataclass
@@ -169,16 +170,22 @@ def _all_reduce_grads(params, tag: str = "grad_all_reduce",
 
 
 def _apply_update(state: TrainState) -> None:
-    for p in state.optimizer.parameters():
-        if p.grad is None:  # a parameter off the graph still decays, as in optax
-            p.grad = torch.zeros_like(p)
-    if mesh.is_distributed():
-        _all_reduce_grads(state.optimizer.parameters(), model=state.model)
-    state.optimizer.step(state.step)
-    state.ema.update(state.model)
-    state.step += 1
-    state.micro_step = 0
-    state.optimizer.sgd.zero_grad(set_to_none=True)
+    """Spans: `train.update` over `train.optimizer` and `train.ema`."""
+    params = state.optimizer.parameters()
+    dev = params[0].device if params else None
+    with span("train.update", device=dev):
+        for p in params:
+            if p.grad is None:  # a parameter off the graph still decays, as in optax
+                p.grad = torch.zeros_like(p)
+        if mesh.is_distributed():
+            _all_reduce_grads(params, model=state.model)
+        with span("train.optimizer", device=dev):
+            state.optimizer.step(state.step)
+        with span("train.ema", device=dev):
+            state.ema.update(state.model)
+        state.step += 1
+        state.micro_step = 0
+        state.optimizer.sgd.zero_grad(set_to_none=True)
 
 
 def _seg_loss(loss_type: str, n_min: int, thresh: float, ignore_label: int,
@@ -228,10 +235,12 @@ def make_train_step(
         if sp is not None:  # this data rank's rows of the global batch
             images, labels = (mesh.spatial_sharding(sp, t.dim())(t) for t in (images, labels))
         with einsum_attention(model), spatial_parallel.stripes(model):
-            final, aux = _forward(model, images, compute_dtype)
-            loss = (seg_loss(final, labels, share)
-                    + aux_weight * seg_loss(aux, labels, share)) / accum_steps
-            loss.backward()  # a rematerialised block recomputes on its stripe
+            with span("train.forward", device=images.device):
+                final, aux = _forward(model, images, compute_dtype)
+                loss = (seg_loss(final, labels, share)
+                        + aux_weight * seg_loss(aux, labels, share)) / accum_steps
+            with span("train.backward", device=images.device):
+                loss.backward()  # a rematerialised block recomputes on its stripe
         state.micro_step += 1
         if state.micro_step >= accum_steps:
             _apply_update(state)
@@ -283,12 +292,18 @@ class TrainLoop:
         self.aug_fn = aug_fn
 
     def feed(self, *batch, draw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        if self.aug_fn is not None:
-            images, labels = self.aug_fn(batch, *(draw if draw is not None else
-                                                  (self.state.step, self.state.micro_step)))
-        else:
-            images, labels = batch_to(batch, self.device)
-        self.state, loss = self.train_step(self.state, images, labels)
+        """Spans: `train.step` over `train.augment` (`aug_fn`) or
+        `train.upload` (`batch_to`) and the step's."""
+        st = self.state
+        with span("train.step"):
+            if self.aug_fn is not None:
+                with span("train.augment", device=self.device):
+                    images, labels = self.aug_fn(batch, *(draw if draw is not None else
+                                                          (st.step, st.micro_step)))
+            else:
+                with span("train.upload", device=self.device):
+                    images, labels = batch_to(batch, self.device)
+            self.state, loss = self.train_step(st, images, labels)
         return loss
 
     def flush(self) -> None:

@@ -20,22 +20,52 @@ The JAX package's method names and result keys, measured the GPU's way:
     a mapping), as JAX counts the leaves of `params`;
   - `trace(logdir)`: `torch.profiler` with CPU and CUDA activities, written
     as `<logdir>/trace.pt.trace.json` (TensorBoard's profiler plugin and
-    Perfetto read it); `device_breakdown` reads the top device ops and the
-    device's busy share from it.
+    Perfetto read it); `device_breakdown` reads the top device ops, the
+    device's busy share and its idle time by span from it.
 
 `apply_fn(variables, example)` is the forward, as in the JAX class:
 `variables` is passed through untouched (a model, weights, or None).
+
+Beside the class, the port's span and counter recorder, which the request
+path (`cli/infer.py:BatchStep`), the training step (`train/trainer.py`)
+and the multi-scale evaluation (`eval/evaluator.py:MscEval`) call at their
+layer boundaries:
+  - `span(name, device=None)` is a context manager and `count(name, n=1)`
+    a counter. Both do nothing unless `torch.profiler` is running (an
+    operator's `trace`, a benchmark's traced part): no flag or setting
+    turns them on. Off, `span` returns one shared no-op context;
+  - on, a span opens a profiler range of its name (so it is an event of
+    the same trace as the kernels and copies, on the same clock, nested
+    under the range open around it on its thread; a range that the
+    profiler does not mirror onto the device's timeline, so the device's
+    busy time stays that of its kernels and copies), and keeps a
+    `SpanRecord` of its host start and end. Given the `device` its work
+    runs on, it also takes the device's time of that work as
+    `DeviceClock` does: a pair of CUDA events on the current stream, idle
+    time within the span included, or the host clock on the CPU;
+  - the store keeps the last `SPAN_RING` spans; `span_summary()` reads it
+    (per name the count and the host and device seconds, and the
+    counters; after the caller's synchronise) and `clear_spans()` empties
+    it, as `trace` does when it starts. The recorder is process-wide, as
+    the profiler that switches it is.
+`device_breakdown` splits the device's idle time over the spans of the
+thread that launched the device's work (`idle_by_span`).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import heapq
+import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, List, Mapping
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def _sync(x: Any) -> None:
@@ -57,6 +87,214 @@ def _mb(tensors: List[torch.Tensor]) -> float:
     return sum(t.numel() * t.element_size() for t in tensors) / 1e6
 
 
+# ------------------------------------------------------------------ spans
+SPAN_RING = 1 << 16  # spans kept; the oldest go first
+NO_SPAN = "(no span)"
+
+
+def _mark(cuda: bool) -> Any:
+    if not cuda:
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _elapsed(start: Any, end: Any) -> float:
+    """Seconds between two marks of `_mark`; a CUDA pair is read once the
+    end event is done."""
+    if isinstance(start, float):
+        return end - start
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+class DeviceClock:
+    """Seconds of device work between start() and stop(): CUDA events on a
+    CUDA device (summed in seconds(), after the caller's synchronize), the
+    host clock on the CPU, whose ops are synchronous."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.pairs: List[Tuple[Any, Any]] = []
+        self.total = 0.0
+
+    def start(self) -> Any:
+        return _mark(self.cuda)
+
+    def stop(self, started: Any) -> None:
+        self.pairs.append((started, _mark(self.cuda)))
+
+    def seconds(self) -> float:
+        self.total += sum(_elapsed(a, b) for a, b in self.pairs)
+        self.pairs = []
+        return self.total
+
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One span: host times of `time.perf_counter_ns`; `marks` the device
+    clock's pair of a device span (None for a host-only one)."""
+    name: str
+    start_ns: int = 0
+    end_ns: int = 0
+    marks: Optional[Tuple[Any, Any]] = None
+
+    @property
+    def host_s(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    @property
+    def device_s(self) -> Optional[float]:
+        return None if self.marks is None else _elapsed(*self.marks)
+
+
+_SPANS: "collections.deque[SpanRecord]" = collections.deque(maxlen=SPAN_RING)
+# every name a span was opened under in this process, never cleared: how
+# `device_breakdown` tells the spans' events in a trace from other ranges
+_NAMES: set = set()
+_COUNTS: Dict[str, float] = {}
+_COUNT_LOCK = threading.Lock()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("rec", "cuda", "range", "started")
+
+    def __init__(self, name: str, device: Any):
+        self.rec = SpanRecord(name)
+        self.cuda = None if device is None else torch.device(device).type == "cuda"
+
+    def __enter__(self) -> None:
+        rec = self.rec
+        _NAMES.add(rec.name)
+        self.range = torch._C._profiler._RecordFunctionFast(rec.name)
+        self.range.__enter__()
+        self.started = None if self.cuda is None else _mark(self.cuda)
+        rec.start_ns = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> None:
+        rec = self.rec
+        if self.cuda is not None:
+            rec.marks = (self.started, _mark(self.cuda))
+        rec.end_ns = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        _SPANS.append(rec)
+
+
+def span(name: str, device: Any = None):
+    """A span of `name` around the block while `torch.profiler` runs (see
+    the module's docstring), a shared no-op otherwise. `device`: None for
+    host time only, or the device the block's work runs on, for its
+    device time too."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, device)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Adds `n` to the counter `name` while `torch.profiler` runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _COUNT_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def span_summary() -> Dict[str, Any]:
+    """{"spans": {name: {"count", "host_s", "device_s"}}, "counters":
+    {name: total}}: seconds summed over the spans kept, `device_s` None
+    for a host-only span. CUDA events are read here: call it once the
+    spans' work is done."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for r in list(_SPANS):
+        d = out.setdefault(r.name, {"count": 0, "host_s": 0.0, "device_s": None})
+        d["count"] += 1
+        d["host_s"] += r.host_s
+        if r.marks is not None:
+            d["device_s"] = (d["device_s"] or 0.0) + r.device_s
+    with _COUNT_LOCK:
+        counters = dict(_COUNTS)
+    return {"spans": out, "counters": counters}
+
+
+def clear_spans() -> None:
+    """Empties the store: the spans and the counters."""
+    _SPANS.clear()
+    with _COUNT_LOCK:
+        _COUNTS.clear()
+
+
+def _innermost(ranges: List[Tuple[float, float, str]]) -> List[Tuple[float, float, str]]:
+    """Disjoint, sorted (start, end, name) pieces of time, each under the
+    latest-started range open through it (of two that start together, the
+    one that ends first): the innermost span at each instant."""
+    ranges = sorted(ranges)
+    points = sorted({p for s, e, _ in ranges for p in (s, e)})
+    out: List[Tuple[float, float, str]] = []
+    heap: List[Tuple[float, float, int]] = []
+    i = 0
+    for a, b in zip(points, points[1:]):
+        while i < len(ranges) and ranges[i][0] <= a:
+            heapq.heappush(heap, (-ranges[i][0], ranges[i][1], i))
+            i += 1
+        while heap and heap[0][1] <= a:
+            heapq.heappop(heap)
+        if heap:
+            name = ranges[heap[0][2]][2]
+            if out and out[-1][2] == name and out[-1][1] == a:
+                out[-1] = (out[-1][0], b, name)
+            else:
+                out.append((a, b, name))
+    return out
+
+
+def idle_by_span(busy: List[Tuple[float, float]], window: Tuple[float, float],
+                 ranges: List[Tuple[float, float, str]]) -> Dict[str, float]:
+    """The device's idle time in `window` (the complement of the merged,
+    sorted `busy` intervals) split over the innermost of `ranges` open at
+    each instant, by intersection; idle time under none goes to `NO_SPAN`.
+    The parts sum to the idle time. Units are those of the arguments."""
+    idle, t = [], window[0]
+    for s, e in busy:
+        if s > t:
+            idle.append((t, min(s, window[1])))
+        t = max(t, e)
+    if t < window[1]:
+        idle.append((t, window[1]))
+    out: Dict[str, float] = {}
+    pieces, j = _innermost(ranges), 0
+    for a, b in idle:
+        while j < len(pieces) and pieces[j][1] <= a:
+            j += 1
+        k, covered = j, 0.0
+        while k < len(pieces) and pieces[k][0] < b:
+            part = min(b, pieces[k][1]) - max(a, pieces[k][0])
+            if part > 0:
+                out[pieces[k][2]] = out.get(pieces[k][2], 0.0) + part
+                covered += part
+            k += 1
+        if b - a - covered > 0:
+            out[NO_SPAN] = out.get(NO_SPAN, 0.0) + (b - a - covered)
+    return out
+
+
+def launching_thread(host: List[Any], marked: List[Any]) -> Any:
+    """Of the threads of the span events `marked`, the one whose host
+    events (`host`, the trace's CPU events) launched the most device time,
+    or, in a trace with none, the one with the most span events; None
+    without span events. A span on another thread (`MscEval`'s staging
+    worker) runs beside that thread's work, not inside it, so it takes
+    none of its idle time."""
+    weight = {e.thread: 0.0 for e in marked}
+    for e in host:
+        if e.thread in weight:
+            weight[e.thread] += getattr(e, "self_device_time_total", 0.0)
+    if not any(weight.values()):
+        for e in marked:
+            weight[e.thread] += 1
+    return max(weight, key=weight.get, default=None)
+
+
 class PerformanceProfiler:
     def __init__(self, warmup: int = 2, repeats: int = 3, chain: int = 9):
         self.warmup = warmup
@@ -64,16 +302,6 @@ class PerformanceProfiler:
         self.chain = chain
 
     # ------------------------------------------------------------- timing
-    @contextlib.contextmanager
-    def timer(self, name: str = "block"):
-        """Host seconds of the block, the device's queue drained at its end
-        (`last_elapsed`)."""
-        t0 = time.perf_counter()
-        yield
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        self.last_elapsed = time.perf_counter() - t0
-
     @torch.no_grad()
     def measure_inference_time(self, apply_fn: Callable, variables: Any,
                                example: torch.Tensor) -> Dict[str, float]:
@@ -180,7 +408,9 @@ class PerformanceProfiler:
     def trace(self, logdir: str) -> Iterator[Any]:
         """Profile the block with torch.profiler (CPU, and CUDA where there
         is a device) and write `<logdir>/trace.pt.trace.json`; yields the
-        profiler, whose events `device_breakdown` reads after the block."""
+        profiler, whose events `device_breakdown` reads after the block.
+        The span store is cleared as it starts, so that `span_summary()`
+        after the block reads the block's spans."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -188,6 +418,7 @@ class PerformanceProfiler:
             activities.append(ProfilerActivity.CUDA)
         Path(logdir).mkdir(parents=True, exist_ok=True)
         prof = profile(activities=activities)
+        clear_spans()
         prof.start()
         try:
             yield prof
@@ -201,13 +432,19 @@ class PerformanceProfiler:
     def device_breakdown(prof: Any, top: int = 10) -> Dict[str, Any]:
         """From a finished `trace`: the `top` device ops by their summed
         device time (ms, with their counts), the device's busy time (the
-        union of its ops' intervals) and its share of the traced window
-        (first event's start to last event's end, on the profiler's
-        clock). `busy_share` is None when the trace holds no device op."""
+        union of its kernels' and copies' intervals; a profiler range
+        mirrored onto the device's timeline is not work) and its share of
+        the traced window (first event's start to last event's end, on the
+        profiler's clock), and `idle_by_span`: the window's idle ms split
+        over the innermost recorder span open at each instant on the
+        thread that launched the device's work (`launching_thread`),
+        `NO_SPAN` where none was, summing to the idle time. `busy_share` is
+        None when the trace holds no device op."""
         from torch.autograd import DeviceType
 
         events = list(prof.events())
-        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
         by_name: Dict[str, List[float]] = {}
         for e in device:
             d = by_name.setdefault(e.name, [0.0, 0])
@@ -215,22 +452,27 @@ class PerformanceProfiler:
             d[1] += 1
         ops = sorted(({"name": n, "ms": v[0], "count": v[1]} for n, v in by_name.items()),
                      key=lambda r: -r["ms"])[:top]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-        busy, cur_s, cur_e = 0.0, None, None
-        for s, e in spans:
-            if cur_e is None or s > cur_e:
-                if cur_e is not None:
-                    busy += cur_e - cur_s
-                cur_s, cur_e = s, e
+        merged: List[Tuple[float, float]] = []
+        for s, e in sorted((e.time_range.start, e.time_range.end) for e in device):
+            if merged and s <= merged[-1][1]:
+                merged[-1] = (merged[-1][0], max(merged[-1][1], e))
             else:
-                cur_e = max(cur_e, e)
-        if cur_e is not None:
-            busy += cur_e - cur_s
-        window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-                  if events else 0.0)
+                merged.append((s, e))
+        busy = sum(e - s for s, e in merged)
+        w0 = min((e.time_range.start for e in events), default=0.0)
+        w1 = max((e.time_range.end for e in events), default=0.0)
+        window = w1 - w0
+        host = [e for e in events if e.device_type == DeviceType.CPU]
+        marked = [e for e in host if e.name in _NAMES]
+        thread = launching_thread(host, marked)
+        ranges = [(e.time_range.start, e.time_range.end, e.name) for e in marked
+                  if e.thread == thread]
+        idle = idle_by_span(merged, (w0, w1), ranges) if events else {}
         return {"top_ops": ops, "device_ops": len(device), "busy_ms": busy / 1e3,
                 "window_ms": window / 1e3,
-                "busy_share": busy / window if device and window > 0 else None}
+                "busy_share": busy / window if device and window > 0 else None,
+                "idle_by_span": {k: v / 1e3 for k, v in
+                                 sorted(idle.items(), key=lambda kv: -kv[1])}}
 
     # ---------------------------------------------------------- composite
     def run_full_benchmark(self, apply_fn: Callable, variables: Any,
